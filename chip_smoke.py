@@ -3,19 +3,33 @@
 
     python3 chip_smoke.py            # from the repository root
 
+The main path is walk_imitation's batched step at both solver presets, the
+counterpart of the JAX package run with FLYBODY_NO_PALLAS=narrow,mpr,
+efcstage (its dispatch gate, flybody_tpu/ops/dispatch.py): collision and
+the contact rows in their plain form, every other TPU kernel of the step
+by a hand-written CUDA kernel here.
+
 Phases (any failure exits non-zero):
   1. device: require CUDA; print the card's name and power limit;
-  2. build: compile the four stage kernels (csrc/*.cu) with nvcc;
+  2. build: compile the kernels (csrc/*.cu) with nvcc, one process each;
   3. kernels: each kernel against its plain PyTorch version on the card at
-     the main path's shapes (batch 8192, float32), with errors and times;
-  4. main path: walk_imitation(functional=True) reset + 5 control steps at
-     batch 8192, default solver preset; state finite; every kernel's
-     launch count equal to the expected per-step count; env-steps/s;
-  5. CPU check: 64 envs of the reset state stepped once on the CPU (plain
-     versions) against the card's step: qpos, qvel, act and every
-     observation.
-The last line is {"ok": true, "device": {...}}; the line before it holds
-the per-kernel JSON, and details go to chiprun_out/chip_smoke.json.
+     the main path's shapes (batch 8192, float32), with errors and times:
+     the stage kernels K1-K4; the Newton block (row 8 of PERF.md's kernel
+     table) and the fused noslip (row 11) on the rows and factor of a
+     default-preset forward pass; the whole Newton solve (row 9) and the
+     noslip on 16 slots on a bench-preset forward pass. The Newton kernels
+     are held per env (newton_checks), beside readings of the plain
+     version at float64 and of deliberately wrong controls;
+  4. main path, at each preset (default, bench): walk_imitation(
+     functional=True) reset + 5 control steps at batch 8192; state finite;
+     every kernel's launch count equal to the expected count; env-steps/s;
+  5. CPU check, at each preset: 64 envs of the reset state stepped once on
+     the CPU (plain versions) against the card's step, per env (cpu_phase;
+     read, not held, at the bench preset), and one substep's forward pass
+     from the card's stepped state on both (substep_phase).
+The last line is {"ok": true, "device": {...}}; the two lines before it
+hold the per-kernel JSON and the card's name and power limit, and details
+go to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -38,13 +52,50 @@ TPU_REFS = {  # the TPU kernel each port replaces
     'force_stage': 'flybody_tpu/ops/force_stage.py:697',
     'arrow_factor_solve': 'flybody_tpu/ops/arrow.py:585',
     'sens_stage': 'flybody_tpu/ops/sens_stage.py:253',
+    'newton_block': 'flybody_tpu/ops/newton_fused.py:461',
+    'newton_solve': 'flybody_tpu/ops/newton_fused.py:1038',
+    'noslip_fused': 'flybody_tpu/ops/noslip_gs.py:227',
 }
 SOURCES = {
     'pos_stage': 'flybody_tpu_torch/csrc/pos_stage.cu',
     'force_stage': 'flybody_tpu_torch/csrc/force_stage.cu',
     'arrow_factor_solve': 'flybody_tpu_torch/csrc/arrow.cu',
     'sens_stage': 'flybody_tpu_torch/csrc/sens_stage.cu',
+    'newton_block': 'flybody_tpu_torch/csrc/newton.cu',
+    'newton_solve': 'flybody_tpu_torch/csrc/newton.cu',
+    'noslip_fused': 'flybody_tpu_torch/csrc/noslip.cu',
 }
+PRESETS = ('default', 'bench')
+# Launches of each kernel on the main path: reset (pos_stage once), then
+# per control step (10 substeps).
+PER_STEP = {
+    'default': {'pos_stage': 11, 'force_stage': 10, 'arrow_factor_solve': 20,
+                'sens_stage': 10, 'newton_block': 100, 'newton_solve': 0,
+                'noslip_fused': 10},
+    'bench': {'pos_stage': 11, 'force_stage': 10, 'arrow_factor_solve': 20,
+              'sens_stage': 10, 'newton_block': 0, 'newton_solve': 10,
+              'noslip_fused': 10},
+}
+# The Newton kernels against their plain versions (newton_checks), per env:
+# a few envs end on another point than the plain version's, as the plain
+# float32 version does against itself at float64 (PERF.md section 6).
+# At 30 line-search steps the share of envs whose outputs all agree to
+# NEWTON_ENV_TOL (relative to each dof's / row's / slot's scale) is at
+# least NEWTON_ENV_SHARE, and the kernel's share against the plain version
+# at float64 is at most F64_SHARE_SLACK (and 4 envs) below the plain
+# float32 version's.
+# At the preset's own steps the per-env primal cost and net normal contact
+# force agree in distribution: their median env relative difference and
+# the relative difference of their batch means are at most COST_REL_TOL.
+# Each limit lies between the kernel's reading and those of the controls
+# newton_checks also prints (a wrong Hessian rounding, a wrong trip
+# count), measured on an NVIDIA H100 (PERF.md section 6).
+NEWTON_ENV_TOL = 1e-3
+NEWTON_ENV_SHARE = 0.98
+F64_SHARE_SLACK = 0.005
+COST_REL_TOL = {'newton_block': (1e-5, 1e-2),  # (median env, batch mean)
+                'newton_solve': (2e-3, 8e-3)}
+NOSLIP_REL_TOL = 1e-3  # per-index rel. error of the noslip kernel
 
 
 def log(*a):
@@ -229,8 +280,254 @@ def kernel_phase(env, batch, seed, report):
     entry('sens_stage', err, ms, pms, nbytes(sargs) + nbytes([out4]), fl)
     log(f'sens_stage: {ms:.3f} ms kernel, {pms:.3f} ms plain; active '
         f'contacts per env {efc.con_active.sum(1).mean().item():.2f}')
+
+    data_in = state.data.replace(qpos=qpos, qvel=qvel, act=act, ctrl=ctrl)
+    solver_kernels(model, data_in, entry, report)
     report['kernel_checks'] = kernels
     return kernels
+
+
+def arrow_flops(part, nrhs: int, factor: bool) -> float:
+    """Operations of a packed arrow substitution of nrhs right-hand sides,
+    plus the factor if asked."""
+    nr = part.nr
+    fl = nrhs * (sum(2 * d * d + 4 * d * nr for d in part.ds) + 2 * nr * nr)
+    if factor:
+        fl += sum(d ** 3 / 3 + d * d * nr for d in part.ds)
+        fl += nr * nr * sum(part.ds) + nr ** 3 / 3
+    return fl
+
+
+def newton_flops(part, K, L, SB3, n_iters, ls_iters, whole: bool) -> float:
+    """Operations of one env's Newton block (whole: with the Hessian and
+    Woodbury assembly and the closing forces)."""
+    nv, R3 = part.nv, 3 * K
+    msize = (len(part.ds) + 1) * (part.dmax + part.nr) * part.dmax
+    ls_eval = 8 * L + 60 * K
+    it = (4 * R3 * nv + arrow_flops(part, 1, False) + 4 * SB3 * nv
+          + 2 * SB3 * SB3 + 2 * msize + 8 * nv
+          + (6 + 2 * ls_iters + 1) * ls_eval)
+    fl = (arrow_flops(part, SB3, True) + SB3 * SB3 * nv + SB3 ** 3 / 2
+          + n_iters * it)
+    if whole:
+        live = (sum(d * (d + 1) / 2 + part.nr * d for d in part.ds)
+                + part.nr * (part.nr + 1) / 2)
+        fl += (4 * R3 * nv + 2 * msize + 6 * R3 * nv + 2 * live * R3
+               + 2 * SB3 * nv + 2 * R3 * nv + 4 * ls_eval)
+    return fl
+
+
+def cost_force(part, efc, ops, M, a_free, x, f_n):
+    """Per-env primal cost at x and net normal contact force."""
+    from flybody_tpu_torch.ops import newton_fused as nf
+    c = nf.primal_cost(part, efc.lim_dof, efc.lim_sign, M, ops.conJ, a_free,
+                       efc.lim_aref, efc.con_aref, ops.lim_params,
+                       ops.con_params, x)
+    return c.double(), f_n.sum(-1).double()
+
+
+def cost_force_stats(got, want):
+    """For the primal cost and the net normal force: the median env
+    relative difference and the relative difference of the batch means."""
+    out = {}
+    for what, a, b in zip(('cost', 'force'), got, want):
+        env_rel = (a - b).abs() / b.abs().clamp(
+            min=1e-6 * b.abs().max().item() + 1e-30)
+        out[what] = dict(median_env=env_rel.median().item(),
+                         batch_mean=((a.mean() - b.mean()).abs()
+                                     / b.abs().mean().clamp(min=1e-30)).item())
+    return out
+
+
+def env_err(outs, refs):
+    """Per env, the largest error of any output relative to the scale of
+    its index on axis 1 (each dof / row / slot / channel, as `compare`
+    scales), outputs flattened past axis 1."""
+    import torch
+    worst = None
+    for o, r in zip(outs, refs):
+        if r.dim() == 1:
+            o, r = o[:, None], r[:, None]
+        o = o.double().reshape(o.shape[0], o.shape[1], -1)
+        r = r.double().reshape(r.shape[0], r.shape[1], -1)
+        scale = r.abs().amax(dim=(0, 2))
+        scale = scale.clamp(min=max(1e-6 * scale.max().item(), 1e-30))
+        e = ((o - r).abs() / scale[None, :, None]).flatten(1).amax(1)
+        worst = e if worst is None else torch.maximum(worst, e)
+    return worst
+
+
+def share(err, tol=NEWTON_ENV_TOL) -> float:
+    return (err <= tol).double().mean().item()
+
+
+def f64(args):
+    """The same arguments with every float tensor in float64."""
+    import torch
+    return tuple(a.double() if torch.is_tensor(a) and a.is_floating_point()
+                 else a for a in args)
+
+
+def bf16_hessian_solve_ref(*args):
+    """newton_solve_ref with the split form's bf16-rounded J^T W J: a
+    control, what a whole-solve kernel that rounded like row 8 would give."""
+    from flybody_tpu_torch.ops import newton_fused as nf
+    orig = nf.assemble_hessian
+    nf.assemble_hessian = lambda *a, bf16: orig(*a, bf16=True)
+    try:
+        return nf.newton_solve_ref(*args)
+    finally:
+        nf.assemble_hessian = orig
+
+
+def newton_checks(name, kernel, plain, args, ls, n_it, controls, stats):
+    """A Newton kernel against its plain version, with the readings of the
+    plain version at float64 and of the controls (deliberately wrong
+    versions: name -> fn(ls, n_it) giving their outputs), at 30
+    line-search steps per env and at the preset's steps by primal cost
+    and net normal force (`stats(outs)` -> (cost, force) per env)."""
+    o30, r30 = kernel(*args, 30, n_it), plain(*args, 30, n_it)
+    r64 = plain(*f64(args), 30, n_it)
+    e_kp, e_p64, e_k64 = env_err(o30, r30), env_err(r30, r64), env_err(o30,
+                                                                      r64)
+    bad = e_kp > NEWTON_ENV_TOL
+    rd = dict(kernel_vs_plain=share(e_kp), plain_vs_f64=share(e_p64),
+              kernel_vs_f64=share(e_k64),
+              median_env=e_kp.median().item(),
+              disagreeing=int(bad.sum()),
+              disagreeing_where_plain_departs_from_f64=int(
+                  (bad & (e_p64 > NEWTON_ENV_TOL)).sum()))
+    outs = [fn(*args, ls, n_it) for fn in (kernel, plain)]
+    want = stats(outs[1])
+    rd['preset_steps'] = cost_force_stats(stats(outs[0]), want)
+    for cname, fn in controls.items():
+        rd[f'control {cname}'] = dict(
+            kernel_vs_plain=share(env_err(fn(30, n_it), r30)),
+            preset_steps=cost_force_stats(stats(fn(ls, n_it)), want))
+    log(f'  {name} readings (share of envs within {NEWTON_ENV_TOL:.0e} at '
+        f'ls 30; cost / force at the preset\'s {ls} steps): '
+        + json.dumps(rd))
+    if not rd['kernel_vs_plain'] >= NEWTON_ENV_SHARE:
+        raise AssertionError(f'{name}: only {rd["kernel_vs_plain"]:.4f} of '
+                             f'the envs agree at ls 30')
+    slack = max(F64_SHARE_SLACK, 4 / len(e_kp))
+    if not rd['kernel_vs_f64'] >= rd['plain_vs_f64'] - slack:
+        raise AssertionError(f'{name}: further from float64 than the plain '
+                             f'version: {rd}')
+    med_tol, mean_tol = COST_REL_TOL[name]
+    for what, v in rd['preset_steps'].items():
+        if not (v['median_env'] <= med_tol and v['batch_mean'] <= mean_tol):
+            raise AssertionError(f'{name}: {what} at the preset\'s steps '
+                                 f'differs: {v}')
+    return o30, r30, outs[0], rd
+
+
+def solver_kernels(model, data_in, entry, report):
+    """Rows 8, 9 and 11 against their plain versions on the rows, factor
+    and forces of real forward passes at both presets."""
+    from flybody_tpu_torch.ops import arrow
+    from flybody_tpu_torch.ops import newton_fused as nf
+    from flybody_tpu_torch.ops import noslip_gs as ng
+    from flybody_tpu_torch.physics import engine, solver
+
+    part = arrow.build_partition(model.meta)
+    batch = data_in.qpos.shape[0]
+    for preset in PRESETS:
+        cfg = engine.PRESETS[preset]
+        d, efc, f_c = engine.fwd_acc(model, data_in, cfg)
+        a_free = arrow.solve_ref(part, d.qLD, d.qfrc_smooth)
+        ops = solver.operands(efc, cfg['sb_break'])
+        K, L = efc.con_J.shape[1], len(efc.lim_dof)
+        ls = cfg['ls_iterations']
+        log(f'{preset} forward pass: {K} slots, active contacts per env '
+            f'{efc.con_active.sum(1).mean().item():.2f}, cross-limb '
+            f'{ops.brk.sum(1).mean().item():.2f}')
+        if preset == 'default':  # row 8, one iteration a block
+            st = solver.start_state(part, d.qM, efc, ops, a_free, d.qacc)
+            args = solver.block_args(part, d.qM, efc, ops, st)
+            # Control: the kernel given the Hessian without the bf16
+            # rounding the plain version applies.
+            Hp32 = nf.assemble_hessian(
+                part, d.qM, ops.conJ, efc.lim_dof,
+                efc.lim_D * efc.lim_active * (st[2] < 0),
+                nf.cone_hessian(st[3], efc.con_mu, efc.con_frictional,
+                                ops.hess_active) * efc.con_D[..., None, None],
+                bf16=False)
+            args32 = args[:3] + (Hp32,) + args[4:]
+
+            def stats(o):
+                fc = -efc.con_D[..., None] * nf.cone_residual(
+                    o[3], efc.con_mu, efc.con_frictional, efc.con_active)
+                return cost_force(part, efc, ops, d.qM, a_free, o[0],
+                                  fc[..., 0])
+            controls = {
+                'float32 Hessian (no bf16 rounding)':
+                    lambda ls_, n: nf.newton_block(*args32, ls_, n),
+                'one iteration more':
+                    lambda ls_, n: nf.newton_block(*args, ls_, n + 1)}
+            o30, r30, out, rd = newton_checks(
+                'newton_block', nf.newton_block, nf.newton_block_ref, args,
+                ls, 1, controls, stats)
+            err, _ = compare('newton_block[ls 30]', o30, r30,
+                             ('x', 'msm', 'jar_l', 'jar_c'))
+            ms = cuda_ms(lambda: nf.newton_block(*args, ls, 1), 20)
+            pms = cuda_ms(lambda: nf.newton_block_ref(*args, ls, 1), 3)
+            SB3 = args[6].shape[1]
+            entry('newton_block', err, ms, pms,
+                  nbytes(args[3:]) + nbytes(out),
+                  batch * newton_flops(part, K, L, SB3, 1, ls, False))
+            log(f'newton_block: {ms:.3f} ms kernel, {pms:.3f} ms plain '
+                f'(K {K}, 3SB {SB3}, ls {ls}, 1 iteration)')
+        else:  # row 9, the whole solve
+            it = cfg['solver_iterations']
+            args = solver.solve_args(part, d.qM, efc, ops, a_free, d.qacc)
+
+            def stats(o):
+                return cost_force(part, efc, ops, d.qM, a_free, o[0],
+                                  o[3][..., 0])
+            controls = {
+                'bf16-rounded Hessian':
+                    lambda ls_, n: bf16_hessian_solve_ref(*args, ls_, n),
+                'one iteration fewer':
+                    lambda ls_, n: nf.newton_solve(*args, ls_, n - 1)}
+            o30, r30, out, rd = newton_checks(
+                'newton_solve', nf.newton_solve, nf.newton_solve_ref, args,
+                ls, it, controls, stats)
+            err, _ = compare('newton_solve[ls 30]', o30, r30,
+                             ('qacc', 'qfrc', 'f_l', 'f_c'))
+            ms = cuda_ms(lambda: nf.newton_solve(*args, ls, it), 20)
+            pms = cuda_ms(lambda: nf.newton_solve_ref(*args, ls, it), 3)
+            SB = args[5].shape[1]
+            entry('newton_solve', err, ms, pms,
+                  nbytes(args[3:]) + nbytes(out),
+                  batch * newton_flops(part, K, L, 3 * SB, it, ls, True))
+            log(f'newton_solve: {ms:.3f} ms kernel, {pms:.3f} ms plain '
+                f'(K {K}, SB {SB}, ls {ls}, {it} iterations)')
+        report[f'newton_readings_{preset}'] = rd
+
+        # Row 11 on the slots the preset sweeps.
+        nargs = solver.noslip_operands(d.qLD, efc, d.qacc, f_c,
+                                       cfg['noslip_contacts'])
+        ns = nargs[1].shape[1]
+        out = ng.noslip_fused(part, *nargs, 3)
+        err, rel = compare(f'noslip_fused[{ns} slots]', out,
+                           ng.noslip_fused_ref(part, *nargs, 3),
+                           ('x', 'ft'))
+        if not rel <= NOSLIP_REL_TOL:
+            raise AssertionError(f'noslip_fused disagrees: {rel:.3e}')
+        ms = cuda_ms(lambda: ng.noslip_fused(part, *nargs, 3), 20)
+        pms = cuda_ms(lambda: ng.noslip_fused_ref(part, *nargs, 3), 3)
+        fl = batch * (arrow_flops(part, 2 * ns, False)
+                      + 8 * ns * part.nv + 3 * ns * 8 * part.nv)
+        byts = nbytes(nargs) + nbytes(out)
+        report[f'noslip_{preset}'] = dict(slots=ns, ms=ms, plain_ms=pms,
+                                          bytes=byts, max_abs_err=err,
+                                          rel_err=rel)
+        if preset == 'default':
+            entry('noslip_fused', err, ms, pms, byts, fl)
+        log(f'noslip_fused ({preset}, {ns} slots): {ms:.3f} ms kernel, '
+            f'{pms:.3f} ms plain, bound '
+            f'{max(byts / HBM_BYTES_PER_S, fl / FP32_FLOPS) * 1e3:.4f} ms')
 
 
 def unpack(part, Mp):
@@ -246,22 +543,32 @@ def unpack(part, Mp):
     return A
 
 
-def main_path_phase(batch, steps, cpu_envs, seed, report):
+def counters():
+    """Each kernel's launch counter: (module, attribute)."""
+    from flybody_tpu_torch.ops import (arrow, force_stage, newton_fused,
+                                       noslip_gs, pos_stage, sens_stage)
+    return {'pos_stage': (pos_stage, 'launches'),
+            'force_stage': (force_stage, 'launches'),
+            'arrow_factor_solve': (arrow, 'launches'),
+            'sens_stage': (sens_stage, 'launches'),
+            'newton_block': (newton_fused, 'launches'),
+            'newton_solve': (newton_fused, 'solve_launches'),
+            'noslip_fused': (noslip_gs, 'launches')}
+
+
+def main_path_phase(preset, batch, steps, cpu_envs, seed, report):
     """walk_imitation reset + `steps` control steps on the card."""
     import torch
     from flybody_tpu_torch.envs import fly_envs
-    from flybody_tpu_torch.ops import arrow, force_stage, pos_stage, sens_stage
-    mods = {'pos_stage': pos_stage, 'force_stage': force_stage,
-            'arrow_factor_solve': arrow, 'sens_stage': sens_stage}
-    env = fly_envs.walk_imitation(functional=True)
+    env = fly_envs.walk_imitation(functional=True, preset=preset)
     g = torch.Generator(device='cpu').manual_seed(seed)
     lo = torch.as_tensor(env.action_min, dtype=torch.float32)
     hi = torch.as_tensor(env.action_max, dtype=torch.float32)
     actions = [(lo + (hi - lo) * torch.rand(batch, len(lo), generator=g)
                 ).cuda() for _ in range(steps)]
-    for m in mods.values():
-        m.launches = 0
     torch.cuda.synchronize()
+    for m, attr in counters().values():
+        setattr(m, attr, 0)
     t0 = time.perf_counter()
     state, ts = env.reset(batch, generator=torch.Generator().manual_seed(
         seed))
@@ -279,38 +586,51 @@ def main_path_phase(batch, steps, cpu_envs, seed, report):
                      for f in ('qpos', 'qvel', 'act')}
             first.update({f'obs/{k}': v[:cpu_envs].cpu()
                           for k, v in ts.observation.items()})
-    launches = {n: m.launches for n, m in mods.items()}
-    per_step = {'pos_stage': 11, 'force_stage': 10,
-                'arrow_factor_solve': 20, 'sens_stage': 10}
+            data1 = state.data.index(slice(0, cpu_envs))
+    launches = {n: getattr(m, attr) for n, (m, attr) in counters().items()}
     expect = {n: c * steps + (1 if n == 'pos_stage' else 0)
-              for n, c in per_step.items()}
-    log(f'main path: launches {launches} (expected {expect})')
+              for n, c in PER_STEP[preset].items()}
+    log(f'main path [{preset}]: launches {launches} (expected {expect})')
     if launches != expect:
-        raise AssertionError(f'launch counts {launches} != {expect}')
+        raise AssertionError(f'{preset}: launch counts {launches} != '
+                             f'{expect}')
     d = state.data
     for name in ('qpos', 'qvel', 'act', 'qacc'):
         if not torch.isfinite(getattr(d, name)).all():
-            raise AssertionError(f'non-finite {name} after {steps} steps')
+            raise AssertionError(f'{preset}: non-finite {name} after '
+                                 f'{steps} steps')
     for k, v in ts.observation.items():
         if not torch.isfinite(v).all():
-            raise AssertionError(f'non-finite observation {k}')
+            raise AssertionError(f'{preset}: non-finite observation {k}')
     first_timed = 2 if steps > 1 else 1
     steady = step_times[first_timed - 1:]
     rate = batch * len(steady) / sum(steady)
-    log(f'main path: reset {t_reset:.3f} s, step times '
+    log(f'main path [{preset}]: reset {t_reset:.3f} s, step times '
         f'{[round(t, 4) for t in step_times]} s, {rate:.1f} env-steps/s '
         f'(steps {first_timed}..{steps}, batch {batch})')
-    report['main_path'] = dict(batch=batch, steps=steps, reset_s=t_reset,
-                               step_s=step_times, env_steps_per_s=rate,
-                               launches=launches)
-    return env, state0, actions[0], first, launches
+    report[f'main_path_{preset}'] = dict(
+        batch=batch, steps=steps, reset_s=t_reset, step_s=step_times,
+        env_steps_per_s=rate, launches=launches)
+    return state0, actions[0], first, (env.model, data1), launches
 
 
-def cpu_phase(state0, action, first, cpu_envs, report):
-    """The first control step of `cpu_envs` envs, re-run on the CPU."""
-    import torch
+CPU_TOL = 1e-3  # card vs CPU, relative to each index's scale (env_err)
+CPU_ENV_SHARE = 0.98  # share of the CPU_ENVS envs that must agree
+NUDGE = 1e-6  # relative change of the root position: the CPU's own spread
+
+
+def cpu_phase(preset, state0, action, first, cpu_envs, report):
+    """The first control step of `cpu_envs` envs, re-run on the CPU, and
+    again with the root position scaled by 1 + NUDGE. Per env, every field
+    and observation (each index against its scale, as env_err) agrees to
+    CPU_TOL in at least CPU_ENV_SHARE of the envs, and per field the
+    largest error is within CPU_TOL of the field's largest value. The
+    bench preset's step cannot meet this: the CPU's own step moves by O(1)
+    under the nudge in nearly every env (PERF.md section 6), so there the
+    readings are printed and the gate is substep_phase's."""
     from flybody_tpu_torch.envs import fly_envs
-    env = fly_envs.walk_imitation(functional=True, device='cpu')
+    env = fly_envs.walk_imitation(functional=True, preset=preset,
+                                  device='cpu')
     n = cpu_envs
     task = type(state0.task)(traj_idx=state0.task.traj_idx[:n].cpu(),
                              episode_steps=state0.task.episode_steps[:n].cpu())
@@ -318,22 +638,86 @@ def cpu_phase(state0, action, first, cpu_envs, report):
                         step_idx=state0.step_idx[:n].cpu(),
                         prev_action=state0.prev_action[:n].cpu(), task=task)
     t0 = time.perf_counter()
-    st, ts = env.step(st, action[:n].cpu())
+    out = env.step(st, action[:n].cpu())
     t = time.perf_counter() - t0
-    # Each state field and observation (the observations carry the
-    # substep-mean sensors, K4's output) against the card's, relative to
-    # its largest magnitude there.
-    errs = {}
-    for name, gpu in first.items():
-        cpu = (ts.observation[name[4:]] if name.startswith('obs/')
-               else getattr(st.data, name))
-        errs[name] = ((cpu - gpu).abs().max()
-                      / gpu.abs().max().clamp(min=1e-30)).item()
-    log(f'cpu check ({n} envs, {t:.1f} s): rel err {errs}')
-    report['cpu_check'] = errs
-    bad = {k: e for k, e in errs.items() if not e <= 1e-3}
-    if bad:
-        raise AssertionError(f'card and CPU disagree: {bad}')
+    qpos = st.data.qpos.clone()
+    qpos[:, :3] *= 1.0 + NUDGE
+    out2 = env.step(st.replace(data=st.data.replace(qpos=qpos)),
+                    action[:n].cpu())
+
+    def field(o, name):
+        return (o[1].observation[name[4:]] if name.startswith('obs/')
+                else getattr(o[0].data, name))
+
+    names = list(first)
+    cpu = [field(out, k) for k in names]
+    errs = {k: ((c - first[k]).abs().max()
+                / first[k].abs().max().clamp(min=1e-30)).item()
+            for k, c in zip(names, cpu)}
+    e_card = env_err([first[k] for k in names], cpu)
+    e_self = env_err([field(out2, k) for k in names], cpu)
+    rd = dict(field_rel_err=errs, card_share=share(e_card, CPU_TOL),
+              nudge_share=share(e_self, CPU_TOL),
+              median_env_card=e_card.median().item(),
+              median_env_nudge=e_self.median().item())
+    log(f'cpu check [{preset}] ({n} envs, {t:.1f} s): share of envs within '
+        f'{CPU_TOL:.0e}: card {rd["card_share"]:.4f}, CPU under a '
+        f'{NUDGE:.0e} root nudge {rd["nudge_share"]:.4f} (median env '
+        f'{rd["median_env_card"]:.2e} / {rd["median_env_nudge"]:.2e}); '
+        f'field rel err {errs}')
+    report[f'cpu_check_{preset}'] = rd
+    if preset == 'bench':
+        return
+    worst = max(errs.values())
+    if not (rd['card_share'] >= CPU_ENV_SHARE and worst <= CPU_TOL):
+        raise AssertionError(f'{preset}: card and CPU disagree: share '
+                             f'{rd["card_share"]:.4f}, worst field {worst}')
+
+
+def substep_phase(preset, model, data1, report):
+    """One substep (engine.step: collision at the preset's broadphase
+    widths, constraint rows, the Newton kernel through the solver's wiring,
+    the noslip on the preset's prefix and its qfrc update, sensors, Euler)
+    on the card and on the CPU, from the card's state after the first
+    control step, at the preset but for 30 line-search steps (where the
+    search closes). Per env qpos, qvel, qacc and sensordata agree to
+    CPU_TOL (env_err), and the forward pass's primal cost and net normal
+    force to CPU_TOL of their own value, each in at least CPU_ENV_SHARE of
+    the envs."""
+    from flybody_tpu_torch.model import spec
+    from flybody_tpu_torch.ops import arrow
+    from flybody_tpu_torch.physics import engine, solver
+    cfg = dict(engine.PRESETS[preset], ls_iterations=30)
+    part = arrow.build_partition(model.meta)
+    names = ('qpos', 'qvel', 'qacc', 'sensordata')
+    res = []
+    for m, d in ((model, data1),
+                 (spec.load(spec.WALK_IMITATION_NPZ, device='cpu'),
+                  data1.to('cpu'))):
+        out = engine.step(m, d, cfg)
+        dd, efc, f_c = engine.fwd_acc(m, d, cfg)
+        a_free = arrow.solve_ref(part, dd.qLD, dd.qfrc_smooth)
+        ops = solver.operands(efc, cfg['sb_break'])
+        res.append([getattr(out, k).cpu() for k in names] + [
+            t.cpu() for t in cost_force(part, efc, ops, dd.qM, a_free,
+                                        dd.qacc, f_c[..., 0])])
+    card, cpu = res
+    rd = {f'{k}_share': share(env_err([a], [b]), CPU_TOL)
+          for k, a, b in zip(names, card, cpu)}
+    rd['median_env'] = env_err(card[:4], cpu[:4]).median().item()
+    for what, a, b in (('cost', card[4], cpu[4]),
+                       ('force', card[5], cpu[5])):
+        rel = (a - b).abs() / b.abs().clamp(
+            min=1e-6 * b.abs().max().item() + 1e-30)
+        rd[f'{what}_share'] = share(rel, CPU_TOL)
+    log(f'substep check [{preset}, ls 30] ({data1.qpos.shape[0]} envs): '
+        + json.dumps(rd))
+    report[f'substep_check_{preset}'] = rd
+    low = {k: v for k, v in rd.items()
+           if k.endswith('_share') and not v >= CPU_ENV_SHARE}
+    if low:
+        raise AssertionError(f'{preset}: card and CPU disagree in one '
+                             f'substep: {low}')
 
 
 def main() -> int:
@@ -365,11 +749,18 @@ def main() -> int:
     kernels = kernel_phase(env, BATCH, SEED, report)
     del env
     torch.cuda.empty_cache()
-    _, state0, action, first, launches = main_path_phase(
-        BATCH, STEPS, CPU_ENVS, SEED, report)
-    for k in kernels:
-        k['launches'] = launches[k['name']]
-    cpu_phase(state0, action, first, CPU_ENVS, report)
+    total = {n: 0 for n in SOURCES}
+    for preset in PRESETS:
+        state0, action, first, (model, data1), launches = main_path_phase(
+            preset, BATCH, STEPS, CPU_ENVS, SEED, report)
+        for n, c in launches.items():
+            total[n] += c
+        cpu_phase(preset, state0, action, first, CPU_ENVS, report)
+        substep_phase(preset, model, data1, report)
+        del state0, model, data1
+        torch.cuda.empty_cache()
+    for k in kernels:  # launches over both presets' main-path runs
+        k['launches'] = total[k['name']]
 
     if 'jax' in sys.modules or any(m.startswith('flybody_tpu.')
                                    or m == 'flybody_tpu'

@@ -25,6 +25,8 @@ from flybody_tpu_torch.utils import quaternions as quat
 
 FIRST, MID, LAST = 0, 1, 2
 
+PRESETS = engine.PRESETS  # the named solver settings
+
 TERMINAL_QACC = 1e14
 TERMINAL_LINVEL = 50.0
 TERMINAL_ANGVEL = 200.0
@@ -66,10 +68,7 @@ class FruitFlyEnv:
                  control_timestep: float = 2e-3,
                  physics_timestep: float = 1e-4,
                  time_limit: float = 1.0,
-                 solver_iterations: int = 10,
-                 ls_iterations: int = 8,
-                 ncon_max: int = 64,
-                 refactor_period: int = 1,
+                 preset: str = 'default',
                  extra_observables=()):
         self.model = model
         self.tables = walker_lib.build_tables(model.meta, num_user_actions)
@@ -80,10 +79,10 @@ class FruitFlyEnv:
         self.physics_timestep = physics_timestep
         self.time_limit = time_limit
         self.max_steps = int(round(time_limit / control_timestep))
-        self.engine_kwargs = dict(solver_iterations=solver_iterations,
-                                  ls_iterations=ls_iterations,
-                                  ncon_max=ncon_max,
-                                  refactor_period=refactor_period)
+        if preset not in PRESETS:
+            raise KeyError(f'unknown solver preset {preset!r}; one of '
+                           f'{sorted(PRESETS)}')
+        self.preset = PRESETS[preset]
         self.extra_observables = tuple(extra_observables)
 
     # ---------------------------------------------------------------- hooks
@@ -120,7 +119,7 @@ class FruitFlyEnv:
         data = data.replace(ctrl=ctrl)
         total = None
         for _ in range(self.n_sub):
-            out = engine.step(self.model, data, **self.engine_kwargs)
+            out = engine.step(self.model, data, self.preset)
             sens = torch.cat([out.sensordata,
                               out.self_contact_force[:, None]], -1)
             total = sens if total is None else total + sens

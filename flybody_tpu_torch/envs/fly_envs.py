@@ -24,12 +24,13 @@ WALK_IMITATION_OBS = WALK_OBS + ['walker/ref_displacement',
                                  'walker/ref_root_quat']
 
 
-def walk_imitation(functional: bool = True, device=None,
-                   dtype: torch.dtype = torch.float32,
+def walk_imitation(functional: bool = True, preset: str = 'default',
+                   device=None, dtype: torch.dtype = torch.float32,
                    terminal_com_dist: float = 0.3, future_steps: int = 64,
                    **env_kwargs) -> WalkImitationEnv:
     """Batched walking imitation on the synthetic trajectory. Runs on CUDA
-    unless `device` says otherwise; float32 by default."""
+    unless `device` says otherwise; float32 by default. `preset` names the
+    solver setting (physics/engine.py PRESETS: 'default' or 'bench')."""
     if not functional:
         raise NotImplementedError('the dm_env adapter is not ported yet; '
                                   'use functional=True')
@@ -38,4 +39,4 @@ def walk_imitation(functional: bool = True, device=None,
                                              dtype=dtype)
     return WalkImitationEnv(model, store, terminal_com_dist=terminal_com_dist,
                             future_steps=future_steps, inference_mode=True,
-                            time_limit=10.0, **env_kwargs)
+                            time_limit=10.0, preset=preset, **env_kwargs)

@@ -21,7 +21,8 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD = os.path.join(_PKG, '_build')
-SOURCES = ('pos_stage', 'force_stage', 'arrow', 'sens_stage')
+SOURCES = ('pos_stage', 'force_stage', 'arrow', 'sens_stage', 'newton',
+           'noslip')
 
 _libs: dict = {}
 _fns: dict = {}
@@ -38,8 +39,11 @@ def nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
+    """The library's path, named by a hash of its source and of every
+    header in csrc/ (so an edit to any header rebuilds)."""
     h = hashlib.sha1()
-    for fn in (f'{name}.cu', 'common.cuh'):
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith('.cuh'))
+    for fn in [f'{name}.cu'] + headers:
         with open(os.path.join(CSRC, fn), 'rb') as f:
             h.update(f.read())
     return os.path.join(BUILD, f'lib{name}_{h.hexdigest()[:12]}.so')
@@ -99,12 +103,13 @@ def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def check(t: torch.Tensor, shape, what: str):
-    """Kernel operands: CUDA, float32, contiguous, of the given shape."""
+def check(t: torch.Tensor, shape, what: str, dtype=torch.float32):
+    """Kernel operands: CUDA, float32 (int32 for indices), contiguous, of
+    the given shape."""
     if t.device.type != 'cuda':
         raise ValueError(f'{what}: expected a CUDA tensor, got {t.device}')
-    if t.dtype != torch.float32:
-        raise TypeError(f'{what}: the kernels take float32, got {t.dtype}')
+    if t.dtype != dtype:
+        raise TypeError(f'{what}: the kernels take {dtype}, got {t.dtype}')
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f'{what}: expected shape {tuple(shape)}, got '
                          f'{tuple(t.shape)}')

@@ -254,6 +254,24 @@ class _Limbs(ctypes.Structure):
     _fields_ = [('lo', ctypes.c_int * 16), ('d', ctypes.c_int * 16)]
 
 
+class CPart(ctypes.Structure):
+    """The partition as csrc/arrow.cuh's ArrowPart."""
+
+    _fields_ = [('nl', ctypes.c_int), ('dm', ctypes.c_int),
+                ('nr', ctypes.c_int), ('nv', ctypes.c_int),
+                ('lo', ctypes.c_int * 16), ('d', ctypes.c_int * 16)]
+
+
+@functools.lru_cache(maxsize=8)
+def c_part(part: Part) -> CPart:
+    if not 1 <= len(part.ds) <= 16:
+        raise ValueError('the arrow kernels take 1 to 16 limb blocks')
+    cp = CPart(nl=len(part.ds), dm=part.dmax, nr=part.nr, nv=part.nv)
+    for i, (lo, d) in enumerate(zip(part.los, part.ds)):
+        cp.lo[i], cp.d[i] = lo, d
+    return cp
+
+
 def factor_solve(part: Part, Mp, b):
     """Packed factor F of Mp (B, nl+1, dm+nr, dm) and x = Mp^-1 b, b (B, nv).
 

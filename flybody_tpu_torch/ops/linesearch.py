@@ -1,0 +1,81 @@
+"""Exact Newton line search along a direction (plain PyTorch).
+
+Counterpart of flybody_tpu/ops/linesearch.py (`alpha_ref`, and the same
+math as `search_planes`, which the TPU's Newton kernels inline). Along
+x + a dx the cost's slope phi'(a) and curvature phi''(a) are per-row
+functions of jar0 + a jv, so the search needs only these precomputes: the
+limit rows (jar0, jv, active, D), the contact slots (jar0 xyz, jv xyz, mu,
+frictional, active, D) and the smooth terms sm0 = msm.dx, smm = dx.M dx.
+Bracket doubling from a = 1, then guarded Newton/bisection on phi'; fixed
+trip counts. Its CUDA counterpart is `ls_alpha_warp` in
+csrc/linesearch.cuh, which the Newton kernels (csrc/newton.cu) inline.
+The separate TPU line-search kernel (`_ls_pallas`, dense path only) is not
+ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def slope_curv(a, lim, con, sm0, smm):
+    """phi'(a), phi''(a) per env. lim: 4 x (B, L); con: 10 x (B, K)."""
+    jar0_l, jv_l, act0_l, D_l = lim
+    jar_l = jar0_l + a[:, None] * jv_l
+    act_l = act0_l * (jar_l < 0)
+    f_l = -D_l * jar_l * act_l
+    slope = sm0 + a * smm - torch.sum(f_l * jv_l, -1)
+    curv = smm + torch.sum(D_l * act_l * jv_l ** 2, -1)
+    n0, t10, t20, v0, v1, v2, mu, fric, act, D = con
+    N = n0 + a[:, None] * v0
+    y1 = t10 + a[:, None] * v1
+    y2 = t20 + a[:, None] * v2
+    T = torch.sqrt(y1 * y1 + y2 * y2)
+    amu = 1.0 / torch.clamp(mu, min=1e-6)
+    safe_T = torch.clamp(T, min=1e-15)
+    w = (N + amu * T) / (1.0 + amu * amu)
+    top = N >= mu * T
+    bottom = mu * N + T <= 0.0
+    coef = 1.0 - amu * w / safe_T
+    zero = torch.zeros_like(N)
+    r0 = torch.where(bottom, N, N - w)
+    r1 = torch.where(bottom, y1, y1 * coef)
+    r2 = torch.where(bottom, y2, y2 * coef)
+    r0, r1, r2 = (torch.where(top, zero, r0), torch.where(top, zero, r1),
+                  torch.where(top, zero, r2))
+    fp = fric > 0
+    r0 = torch.where(fp, r0, torch.clamp(N, max=0.0))
+    r1 = torch.where(fp, r1, zero)
+    r2 = torch.where(fp, r2, zero)
+    slope = slope + torch.sum(D * act * (r0 * v0 + r1 * v1 + r2 * v2), -1)
+    yv = (y1 / safe_T) * v1 + (y2 / safe_T) * v2
+    vt2 = v1 * v1 + v2 * v2
+    c = 1.0 / (1.0 + amu * amu)
+    qdP = (c * v0 * v0 + 2.0 * amu * c * v0 * yv + amu * amu * c * yv * yv
+           + (amu * w / safe_T) * (vt2 - yv * yv))
+    q = torch.where(bottom, v0 * v0 + vt2, v0 * v0 + vt2 - qdP)
+    q = torch.where(top, zero, q)
+    q = torch.where(fp, q, (N < 0).to(N.dtype) * v0 * v0)
+    curv = curv + torch.sum(D * act * q, -1)
+    return slope, torch.clamp(curv, min=1e-15)
+
+
+def alpha_ref(lim, con, sm0, smm, expand_iters: int, ls_iters: int):
+    """Exact Newton line search (bracket doubling, then guarded
+    Newton/bisection on phi'); per-env step size (B,)."""
+    hi = torch.ones_like(sm0)
+    for _ in range(expand_iters):
+        s, _ = slope_curv(hi, lim, con, sm0, smm)
+        hi = torch.where(s < 0, hi * 2.0, hi)
+    lo = torch.zeros_like(hi)
+    for _ in range(ls_iters):
+        mid = 0.5 * (lo + hi)
+        s, c = slope_curv(mid, lim, con, sm0, smm)
+        cand = mid - s / c
+        probe = torch.where((cand > lo) & (cand < hi), cand, mid)
+        sp, _ = slope_curv(probe, lim, con, sm0, smm)
+        lo = torch.where(sp < 0, probe, lo)
+        hi = torch.where(sp < 0, hi, probe)
+    alpha = 0.5 * (lo + hi)
+    s0, _ = slope_curv(torch.zeros_like(alpha), lim, con, sm0, smm)
+    return torch.where(s0 < 0, alpha, torch.zeros_like(alpha))

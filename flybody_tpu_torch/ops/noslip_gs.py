@@ -1,0 +1,84 @@
+"""The fused noslip post-pass: kernel 11.
+
+Counterpart of flybody_tpu/ops/noslip_gs.py (`make_noslip_fused_pe`).
+Gauss-Seidel sweeps over the friction rows of the active frictional
+contacts with the normal forces held fixed, each slot's tangent force
+clamped to its friction circle. `noslip_fused` launches csrc/noslip.cu on
+CUDA tensors (float32, contiguous; anything else raises) and runs the
+plain version `noslip_fused_ref` (the JAX package's `_fused_ref`) on CPU
+tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from flybody_tpu_torch.ops import _cuda
+from flybody_tpu_torch.ops import arrow as _ar
+
+launches = 0
+
+
+def noslip_fused_ref(part, F, Jt, aref_t, lim, use, x0, ft0,
+                     iterations: int):
+    """P = M^-1 J_t^T by the packed factor F, the 2x2 block inverses, then
+    `iterations` sweeps. Shapes: F (B, nl+1, dm+nr, dm); Jt (B, K, 2, nv);
+    aref_t (B, K, 2); lim, use (B, K); x0 (B, nv); ft0 (B, K, 2). Returns
+    (x (B, nv), ft (B, K, 2))."""
+    Bn, K = Jt.shape[:2]
+    nv = part.nv
+    Pt = _ar.solve_ref(part, F, Jt.reshape(Bn, 2 * K, nv).transpose(1, 2))
+    Pt = Pt.reshape(Bn, nv, K, 2).permute(0, 2, 1, 3)  # (B, K, nv, 2)
+    A = torch.einsum('bkrv,bkvs->bkrs', Jt, Pt)
+    a, b_, c_, d_ = A[..., 0, 0], A[..., 0, 1], A[..., 1, 0], A[..., 1, 1]
+    det = a * d_ - b_ * c_
+    det = torch.where(torch.abs(det) > 1e-12, det,
+                      torch.where(det >= 0, torch.full_like(det, 1e-12),
+                                  torch.full_like(det, -1e-12)))
+    Ainv = torch.stack([torch.stack([d_, -b_], -1),
+                        torch.stack([-c_, a], -1)], -2) / det[..., None, None]
+    on = use > 0
+    x = x0
+    ft = ft0.clone()
+    for _ in range(iterations):
+        for k in range(K):
+            res = torch.einsum('brv,bv->br', Jt[:, k], x) - aref_t[:, k]
+            new = ft[:, k] - torch.einsum('brs,bs->br', Ainv[:, k], res)
+            norm = torch.linalg.norm(new, dim=-1, keepdim=True)
+            lk = lim[:, k, None]
+            new = torch.where(norm > lk,
+                              new * (lk / torch.clamp(norm, min=1e-15)), new)
+            new = torch.where(on[:, k, None], new, ft[:, k])
+            x = x + torch.einsum('bvs,bs->bv', Pt[:, k], new - ft[:, k])
+            ft[:, k] = new
+    return x, ft
+
+
+def noslip_fused(part, F, Jt, aref_t, lim, use, x0, ft0, iterations: int):
+    """Kernel 11 on CUDA tensors, `noslip_fused_ref` on CPU tensors."""
+    if F.device.type == 'cpu':
+        return noslip_fused_ref(part, F, Jt, aref_t, lim, use, x0, ft0,
+                                iterations)
+    global launches
+    nl, dm, nr, nv = len(part.ds), part.dmax, part.nr, part.nv
+    Bn, K = Jt.shape[:2]
+    for t, shape, name in ((F, (Bn, nl + 1, dm + nr, dm), 'F'),
+                           (Jt, (Bn, K, 2, nv), 'Jt'),
+                           (aref_t, (Bn, K, 2), 'aref_t'),
+                           (lim, (Bn, K), 'lim'), (use, (Bn, K), 'use'),
+                           (x0, (Bn, nv), 'x0'), (ft0, (Bn, K, 2), 'ft0')):
+        _cuda.check(t, shape, name)
+    x = torch.empty_like(x0)
+    ft = torch.empty_like(ft0)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = _cuda.function('noslip', 'noslip_fused_f32', [P] * 9 + [
+        I, I, I, ctypes.POINTER(_ar.CPart), P])
+    rc = fn(*(t.data_ptr() for t in (F, Jt, aref_t, lim, use, x0, ft0, x,
+                                     ft)),
+            Bn, K, iterations, ctypes.byref(_ar.c_part(part)),
+            _cuda.stream())
+    _cuda.raise_on(rc, 'noslip_fused_f32')
+    launches += 1
+    return x, ft

@@ -51,10 +51,6 @@ _MPR_PAIRS = {
 }
 _CC_KEY = (_s.GEOM_CAPSULE, _s.GEOM_CAPSULE)
 
-# Broadphase budgets (the JAX package's defaults).
-MPR_TOP_P = 128
-CC_TOP_P = 128
-
 
 def _pair_rows(key) -> int:
     """Slots per pair: MPR manifolds collapse to one nrep-weighted slot."""
@@ -440,7 +436,8 @@ def _broadphase(model, data, gcat, ft, P):
     return idx, gcat[bi, g1t], gcat[bi, g2t]
 
 
-def _cc_compact(model: FlyModel, data: Data, gcat) -> CompactBlock:
+def _cc_compact(model: FlyModel, data: Data, gcat, top_p: int
+                ) -> CompactBlock:
     """Capsule-capsule: broadphase + exact analytic narrowphase."""
     ft = _pair_family_tables(model.meta, False)
     g1, g2 = ft['g1'], ft['g2']
@@ -452,14 +449,15 @@ def _cc_compact(model: FlyModel, data: Data, gcat) -> CompactBlock:
             efc_slot_table_np(model)[ft['slot_ids']],
             ft['slot_ids'][:, None].astype(np.float64)], -1)
 
-    idx, c1, c2 = _broadphase(model, data, gcat, ft, CC_TOP_P)
+    idx, c1, c2 = _broadphase(model, data, gcat, ft, top_p)
     sel = model.const('cc_table', table)[idx]
     d, p, n = _rows(_CC_KEY, c1, c2, sel[..., 0:3], sel[..., 3:6])[0]
     return CompactBlock(idx=sel[..., 20], dist=d, pos=p, normal=n,
                         params=sel[..., 6:20])
 
 
-def _mpr_merged(model: FlyModel, data: Data, gcat) -> CompactBlock:
+def _mpr_merged(model: FlyModel, data: Data, gcat, top_p: int
+                ) -> CompactBlock:
     """All mixed-type MPR groups: one broadphase + one MPR sweep."""
     ft = _pair_family_tables(model.meta, True)
     g1, g2 = ft['g1'], ft['g2']
@@ -473,7 +471,7 @@ def _mpr_merged(model: FlyModel, data: Data, gcat) -> CompactBlock:
             efc_slot_table_np(model)[ft['slot_ids']],
             ft['slot_ids'][:, None].astype(np.float64)], -1)
 
-    idx, c1, c2 = _broadphase(model, data, gcat, ft, MPR_TOP_P)
+    idx, c1, c2 = _broadphase(model, data, gcat, ft, top_p)
     sel = model.const('mpr_table', table)[idx]
     B, P = idx.shape
     dist, n, pos = _mpr.mpr_penetration(
@@ -485,8 +483,12 @@ def _mpr_merged(model: FlyModel, data: Data, gcat) -> CompactBlock:
                         params=sel[..., 11:25])
 
 
-def collide(model: FlyModel, data: Data) -> Contact:
-    """Candidate contacts: dense plane/sphere slots + compact blocks."""
+def collide(model: FlyModel, data: Data, mpr_top_p: int,
+            cc_top_p: int) -> Contact:
+    """Candidate contacts: dense plane/sphere slots + compact blocks. The
+    capsule-capsule and merged-MPR blocks keep the `cc_top_p` and
+    `mpr_top_p` broadphase candidates with the smallest bounding-sphere
+    distance."""
     meta = model.meta
     tb = pair_tables(meta)
     gcat = _geom_cat(data)
@@ -500,6 +502,7 @@ def collide(model: FlyModel, data: Data) -> Contact:
         dists.append(torch.stack([r[0] for r in rows], -1).flatten(1))
         poss.append(torch.stack([r[1] for r in rows], -2).flatten(1, 2))
         normals.append(torch.stack([r[2] for r in rows], -2).flatten(1, 2))
-    blocks = (_cc_compact(model, data, gcat), _mpr_merged(model, data, gcat))
+    blocks = (_cc_compact(model, data, gcat, cc_top_p),
+              _mpr_merged(model, data, gcat, mpr_top_p))
     return Contact(dist=torch.cat(dists, 1), pos=torch.cat(poss, 1),
                    normal=torch.cat(normals, 1), blocks=blocks)

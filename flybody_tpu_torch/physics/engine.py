@@ -3,9 +3,10 @@
 Counterpart of flybody_tpu/physics/engine.py. One substep runs, in
 MuJoCo's stage order: the position stage (kernel K1), collision, the
 velocity/force stage (K2), constraint rows and adhesion transmission, the
-arrow factor+solve of the smooth acceleration (K3), the Newton solve and
-noslip, the sensors (K4), then semi-implicit Euler with implicit damping
-(K3 again).
+arrow factor+solve of the smooth acceleration (K3), the Newton solve (the
+block kernel per refactor block, or the whole-solve kernel once) and the
+fused noslip, the sensors (K4), then semi-implicit Euler with implicit
+damping (K3 again).
 """
 
 from __future__ import annotations
@@ -47,25 +48,44 @@ def adhesion_moment(model: FlyModel, efc: _sol.EfcRows):
     return adh_u, mom / torch.clamp(n, min=1.0)[..., None]
 
 
-def fwd(model: FlyModel, data: Data, **kwargs) -> Data:
+# Named solver presets, the settings fwd_acc reads.
+#   default: the env defaults of flybody_tpu/envs/base.py:92-96, the
+#     broadphase widths of physics/collision.py:620/683 and the Woodbury
+#     budget of physics/solver.py:778 (FLYBODY_SB_BREAK unset).
+#   bench: the setting of bench.py:39-67 and of train/run.py:165-180
+#     (--bench-solver, the trainer's setting).
+PRESETS = {
+    'default': dict(solver_iterations=10, ls_iterations=8, ncon_max=64,
+                    refactor_period=1, noslip_contacts=None, mpr_top_p=128,
+                    cc_top_p=128, sb_break=8),
+    'bench': dict(solver_iterations=8, ls_iterations=6, ncon_max=24,
+                  refactor_period=8, noslip_contacts=16, mpr_top_p=32,
+                  cc_top_p=16, sb_break=4),
+}
+
+
+def fwd(model: FlyModel, data: Data, preset: dict | None = None,
+        noslip_iterations: int | None = None) -> Data:
     """Forward dynamics: everything up to and including qacc and the
     sensors (mj_forward)."""
-    data, efc, f_c = fwd_acc(model, data, **kwargs)
+    data, efc, f_c = fwd_acc(model, data, preset, noslip_iterations)
     with _span('sensors'):
         sd = _sensors(model, data, efc, f_c)
     return data.replace(sensordata=sd)
 
 
-def fwd_acc(model: FlyModel, data: Data, ncon_max: int = _sol.NCON_MAX,
-            solver_iterations: int = 10, ls_iterations: int = 8,
-            noslip_iterations: int | None = None, refactor_period: int = 1):
+def fwd_acc(model: FlyModel, data: Data, preset: dict | None = None,
+            noslip_iterations: int | None = None):
     """fwd up to qacc: (data, contact rows, contact forces f_c (B, K, 3)),
-    what the sensors read."""
+    what the sensors read. `preset`: a dict with the keys of PRESETS'
+    entries (None: PRESETS['default']); `noslip_iterations`: None takes
+    the model's."""
+    p = PRESETS['default'] if preset is None else preset
     meta = model.meta
     with _span('position'):
         data, _, _ = _kin.fwd_position_smooth(model, data)
     with _span('collision'):
-        con = _col.collide(model, data)
+        con = _col.collide(model, data, p['mpr_top_p'], p['cc_top_p'])
     with _span('force'):
         (cvel, cdof_dot, ten_velocity, qfrc_bias, qfrc_passive, qfrc_fluid,
          qfrc_actuator, actuator_force, act_dot, Mp) = _fs.force_stage(
@@ -78,7 +98,7 @@ def fwd_acc(model: FlyModel, data: Data, ncon_max: int = _sol.NCON_MAX,
         qfrc_fluid=qfrc_fluid, qfrc_actuator=qfrc_actuator,
         actuator_force=actuator_force, act_dot=act_dot, qM=Mp)
     with _span('constraint_rows'):
-        efc = _sol.make_efc(model, data, con, ncon_max=ncon_max)
+        efc = _sol.make_efc(model, data, con, p['ncon_max'])
         adh_u, adh_mom = adhesion_moment(model, efc)
     if len(adh_u):
         qfrc_adh = torch.einsum('buv,bu->bv', adh_mom,
@@ -95,19 +115,16 @@ def fwd_acc(model: FlyModel, data: Data, ncon_max: int = _sol.NCON_MAX,
         data, a_free = _sm.factor_solve_m(model, data, qfrc_smooth)
     with _span('newton'):
         qacc, qfrc_con, _, f_c = _sol.solve(
-            model, data, efc, a_free, iterations=solver_iterations,
-            ls_iterations=ls_iterations, warmstart=data.qacc,
-            refactor_period=refactor_period)
+            model, data, efc, a_free, p['solver_iterations'],
+            p['ls_iterations'], data.qacc, p['refactor_period'],
+            p['sb_break'])
     niter = (meta.noslip_iterations if noslip_iterations is None
              else noslip_iterations)
     if niter > 0:
         with _span('noslip'):
-            f_c_old = f_c
-            qacc, f_c = _sol.noslip(model, data, efc, qacc, f_c,
-                                    iterations=niter)
-            df_t = (f_c - f_c_old)[..., 1:]
-            qfrc_con = qfrc_con + torch.einsum('bkrv,bkr->bv',
-                                               efc.con_J[:, :, 1:, :], df_t)
+            qacc, f_c, dqfrc = _sol.noslip(model, data, efc, qacc, f_c, niter,
+                                           p['noslip_contacts'])
+            qfrc_con = qfrc_con + dqfrc
     self_force = torch.sum(efc.con_self * efc.con_active
                            * torch.linalg.norm(f_c, dim=-1), -1)
     data = data.replace(qacc=qacc, qfrc_constraint=qfrc_con, contact=con,
@@ -134,9 +151,9 @@ def _sensors(model, data, efc, f_c):
         efc.con_active, f_c, xpos=data.xpos, xfrc_applied=data.xfrc_applied)
 
 
-def step(model: FlyModel, data: Data, **kwargs) -> Data:
+def step(model: FlyModel, data: Data, preset: dict | None = None) -> Data:
     """One physics step: forward dynamics + Euler integration."""
-    data = fwd(model, data, **kwargs)
+    data = fwd(model, data, preset)
     with _span('euler'):
         return _sm.euler(model, data)
 

@@ -1,18 +1,22 @@
-"""Constraint rows and the Newton solver (plain PyTorch), default preset.
+"""Constraint rows and the Newton solver.
 
 Counterpart of flybody_tpu/physics/solver.py: MuJoCo's soft constraints
 (joint limits + elliptic-cone contacts), `make_efc` through its single-tree
 row assembly (`_contact_rows_ref`), `solve` through the packed block-arrow
-branch with one fresh factor per Newton iteration (the JAX package's
-`_ref_block` / `_ref_step` with the exact line search `alpha_ref`), and the
-packed `noslip` Gauss-Seidel post-pass (`noslip_gs._fused_ref`). All
-functions carry a leading env dimension.
+branches and the packed `noslip` post-pass. `solve` dispatches as the JAX
+package does: iterations <= refactor period runs the whole solve in one
+launch of kernel 9 (`newton_fused.newton_solve`); otherwise each refactor
+block assembles the packed Hessian (bf16-rounded J^T W J operands at
+float32, as the JAX split form) and the Woodbury rows here and launches
+kernel 8 (`newton_fused.newton_block`). `noslip` launches kernel 11
+(`noslip_gs.noslip_fused`). All functions carry a leading env dimension.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -20,12 +24,12 @@ import torch
 from flybody_tpu_torch.model import spec as _s
 from flybody_tpu_torch.model.spec import FlyModel
 from flybody_tpu_torch.ops import arrow as _ar
+from flybody_tpu_torch.ops import newton_fused as _nf
+from flybody_tpu_torch.ops import noslip_gs as _ngs
+from flybody_tpu_torch.ops.newton_fused import cone_hessian, cone_residual
 from flybody_tpu_torch.physics import collision as _col
 from flybody_tpu_torch.physics.math import cross
 from flybody_tpu_torch.physics.state import Data
-
-NCON_MAX = 64
-SB_BREAK = 8  # Woodbury budget for cross-limb contact rows
 
 
 def impedance(solimp, r):
@@ -103,7 +107,7 @@ def make_frame(normal):
 
 
 def make_efc(model: FlyModel, data: Data, con: _col.Contact,
-             ncon_max: int = NCON_MAX) -> EfcRows:
+             ncon_max: int) -> EfcRows:
     """Joint-limit rows + the ncon_max contact slots with the smallest
     dist - includemargin (single kinematic tree)."""
     meta = model.meta
@@ -200,321 +204,129 @@ def contact_rows(model, data, cand_b, cand_u, cand_g, k):
     return con_J, scal
 
 
-# ------------------------------------------------------ cone machinery
+class Operands(NamedTuple):
+    """What both Newton forms read besides M, a_free and the warmstart."""
+
+    conJ: torch.Tensor  # (B, K, 3, nv), contiguous
+    bsel: torch.Tensor  # (B, SB) Woodbury slots: deepest cross-limb ones
+    brk: torch.Tensor  # (B, K) active cross-limb slots
+    hess_active: torch.Tensor  # (B, K) active slots of the packed Hessian
+    lim_params: torch.Tensor  # (B, 2, L) [active | D]
+    con_params: torch.Tensor  # (B, 4, K) [mu | frictional | active | D]
 
 
-def cone_residual(jar, mu, frictional, active):
-    """jar - proj(jar) onto {v_n >= mu ||v_t||}, per contact (..., 3)."""
-    N, y = jar[..., 0], jar[..., 1:]
-    T = torch.linalg.norm(y, dim=-1)
-    a = 1.0 / torch.clamp(mu, min=1e-6)
-    w = (N + a * T) / (1.0 + a * a)
-    top = N >= mu * T
-    bottom = mu * N + T <= 0.0
-    safe_T = torch.clamp(T, min=1e-15)
-    res = torch.cat([(N - w)[..., None],
-                     y * (1.0 - a * w / safe_T)[..., None]], -1)
-    res = torch.where(bottom[..., None], jar, res)
-    res = torch.where(top[..., None], torch.zeros_like(jar), res)
-    res_fl = torch.cat([torch.clamp(N, max=0.0)[..., None],
-                        torch.zeros_like(y)], -1)
-    res = torch.where(frictional[..., None] > 0, res, res_fl)
-    return res * active[..., None]
+def operands(efc: EfcRows, sb_break: int) -> Operands:
+    K = efc.con_J.shape[1]
+    brk = efc.con_break * efc.con_active
+    score_b = torch.where(brk > 0, efc.con_pos, torch.full_like(brk, 1e10))
+    return Operands(
+        conJ=efc.con_J.contiguous(),
+        bsel=_col.smallest(score_b, min(sb_break, K)), brk=brk,
+        hess_active=efc.con_active * (1.0 - efc.con_break),
+        lim_params=torch.stack([efc.lim_active, efc.lim_D], 1),
+        con_params=torch.stack([efc.con_mu, efc.con_frictional,
+                                efc.con_active, efc.con_D], 1))
 
 
-def cone_hessian(jar, mu, frictional, active):
-    """Per-contact 3x3 Hessian of 0.5 ||residual||^2."""
-    N, y = jar[..., 0], jar[..., 1:]
-    T = torch.linalg.norm(y, dim=-1)
-    a = 1.0 / torch.clamp(mu, min=1e-6)
-    safe_T = torch.clamp(T, min=1e-15)
-    yhat = y / safe_T[..., None]
-    w = (N + a * T) / (1.0 + a * a)
-    top = N >= mu * T
-    bottom = mu * N + T <= 0.0
-    c = 1.0 / (1.0 + a * a)
-    dP = jar.new_zeros(jar.shape + (3,))
-    dP[..., 0, 0] = c
-    dP[..., 0, 1:] = (a * c)[..., None] * yhat
-    dP[..., 1:, 0] = (a * c)[..., None] * yhat
-    outer = yhat[..., :, None] * yhat[..., None, :]
-    I2 = torch.eye(2, dtype=jar.dtype, device=jar.device)
-    dP[..., 1:, 1:] = ((a * a * c)[..., None, None] * outer
-                       + (a * w / safe_T)[..., None, None] * (I2 - outer))
-    I3 = torch.eye(3, dtype=jar.dtype, device=jar.device)
-    H = torch.where(bottom[..., None, None], I3.expand_as(dP), I3 - dP)
-    H = torch.where(top[..., None, None], torch.zeros_like(H), H)
-    H_fl = torch.zeros_like(H)
-    H_fl[..., 0, 0] = (N < 0).to(jar.dtype)
-    H = torch.where((frictional > 0)[..., None, None], H, H_fl)
-    return H * active[..., None, None]
+def solve_args(part, M, efc: EfcRows, ops: Operands, a_free, ws):
+    """The arguments of newton_fused.newton_solve (kernel 9)."""
+    return (part, efc.lim_dof, efc.lim_sign, M, ops.conJ,
+            ops.bsel.to(torch.int32), a_free, ws, efc.lim_aref.contiguous(),
+            efc.con_aref.contiguous(), ops.lim_params,
+            torch.cat([ops.con_params, ops.hess_active[:, None]], 1))
 
 
-def chol3_psd(W):
-    """Closed-form lower Cholesky of PSD (..., 3, 3) blocks; zero pivots
-    give zero rows."""
-    a = torch.sqrt(torch.clamp(W[..., 0, 0], min=0.0))
-    ia = torch.where(a > 1e-12, 1.0 / torch.clamp(a, min=1e-30),
-                     torch.zeros_like(a))
-    b = W[..., 1, 0] * ia
-    c = W[..., 2, 0] * ia
-    d = torch.sqrt(torch.clamp(W[..., 1, 1] - b * b, min=0.0))
-    idd = torch.where(d > 1e-12, 1.0 / torch.clamp(d, min=1e-30),
-                      torch.zeros_like(d))
-    e = (W[..., 2, 1] - c * b) * idd
-    f = torch.sqrt(torch.clamp(W[..., 2, 2] - c * c - e * e, min=0.0))
-    z = torch.zeros_like(a)
-    return torch.stack([torch.stack([a, z, z], -1),
-                        torch.stack([b, d, z], -1),
-                        torch.stack([c, e, f], -1)], -2)
-
-
-def _jv(J, x):
-    """(B, K, 3, nv) x (B, nv) -> (B, K, 3)."""
-    return torch.einsum('bkrv,bv->bkr', J, x)
-
-
-def _jtf(J, f):
-    """(B, K, 3, nv)^T (B, K, 3) -> (B, nv)."""
-    return torch.einsum('bkrv,bkr->bv', J, f)
-
-
-def _lim_scatter(nv, lim_dof, vals):
-    out = vals.new_zeros((vals.shape[0], nv))
-    return out.index_add_(1, torch.as_tensor(lim_dof, device=vals.device),
-                          vals)
-
-
-def primal_cost(efc: EfcRows, part, M, a_free, x):
-    dx = x - a_free
+def start_state(part, M, efc: EfcRows, ops: Operands, a_free, ws):
+    """(x, M (x - a_free), jar_l, jar_c) at the one of (ws, a_free) with
+    the lower primal cost."""
+    args = (part, efc.lim_dof, efc.lim_sign, M, ops.conJ, a_free,
+            efc.lim_aref, efc.con_aref, ops.lim_params, ops.con_params)
+    x = torch.where((_nf.primal_cost(*args, ws)
+                     < _nf.primal_cost(*args, a_free))[:, None], ws, a_free)
     sign = x.new_tensor(efc.lim_sign)
-    cost = 0.5 * torch.sum(dx * _ar.matvec_packed(part, M, dx), -1)
-    jar_l = x[:, efc.lim_dof] * sign - efc.lim_aref
-    act_l = efc.lim_active * (jar_l < 0)
-    cost = cost + 0.5 * torch.sum(efc.lim_D * act_l * jar_l ** 2, -1)
-    jar_c = _jv(efc.con_J, x) - efc.con_aref
-    res = cone_residual(jar_c, efc.con_mu, efc.con_frictional,
-                        efc.con_active)
-    return cost + 0.5 * torch.sum(efc.con_D[..., None] * res ** 2, (-2, -1))
+    return (x, _ar.matvec_packed(part, M, x - a_free),
+            (x[:, efc.lim_dof] * sign - efc.lim_aref).contiguous(),
+            _nf.jv(ops.conJ, x) - efc.con_aref)
 
 
-# --------------------------------------------------------- line search
-
-
-def _slope_curv(a, lim, con, sm0, smm):
-    """phi'(a), phi''(a) per env. lim: 4 x (B, L); con: 10 x (B, K)."""
-    jar0_l, jv_l, act0_l, D_l = lim
-    jar_l = jar0_l + a[:, None] * jv_l
-    act_l = act0_l * (jar_l < 0)
-    f_l = -D_l * jar_l * act_l
-    slope = sm0 + a * smm - torch.sum(f_l * jv_l, -1)
-    curv = smm + torch.sum(D_l * act_l * jv_l ** 2, -1)
-    n0, t10, t20, v0, v1, v2, mu, fric, act, D = con
-    N = n0 + a[:, None] * v0
-    y1 = t10 + a[:, None] * v1
-    y2 = t20 + a[:, None] * v2
-    T = torch.sqrt(y1 * y1 + y2 * y2)
-    amu = 1.0 / torch.clamp(mu, min=1e-6)
-    safe_T = torch.clamp(T, min=1e-15)
-    w = (N + amu * T) / (1.0 + amu * amu)
-    top = N >= mu * T
-    bottom = mu * N + T <= 0.0
-    coef = 1.0 - amu * w / safe_T
-    zero = torch.zeros_like(N)
-    r0 = torch.where(bottom, N, N - w)
-    r1 = torch.where(bottom, y1, y1 * coef)
-    r2 = torch.where(bottom, y2, y2 * coef)
-    r0, r1, r2 = (torch.where(top, zero, r0), torch.where(top, zero, r1),
-                  torch.where(top, zero, r2))
-    fp = fric > 0
-    r0 = torch.where(fp, r0, torch.clamp(N, max=0.0))
-    r1 = torch.where(fp, r1, zero)
-    r2 = torch.where(fp, r2, zero)
-    slope = slope + torch.sum(D * act * (r0 * v0 + r1 * v1 + r2 * v2), -1)
-    yv = (y1 / safe_T) * v1 + (y2 / safe_T) * v2
-    vt2 = v1 * v1 + v2 * v2
-    c = 1.0 / (1.0 + amu * amu)
-    qdP = (c * v0 * v0 + 2.0 * amu * c * v0 * yv + amu * amu * c * yv * yv
-           + (amu * w / safe_T) * (vt2 - yv * yv))
-    q = torch.where(bottom, v0 * v0 + vt2, v0 * v0 + vt2 - qdP)
-    q = torch.where(top, zero, q)
-    q = torch.where(fp, q, (N < 0).to(N.dtype) * v0 * v0)
-    curv = curv + torch.sum(D * act * q, -1)
-    return slope, torch.clamp(curv, min=1e-15)
-
-
-def alpha_ref(lim, con, sm0, smm, expand_iters: int, ls_iters: int):
-    """Exact Newton line search (bracket doubling, then guarded
-    Newton/bisection on phi'); per-env step size (B,)."""
-    hi = torch.ones_like(sm0)
-    for _ in range(expand_iters):
-        s, _ = _slope_curv(hi, lim, con, sm0, smm)
-        hi = torch.where(s < 0, hi * 2.0, hi)
-    lo = torch.zeros_like(hi)
-    for _ in range(ls_iters):
-        mid = 0.5 * (lo + hi)
-        s, c = _slope_curv(mid, lim, con, sm0, smm)
-        cand = mid - s / c
-        probe = torch.where((cand > lo) & (cand < hi), cand, mid)
-        sp, _ = _slope_curv(probe, lim, con, sm0, smm)
-        lo = torch.where(sp < 0, probe, lo)
-        hi = torch.where(sp < 0, hi, probe)
-    alpha = 0.5 * (lo + hi)
-    s0, _ = _slope_curv(torch.zeros_like(alpha), lim, con, sm0, smm)
-    return torch.where(s0 < 0, alpha, torch.zeros_like(alpha))
-
-
-# --------------------------------------------------------------- solve
-
-
-def _hessian(part, M, efc, jar_l, jar_c, hess_active):
-    """Packed Newton Hessian M + J^T D H J + limit diagonal (+1e-12)."""
-    nv = part.nv
-    act_l = efc.lim_active * (jar_l < 0)
-    hd_dof = _lim_scatter(nv, efc.lim_dof, efc.lim_D * act_l)
-    Hc = (cone_hessian(jar_c, efc.con_mu, efc.con_frictional, hess_active)
-          * efc.con_D[..., None, None])
-    JH = torch.einsum('bkrs,bksv->bkrv', Hc, efc.con_J)
-    Bn, K = JH.shape[:2]
-    J2 = efc.con_J.reshape(Bn, 3 * K, nv)
-    JHr = JH.reshape(Bn, 3 * K, nv)
-    if J2.dtype == torch.float32:
-        # The JAX package rounds these operands to bf16 and accumulates
-        # in f32; round-trip through bf16 and multiply in f32 to match
-        # (a full-f32 product: torch.backends.cuda.matmul.allow_tf32 must
-        # stay False, PyTorch's default).
-        J2 = J2.to(torch.bfloat16).to(torch.float32)
-        JHr = JHr.to(torch.bfloat16).to(torch.float32)
-    JTJH = J2.transpose(1, 2) @ JHr
-    Hp = M + _ar.pack_sym_ref(part, JTJH, pad_identity=False)
-    return _ar.add_diag_packed(part, Hp, hd_dof + 1e-12)
-
-
-def _newton_step(part, efc, ls_iters, F, M, Z, U, LC, st):
-    """One Newton iteration on a fixed factor (the JAX _ref_step)."""
-    x, msm, jar_l, jar_c = st
-    sign = x.new_tensor(efc.lim_sign)
-    actl, Dl = efc.lim_active, efc.lim_D
-    f_l = torch.where(jar_l < 0, -Dl * jar_l * actl, torch.zeros_like(jar_l))
-    res = cone_residual(jar_c, efc.con_mu, efc.con_frictional,
-                        torch.ones_like(efc.con_mu))
-    f_c = -(efc.con_D * efc.con_active)[..., None] * res
-    g = msm - _lim_scatter(part.nv, efc.lim_dof, f_l * sign) - _jtf(
-        efc.con_J, f_c)
-    t = _ar.solve_ref(part, F, g)
-    w = torch.cholesky_solve(torch.einsum('bvs,bv->bs', U, t)[..., None],
-                             LC)[..., 0]
-    dx = -(t - torch.einsum('bvs,bs->bv', Z, w))
-    mdx = _ar.matvec_packed(part, M, dx)
-    jv_c = _jv(efc.con_J, dx)
-    jv_l = dx[:, efc.lim_dof] * sign
-    sm0 = torch.sum(msm * dx, -1)
-    smm = torch.sum(dx * mdx, -1)
-    lim = (jar_l, jv_l, actl, Dl)
-    con = (jar_c[..., 0], jar_c[..., 1], jar_c[..., 2], jv_c[..., 0],
-           jv_c[..., 1], jv_c[..., 2], efc.con_mu, efc.con_frictional,
-           efc.con_active, efc.con_D)
-    alpha = alpha_ref(lim, con, sm0, smm, 6, ls_iters)
-    a = alpha[:, None]
-    return (x + a * dx, msm + a * mdx, jar_l + a * jv_l,
-            jar_c + alpha[:, None, None] * jv_c)
+def block_args(part, M, efc: EfcRows, ops: Operands, st):
+    """The arguments of newton_fused.newton_block (kernel 8) but for the
+    trip counts: the packed Hessian (bf16-rounded J^T W J operands at
+    float32, the JAX split form) and the Woodbury rows at the state."""
+    jar_l, jar_c = st[2], st[3]
+    Wc = (cone_hessian(jar_c, efc.con_mu, efc.con_frictional,
+                       ops.hess_active) * efc.con_D[..., None, None])
+    Hp = _nf.assemble_hessian(part, M, ops.conJ, efc.lim_dof,
+                              efc.lim_D * efc.lim_active * (jar_l < 0), Wc,
+                              bf16=True)
+    U = _nf.woodbury_rows(ops.conJ, ops.bsel, jar_c, efc.con_mu,
+                          efc.con_frictional, efc.con_D, ops.brk)
+    return (part, efc.lim_dof, efc.lim_sign, Hp, M, ops.conJ, U, *st,
+            ops.lim_params, ops.con_params)
 
 
 def solve(model: FlyModel, data: Data, efc: EfcRows, a_free,
-          iterations: int = 10, ls_iterations: int = 8, warmstart=None,
-          refactor_period: int = 1):
+          iterations: int, ls_iterations: int, warmstart,
+          refactor_period: int, sb_break: int):
     """Newton solve for qacc; returns (qacc, qfrc_constraint, f_l, f_c).
 
     Each block of `refactor_period` iterations assembles the packed
-    Hessian, factors it (block-arrow) and carries the cross-limb contact
-    rows by a rank-3*SB Woodbury correction; iterations inside a block
-    reuse the factor. The starting point is whichever of (warmstart,
-    a_free) has the lower primal cost."""
+    Hessian, factors it (block-arrow) and carries up to `sb_break`
+    cross-limb contact slots by a rank-3*SB Woodbury correction;
+    iterations inside a block reuse the factor. The starting point is
+    whichever of (warmstart, a_free) has the lower primal cost."""
     part = _ar.build_partition(model.meta)
     M = data.qM
-    nv = part.nv
-    sign = a_free.new_tensor(efc.lim_sign)
-    x = a_free
-    if warmstart is not None:
-        c_ws = primal_cost(efc, part, M, a_free, warmstart)
-        c_af = primal_cost(efc, part, M, a_free, a_free)
-        x = torch.where((c_ws < c_af)[:, None], warmstart, a_free)
+    ops = operands(efc, sb_break)
+    if iterations <= max(1, refactor_period):
+        return _nf.newton_solve(*solve_args(part, M, efc, ops, a_free,
+                                           warmstart),
+                                ls_iterations, iterations)
 
-    K = efc.con_J.shape[1]
-    SB = min(SB_BREAK, K)
-    brk = efc.con_break * efc.con_active
-    score_b = torch.where(brk > 0, efc.con_pos, torch.full_like(brk, 1e10))
-    bsel = _col.smallest(score_b, SB)  # (B, SB)
-    bi = torch.arange(x.shape[0], device=x.device)[:, None]
-    Vb = efc.con_J[bi, bsel]  # (B, SB, 3, nv)
-    mub, Db = efc.con_mu[bi, bsel], efc.con_D[bi, bsel]
-    fricb, actb = efc.con_frictional[bi, bsel], brk[bi, bsel]
-    hess_active = efc.con_active * (1.0 - efc.con_break)
-
-    st = (x, _ar.matvec_packed(part, M, x - a_free),
-          x[:, efc.lim_dof] * sign - efc.lim_aref,
-          _jv(efc.con_J, x) - efc.con_aref)
+    st = start_state(part, M, efc, ops, a_free, warmstart)
     p = max(1, refactor_period)
-    eye = torch.eye(3 * SB, dtype=x.dtype, device=x.device)
     done = 0
     while done < iterations:
         n = min(p, iterations - done)
-        Hp = _hessian(part, M, efc, st[2], st[3], hess_active)
-        Wb = (cone_hessian(st[3][bi, bsel], mub, fricb, actb)
-              * Db[..., None, None])
-        G = chol3_psd(Wb)
-        U = torch.einsum('bsrc,bsrv->bvsc', G, Vb).reshape(-1, nv, 3 * SB)
-        F = _ar.factor_ref_p(part, Hp)
-        Z = _ar.solve_ref(part, F, U)
-        C = eye + U.transpose(1, 2) @ Z
-        LC = torch.linalg.cholesky(C + 1e-10 * eye)
-        for _ in range(n):
-            st = _newton_step(part, efc, ls_iterations, F, M, Z, U, LC, st)
+        st = _nf.newton_block(*block_args(part, M, efc, ops, st),
+                              ls_iterations, n)
         done += n
 
     x, _, jar_l, jar_c = st
-    act_l = efc.lim_active * (jar_l < 0)
-    f_l = -efc.lim_D * jar_l * act_l
+    f_l = -efc.lim_D * jar_l * (efc.lim_active * (jar_l < 0))
     f_c = -efc.con_D[..., None] * cone_residual(
         jar_c, efc.con_mu, efc.con_frictional, efc.con_active)
-    qfrc = _lim_scatter(nv, efc.lim_dof, f_l * sign) + _jtf(efc.con_J, f_c)
+    qfrc = (_nf.lim_scatter(part.nv, efc.lim_dof,
+                            f_l * x.new_tensor(efc.lim_sign))
+            + _nf.jtf(ops.conJ, f_c))
     return x, qfrc, f_l, f_c
 
 
+def noslip_operands(qLD, efc: EfcRows, qacc, f_c,
+                    max_contacts: int | None):
+    """The arguments of noslip_gs.noslip_fused (kernel 11) but for the
+    sweep count: the first `max_contacts` slots (make_efc orders slots by
+    depth, so the active contacts form a prefix; None: all slots)."""
+    K = f_c.shape[1] if max_contacts is None else min(max_contacts,
+                                                       f_c.shape[1])
+    use = (efc.con_active[:, :K] * efc.con_frictional[:, :K] > 0).to(
+        qacc.dtype)
+    lim = torch.clamp(efc.con_mu[:, :K] * f_c[:, :K, 0], min=0.0)
+    return (qLD, efc.con_J[:, :K, 1:, :].contiguous(),
+            efc.con_aref[:, :K, 1:].contiguous(), lim, use,
+            qacc.contiguous(), f_c[:, :K, 1:].contiguous())
+
+
 def noslip(model: FlyModel, data: Data, efc: EfcRows, qacc, f_c,
-           iterations: int = 3):
+           iterations: int, max_contacts: int | None):
     """Noslip post-pass (packed factor): Gauss-Seidel over the friction
-    rows of active frictional contacts with normal forces held fixed,
-    clamped to the friction circle. Returns (qacc, f_c)."""
+    rows of active frictional contacts of the swept prefix
+    (`noslip_operands`) with normal forces held fixed, clamped to the
+    friction circle. Returns (qacc, f_c, the change of qfrc_constraint)."""
     part = _ar.build_partition(model.meta)
-    Bn, K = f_c.shape[:2]
-    nv = part.nv
-    Jt = efc.con_J[:, :, 1:, :]  # (B, K, 2, nv)
-    aref_t = efc.con_aref[..., 1:]
-    use = (efc.con_active * efc.con_frictional) > 0
-    lim = torch.clamp(efc.con_mu * f_c[..., 0], min=0.0)
-    Pt = _ar.solve_ref(part, data.qLD,
-                       Jt.reshape(Bn, 2 * K, nv).transpose(1, 2))
-    Pt = Pt.reshape(Bn, nv, K, 2).permute(0, 2, 1, 3)  # (B, K, nv, 2)
-    A = torch.einsum('bkrv,bkvs->bkrs', Jt, Pt)
-    a, b_, c_, d_ = A[..., 0, 0], A[..., 0, 1], A[..., 1, 0], A[..., 1, 1]
-    det = a * d_ - b_ * c_
-    det = torch.where(torch.abs(det) > 1e-12, det,
-                      torch.where(det >= 0, torch.full_like(det, 1e-12),
-                                  torch.full_like(det, -1e-12)))
-    Ainv = torch.stack([torch.stack([d_, -b_], -1),
-                        torch.stack([-c_, a], -1)], -2) / det[..., None, None]
-    x = qacc
-    ft = f_c[..., 1:].clone()
-    for _ in range(iterations):
-        for k in range(K):
-            res = torch.einsum('brv,bv->br', Jt[:, k], x) - aref_t[:, k]
-            new = ft[:, k] - torch.einsum('brs,bs->br', Ainv[:, k], res)
-            norm = torch.linalg.norm(new, dim=-1, keepdim=True)
-            lk = lim[:, k, None]
-            new = torch.where(norm > lk,
-                              new * (lk / torch.clamp(norm, min=1e-15)), new)
-            new = torch.where(use[:, k, None], new, ft[:, k])
-            x = x + torch.einsum('bvs,bs->bv', Pt[:, k], new - ft[:, k])
-            ft[:, k] = new
-    return x, torch.cat([f_c[..., :1], ft], -1)
+    args = noslip_operands(data.qLD, efc, qacc, f_c, max_contacts)
+    x, ft = _ngs.noslip_fused(part, *args, iterations)
+    K = ft.shape[1]
+    dqfrc = torch.einsum('bkrv,bkr->bv', args[1], ft - args[6])
+    ft = torch.cat([ft, f_c[:, K:, 1:]], 1)
+    return x, torch.cat([f_c[..., :1], ft], -1), dqfrc

@@ -1,8 +1,10 @@
 """Where a walk_imitation control step spends its time, on one GPU.
 
-    python -m flybody_tpu_torch.tools.profile_step --batch 8192
+    python -m flybody_tpu_torch.tools.profile_step --batch 8192 \
+        [--preset default|bench]
 
-Resets `batch` envs, takes one warm-up control step, then records one
+Resets `batch` envs at the solver preset, takes one warm-up control step,
+then records one
 control step with torch.profiler (CPU and CUDA activities). Prints and
 writes (--out, JSON):
   * the step's wall time (host clock, ending in a synchronize);
@@ -47,7 +49,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--batch', type=int, default=8192)
     ap.add_argument('--seed', type=int, default=0)
-    ap.add_argument('--out', default='chiprun_out/profile_step.json')
+    ap.add_argument('--preset', default='default',
+                    help="solver preset (physics/engine.py PRESETS)")
+    ap.add_argument('--out', default=None,
+                    help='JSON path (chiprun_out/profile_step_<preset>.json)')
     ap.add_argument('--trace', default=None,
                     help='optional chrome trace path')
     args = ap.parse_args(argv)
@@ -61,7 +66,7 @@ def main(argv=None):
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                            '--format=csv,noheader'], capture_output=True,
                           text=True).stdout.strip()
-    env = fly_envs.walk_imitation(functional=True)
+    env = fly_envs.walk_imitation(functional=True, preset=args.preset)
     g = torch.Generator().manual_seed(args.seed)
     lo = torch.as_tensor(env.action_min, dtype=torch.float32)
     hi = torch.as_tensor(env.action_max, dtype=torch.float32)
@@ -104,21 +109,24 @@ def main(argv=None):
     kernels = sorted(((n, t, c) for n, (t, c) in kern.items()),
                      key=lambda x: -x[1])
     busy = sum(k[1] for k in kernels) / 1e3
-    report = dict(card=card, batch=args.batch, wall_s=wall,
+    report = dict(card=card, batch=args.batch, preset=args.preset,
+                  wall_s=wall,
                   device_busy_s=busy, idle_share=1.0 - busy / wall,
                   env_steps_per_s=args.batch / wall, spans=spans,
                   top_kernels=[dict(name=n, device_ms=t, count=c)
                                for n, t, c in kernels[:25]])
     print(f'card: {card}')
-    print(f'step wall {wall:.3f} s at batch {args.batch}; device busy '
-          f'{busy:.3f} s; idle share {report["idle_share"]:.3f}')
+    print(f'step wall {wall:.3f} s at batch {args.batch}, preset '
+          f'{args.preset}; device busy {busy:.3f} s; idle share '
+          f'{report["idle_share"]:.3f}')
     for k, v in sorted(spans.items(), key=lambda kv: -kv[1]['host_ms']):
         print(f'  {k:16s} host {v["host_ms"]:9.1f} ms  device '
               f'{v["device_ms"]:9.1f} ms  ops {v["ops"]}')
     for n, t, c in kernels[:15]:
         print(f'  {t:9.2f} ms  x{c:<6d} {n[:90]}')
-    os.makedirs(os.path.dirname(args.out) or '.', exist_ok=True)
-    with open(args.out, 'w') as f:
+    out = args.out or f'chiprun_out/profile_step_{args.preset}.json'
+    os.makedirs(os.path.dirname(out) or '.', exist_ok=True)
+    with open(out, 'w') as f:
         json.dump(report, f, indent=1)
     if args.trace:
         prof.export_chrome_trace(args.trace)
