@@ -4,29 +4,34 @@
     python3 chip_smoke.py            # from the repository root
 
 The main path is walk_imitation's batched step at both solver presets, the
-counterpart of the JAX package run with FLYBODY_NO_PALLAS=narrow,mpr,
-efcstage (its dispatch gate, flybody_tpu/ops/dispatch.py): collision and
-the contact rows in their plain form, every other TPU kernel of the step
-by a hand-written CUDA kernel here.
+counterpart of the JAX package's default configuration (no kill switch in
+its dispatch gate, flybody_tpu/ops/dispatch.py): every TPU kernel that the
+JAX package's step launches runs here as a hand-written CUDA kernel.
 
 Phases (any failure exits non-zero):
   1. device: require CUDA; print the card's name and power limit;
   2. build: compile the kernels (csrc/*.cu) with nvcc, one process each;
   3. kernels: each kernel against its plain PyTorch version on the card at
      the main path's shapes (batch 8192, float32), with errors and times:
-     the stage kernels K1-K4; the Newton block (row 8 of PERF.md's kernel
-     table) and the fused noslip (row 11) on the rows and factor of a
+     the stage kernels K1-K4; the analytic narrowphase (row 5 of PERF.md's
+     kernel table), the merged MPR (row 6, held per pair beside wrong
+     controls) and the contact rows (row 7) on the geometry and candidates
+     of a forward pass at each preset's widths; the Newton block (row 8)
+     and the fused noslip (row 11) on the rows and factor of a
      default-preset forward pass; the whole Newton solve (row 9) and the
      noslip on 16 slots on a bench-preset forward pass. The Newton kernels
      are held per env (newton_checks), beside readings of the plain
      version at float64 and of deliberately wrong controls;
   4. main path, at each preset (default, bench): walk_imitation(
-     functional=True) reset + 5 control steps at batch 8192; state finite;
-     every kernel's launch count equal to the expected count; env-steps/s;
+     functional=True) reset + 5 control steps at batch 8192; state
+     finite; every kernel's launch count equal to the expected count;
+     env-steps/s;
   5. CPU check, at each preset: 64 envs of the reset state stepped once on
      the CPU (plain versions) against the card's step, per env (cpu_phase;
      read, not held, at the bench preset), and one substep's forward pass
-     from the card's stepped state on both (substep_phase).
+     from the card's stepped state on both (substep_phase; printed beside
+     it, a control with rows 5-7 plain on the card and the CPU's float32
+     against its float64).
 The last line is {"ok": true, "device": {...}}; the two lines before it
 hold the per-kernel JSON and the card's name and power limit, and details
 go to chiprun_out/chip_smoke.json.
@@ -34,6 +39,7 @@ go to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -52,6 +58,9 @@ TPU_REFS = {  # the TPU kernel each port replaces
     'force_stage': 'flybody_tpu/ops/force_stage.py:697',
     'arrow_factor_solve': 'flybody_tpu/ops/arrow.py:585',
     'sens_stage': 'flybody_tpu/ops/sens_stage.py:253',
+    'narrowphase': 'flybody_tpu/ops/narrowphase.py:269',
+    'mpr_merged': 'flybody_tpu/ops/mpr_kernel.py:360',
+    'efc_contacts': 'flybody_tpu/ops/efc_stage.py:241',
     'newton_block': 'flybody_tpu/ops/newton_fused.py:461',
     'newton_solve': 'flybody_tpu/ops/newton_fused.py:1038',
     'noslip_fused': 'flybody_tpu/ops/noslip_gs.py:227',
@@ -61,6 +70,9 @@ SOURCES = {
     'force_stage': 'flybody_tpu_torch/csrc/force_stage.cu',
     'arrow_factor_solve': 'flybody_tpu_torch/csrc/arrow.cu',
     'sens_stage': 'flybody_tpu_torch/csrc/sens_stage.cu',
+    'narrowphase': 'flybody_tpu_torch/csrc/narrowphase.cu',
+    'mpr_merged': 'flybody_tpu_torch/csrc/mpr.cu',
+    'efc_contacts': 'flybody_tpu_torch/csrc/efc_stage.cu',
     'newton_block': 'flybody_tpu_torch/csrc/newton.cu',
     'newton_solve': 'flybody_tpu_torch/csrc/newton.cu',
     'noslip_fused': 'flybody_tpu_torch/csrc/noslip.cu',
@@ -69,12 +81,14 @@ PRESETS = ('default', 'bench')
 # Launches of each kernel on the main path: reset (pos_stage once), then
 # per control step (10 substeps).
 PER_STEP = {
-    'default': {'pos_stage': 11, 'force_stage': 10, 'arrow_factor_solve': 20,
-                'sens_stage': 10, 'newton_block': 100, 'newton_solve': 0,
-                'noslip_fused': 10},
-    'bench': {'pos_stage': 11, 'force_stage': 10, 'arrow_factor_solve': 20,
-              'sens_stage': 10, 'newton_block': 0, 'newton_solve': 10,
-              'noslip_fused': 10},
+    'default': {'pos_stage': 11, 'narrowphase': 10, 'mpr_merged': 10,
+                'force_stage': 10, 'efc_contacts': 10,
+                'arrow_factor_solve': 20, 'sens_stage': 10,
+                'newton_block': 100, 'newton_solve': 0, 'noslip_fused': 10},
+    'bench': {'pos_stage': 11, 'narrowphase': 10, 'mpr_merged': 10,
+              'force_stage': 10, 'efc_contacts': 10,
+              'arrow_factor_solve': 20, 'sens_stage': 10,
+              'newton_block': 0, 'newton_solve': 10, 'noslip_fused': 10},
 }
 # The Newton kernels against their plain versions (newton_checks), per env:
 # a few envs end on another point than the plain version's, as the plain
@@ -96,6 +110,26 @@ F64_SHARE_SLACK = 0.005
 COST_REL_TOL = {'newton_block': (1e-5, 1e-2),  # (median env, batch mean)
                 'newton_solve': (2e-3, 8e-3)}
 NOSLIP_REL_TOL = 1e-3  # per-index rel. error of the noslip kernel
+NARROW_REL_TOL = 1e-5  # per-slot rel. error of the narrowphase kernel
+EFC_REL_TOL = 1e-5  # per-field rel. error of the contact-row kernel
+# The MPR kernel against its plain version, per candidate pair. A pair
+# agrees when its separated / touching classification does and, if it is
+# nearer than MPR_NEAR in the reference, its dist agrees to MPR_DIST_ATOL
+# and its normals' dot product is at least MPR_DOT (tests/test_ops.py's
+# bounds for the TPU kernel). At least MPR_CLASS_SHARE of all pairs agree
+# in classification and MPR_SHARE of the near pairs agree; and against the
+# plain version at float64 the kernel misses at most MPR_F64_RATIO times
+# as many near pairs as the plain float32 version does (plus 4). The
+# limits lie between the kernel's readings and those of two wrong controls
+# (the plain version with one refinement iteration fewer, and with the
+# polish off) that collision_kernels prints, measured on an NVIDIA H100
+# (PERF.md section 6).
+MPR_NEAR = 1e-3
+MPR_DIST_ATOL = 1e-4
+MPR_DOT = 0.999
+MPR_CLASS_SHARE = 0.999
+MPR_SHARE = 0.9992
+MPR_F64_RATIO = 1.5
 
 
 def log(*a):
@@ -282,6 +316,7 @@ def kernel_phase(env, batch, seed, report):
         f'contacts per env {efc.con_active.sum(1).mean().item():.2f}')
 
     data_in = state.data.replace(qpos=qpos, qvel=qvel, act=act, ctrl=ctrl)
+    collision_kernels(model, data_in, entry, report)
     solver_kernels(model, data_in, entry, report)
     report['kernel_checks'] = kernels
     return kernels
@@ -422,6 +457,183 @@ def newton_checks(name, kernel, plain, args, ls, n_it, controls, stats):
     return o30, r30, outs[0], rd
 
 
+# Operations of the collision kernels, counted from csrc/narrowphase.cu
+# and csrc/mpr.cu (each multiply, add, divide and square root one; the
+# comparisons and selects not counted).
+NARROW_FLOPS = {(0, 2): 17, (0, 3): 46, (0, 4): 67, (0, 5): 140,
+                (2, 2): 23, (2, 3): 39}  # per pair, by type key
+SUPPORT_FLOPS = {2: 6, 3: 40, 5: 42}  # sphere, capsule, cylinder
+ELLIPSOID_SUPPORT_FLOPS = 51  # any other type code
+
+
+def mpr_flops(prm, polish: int) -> float:
+    """Operations of the MPR kernel on these candidates: 3 + 10 + 24 +
+    polish + 1 Minkowski supports per pair (two geom supports and 21
+    more), the discovery (57 each), refinement (79 each) and polish (29
+    each) iterations' own algebra, and ~246 for the start and the
+    witness."""
+    t = prm[..., 8:10].round().long().flatten().tolist()
+    sup = sum(SUPPORT_FLOPS.get(c, ELLIPSOID_SUPPORT_FLOPS) for c in t)
+    n = prm[..., 0].numel()
+    evals = 3 + 10 + 24 + polish + 1
+    return evals * (sup + 21 * n) + n * (246 + 10 * 57 + 24 * 79
+                                         + polish * 29)
+
+
+def efc_flops(K, nv, C) -> float:
+    """Per env: the selection (C log2 C comparisons, what a sort needs),
+    the Jacobian rows (13 a dof: the 6-term sum, the mask difference, the
+    product) and their velocities (2 a dof), and ~120 a slot for the
+    frame, arm, impedance, aref and D."""
+    import math
+    return C * math.log2(C) + 3 * K * nv * 15 + K * 120
+
+
+def mpr_pair_stats(out, ref):
+    """Per candidate pair, whether `out` (dist, normal, pos) agrees with
+    `ref` (see MPR_NEAR): the share of all pairs with the same
+    classification, the number of near pairs in `ref` and the share and
+    number of them that agree, with quantiles of their dist error and
+    1 - dot."""
+    import torch
+    d, n = out[0].double(), out[1].double()
+    rd, rn = ref[0].double(), ref[1].double()
+    same_class = (d == 1.0) == (rd == 1.0)
+    near = (rd < MPR_NEAR) & (rd != 1.0)
+    derr = (d - rd).abs()[near]
+    ndev = (1.0 - (n * rn).sum(-1))[near]
+    ok = same_class[near] & (derr <= MPR_DIST_ATOL) & (ndev <= 1.0 - MPR_DOT)
+    q = torch.tensor([0.5, 0.99, 1.0], dtype=torch.float64,
+                     device=d.device)
+    return dict(class_share=same_class.double().mean().item(),
+                near_pairs=int(near.sum()),
+                near_share=ok.double().mean().item(),
+                near_misses=int((~ok).sum()),
+                near_dist_err_q50_q99_max=torch.quantile(derr, q).tolist(),
+                near_one_minus_dot_q50_q99_max=torch.quantile(ndev,
+                                                              q).tolist())
+
+
+def collision_kernels(model, data_in, entry, report):
+    """Rows 5, 6 and 7 against their plain versions on the geometry of a
+    forward pass (its position stage) at each preset's broadphase widths
+    and slot count."""
+    import torch
+    from flybody_tpu_torch.ops import efc_stage as ef
+    from flybody_tpu_torch.ops import mpr_kernel as mk
+    from flybody_tpu_torch.ops import narrowphase as nk
+    from flybody_tpu_torch.physics import collision, engine, kinematics
+    from flybody_tpu_torch.physics import solver
+
+    batch = data_in.qpos.shape[0]
+    meta = model.meta
+    d, _, _ = kinematics.fwd_position_smooth(model, data_in)
+
+    # Row 5: the same work at both presets.
+    segs = collision.dense_segments(meta)
+    nargs = (segs, d.geom_xpos, d.geom_xmat, model.geom_size)
+    out = nk.narrowphase(*nargs)
+    ref = nk.narrowphase_ref(*nargs)
+    err, rel = compare('narrowphase', out, ref, ('dist', 'pos', 'normal'))
+    if not rel <= NARROW_REL_TOL:
+        raise AssertionError(f'narrowphase disagrees: rel {rel:.3e}')
+    ms = cuda_ms(lambda: nk.narrowphase(*nargs), 20)
+    pms = cuda_ms(lambda: nk.narrowphase_ref(*nargs), 5)
+    geoms = sorted({g for _, g1, g2, _ in segs for g in g1 + g2})
+    fl = batch * sum(NARROW_FLOPS[key] * len(g1) for key, g1, _, _ in segs)
+    byts = (batch * len(geoms) * 12 * 4 + len(geoms) * 3 * 4
+            + 16 * sum(len(g1) for _, g1, _, _ in segs) + nbytes(out))
+    entry('narrowphase', err, ms, pms, byts, fl)
+    log(f'narrowphase: {ms:.3f} ms kernel, {pms:.3f} ms plain '
+        f'({out[0].shape[1]} slots)')
+
+    gcat = collision._geom_cat(d)
+    ft = collision._pair_family_tables(meta, True)
+    for preset in PRESETS:
+        cfg = engine.PRESETS[preset]
+        # Row 6 on the preset's merged broadphase candidates.
+        P = cfg['mpr_top_p']
+        idx, c1, c2 = collision._broadphase(model, d, gcat, ft, P)
+        collision._mpr_merged(model, d, gcat, P)  # builds the pair table
+        prm = model._cache['mpr_table'][idx][..., :11].contiguous()
+        margs = (c1, c2, prm, 8)
+        out = mk.mpr_merged(*margs)
+        ref = mk.mpr_merged_ref(*margs)
+        f64 = mk.mpr_merged_ref(c1.double(), c2.double(), prm.double(), 8)
+        runs = {'kernel': out, 'plain': ref,
+                'control one refinement iteration fewer': mk.mpr_merged_ref(
+                    *margs[:3], 8, refine_iters=mk._mpr.REFINE_ITERS - 1),
+                'control polish off': mk.mpr_merged_ref(*margs[:3], 0)}
+        rd = {name: mpr_pair_stats(o, ref) for name, o in runs.items()
+              if name != 'plain'}
+        rd['near_misses_against_float64'] = {
+            name: mpr_pair_stats(o, f64)['near_misses']
+            for name, o in runs.items()}
+        log(f'  mpr_merged readings [{preset}, P {P}]: ' + json.dumps(rd))
+        report[f'mpr_readings_{preset}'] = rd
+        kr, m64 = rd['kernel'], rd['near_misses_against_float64']
+        if not (kr['class_share'] >= MPR_CLASS_SHARE
+                and kr['near_share'] >= MPR_SHARE
+                and m64['kernel'] <= MPR_F64_RATIO * m64['plain'] + 4):
+            raise AssertionError(f'mpr_merged [{preset}] disagrees: {rd}')
+        err = rd['kernel']['near_dist_err_q50_q99_max'][2]
+        ms = cuda_ms(lambda: mk.mpr_merged(*margs), 20)
+        pms = cuda_ms(lambda: mk.mpr_merged_ref(*margs), 3)
+        fl = mpr_flops(prm, 8)
+        byts = nbytes([c1, c2, prm]) + nbytes(out)
+        report[f'mpr_{preset}'] = dict(pairs=P, ms=ms, plain_ms=pms,
+                                       bytes=byts, flops=fl,
+                                       max_abs_err=err)
+        if preset == 'default':
+            entry('mpr_merged', err, ms, pms, byts, fl)
+        log(f'mpr_merged ({preset}, {P} pairs): {ms:.3f} ms kernel, '
+            f'{pms:.3f} ms plain, bound '
+            f'{max(byts / HBM_BYTES_PER_S, fl / FP32_FLOPS) * 1e3:.4f} ms')
+
+        # Row 7 on the preset's candidates (the kernels' collide).
+        con = collision.collide(model, d, cfg['mpr_top_p'], cfg['cc_top_p'])
+        cand = solver.contact_candidates(model, con)
+        K = cfg['ncon_max']
+        out = ef.contact_rows(model, d, *cand, K)
+        ref = ef.contact_rows_ref(model, d, *cand, K)
+        outs, refs = [out[0]] + out[1], [ref[0]] + ref[1]
+        err, worst = 0.0, 0.0
+        for i, (o, r) in enumerate(zip(outs, refs)):
+            if i - 1 in (14, 15, 18):  # body1, body2, slot id: exactly
+                if not torch.equal(o, r):
+                    raise AssertionError(f'efc_contacts [{preset}]: row '
+                                         f'{i - 1} differs')
+                continue
+            e = (o - r).abs().max().item()
+            err = max(err, e)
+            worst = max(worst, e / max(r.abs().max().item(), 1e-6))
+        log(f'  efc_contacts[{preset}]: max abs {err:.3e}, worst field rel '
+            f'{worst:.3e}; slot and body ids equal')
+        if not worst <= EFC_REL_TOL:
+            raise AssertionError(f'efc_contacts [{preset}] disagrees: '
+                                 f'{worst:.3e}')
+        ms = cuda_ms(lambda: ef.contact_rows(model, d, *cand, K), 20)
+        pms = cuda_ms(lambda: ef.contact_rows_ref(model, d, *cand, K), 5)
+        # Bytes the kernel reads: each candidate's score operands (dist,
+        # includemargin), the whole row of the K selected ones (7 + 14 + 1
+        # floats), qvel, cdof, the subtree CoM, the body-mask and limb
+        # tables; it writes con_J and the 19 rows.
+        C = cand[0].shape[1]
+        byts = (batch * (2 * C + 22 * K) * 4 + nbytes([d.qvel, d.cdof])
+                + batch * 12 + nbytes([model.body_dof_mask])
+                + 4 * meta.nbody + nbytes(outs))
+        fl = batch * efc_flops(K, meta.nv, C)
+        report[f'efc_{preset}'] = dict(candidates=C, slots=K, ms=ms,
+                                       plain_ms=pms, bytes=byts, flops=fl,
+                                       max_abs_err=err, rel_err=worst)
+        if preset == 'default':
+            entry('efc_contacts', err, ms, pms, byts, fl)
+        log(f'efc_contacts ({preset}, C {C}, K {K}): {ms:.3f} ms kernel, '
+            f'{pms:.3f} ms plain, bound '
+            f'{max(byts / HBM_BYTES_PER_S, fl / FP32_FLOPS) * 1e3:.4f} ms; '
+            f'active contacts per env {out[1][1].sum(1).mean().item():.2f}')
+
+
 def solver_kernels(model, data_in, entry, report):
     """Rows 8, 9 and 11 against their plain versions on the rows, factor
     and forces of real forward passes at both presets."""
@@ -545,9 +757,13 @@ def unpack(part, Mp):
 
 def counters():
     """Each kernel's launch counter: (module, attribute)."""
-    from flybody_tpu_torch.ops import (arrow, force_stage, newton_fused,
+    from flybody_tpu_torch.ops import (arrow, efc_stage, force_stage,
+                                       mpr_kernel, narrowphase, newton_fused,
                                        noslip_gs, pos_stage, sens_stage)
     return {'pos_stage': (pos_stage, 'launches'),
+            'narrowphase': (narrowphase, 'launches'),
+            'mpr_merged': (mpr_kernel, 'launches'),
+            'efc_contacts': (efc_stage, 'launches'),
             'force_stage': (force_stage, 'launches'),
             'arrow_factor_solve': (arrow, 'launches'),
             'sens_stage': (sens_stage, 'launches'),
@@ -674,46 +890,92 @@ def cpu_phase(preset, state0, action, first, cpu_envs, report):
                              f'{rd["card_share"]:.4f}, worst field {worst}')
 
 
+def substep_outputs(model, data, cfg):
+    """One substep (engine.step) and one forward pass at `cfg`: qpos, qvel,
+    qacc and sensordata after the substep, and the forward pass's primal
+    cost and net normal force, each moved to the CPU as float64."""
+    from flybody_tpu_torch.ops import arrow
+    from flybody_tpu_torch.physics import engine, solver
+    part = arrow.build_partition(model.meta)
+    out = engine.step(model, data, cfg)
+    dd, efc, f_c = engine.fwd_acc(model, data, cfg)
+    a_free = arrow.solve_ref(part, dd.qLD, dd.qfrc_smooth)
+    ops = solver.operands(efc, cfg['sb_break'])
+    return [getattr(out, k).cpu().double() for k in SUBSTEP_NAMES] + [
+        t.cpu() for t in cost_force(part, efc, ops, dd.qM, a_free, dd.qacc,
+                                    f_c[..., 0])]
+
+
+SUBSTEP_NAMES = ('qpos', 'qvel', 'qacc', 'sensordata')
+
+
+def substep_shares(got, want):
+    """Per quantity of substep_outputs, the share of envs where `got`
+    agrees with `want`: qpos, qvel, qacc, sensordata to CPU_TOL of each
+    index's scale (env_err); the primal cost and net normal force to
+    CPU_TOL of their own value."""
+    rd = {f'{k}_share': share(env_err([a], [b]), CPU_TOL)
+          for k, a, b in zip(SUBSTEP_NAMES, got, want)}
+    rd['median_env'] = env_err(got[:4], want[:4]).median().item()
+    for what, a, b in (('cost', got[4], want[4]),
+                       ('force', got[5], want[5])):
+        rel = (a - b).abs() / b.abs().clamp(
+            min=1e-6 * b.abs().max().item() + 1e-30)
+        rd[f'{what}_share'] = share(rel, CPU_TOL)
+        rd[f'{what}_disagreeing_envs'] = (rel > CPU_TOL).nonzero().flatten(
+            ).tolist()
+    return rd
+
+
+@contextlib.contextmanager
+def plain_collision():
+    """Rows 5-7 by their plain versions on the card: the path as it stood
+    before the collision kernels, as a control."""
+    from flybody_tpu_torch.ops import efc_stage, mpr_kernel, narrowphase
+    saved = (narrowphase.narrowphase, mpr_kernel.mpr_merged,
+             efc_stage.contact_rows)
+    narrowphase.narrowphase = narrowphase.narrowphase_ref
+    mpr_kernel.mpr_merged = mpr_kernel.mpr_merged_ref
+    efc_stage.contact_rows = efc_stage.contact_rows_ref
+    try:
+        yield
+    finally:
+        (narrowphase.narrowphase, mpr_kernel.mpr_merged,
+         efc_stage.contact_rows) = saved
+
+
 def substep_phase(preset, model, data1, report):
     """One substep (engine.step: collision at the preset's broadphase
     widths, constraint rows, the Newton kernel through the solver's wiring,
     the noslip on the preset's prefix and its qfrc update, sensors, Euler)
     on the card and on the CPU, from the card's state after the first
     control step, at the preset but for 30 line-search steps (where the
-    search closes). Per env qpos, qvel, qacc and sensordata agree to
-    CPU_TOL (env_err), and the forward pass's primal cost and net normal
-    force to CPU_TOL of their own value, each in at least CPU_ENV_SHARE of
-    the envs."""
+    search closes). Every share of substep_shares, the card against the
+    CPU, is at least CPU_ENV_SHARE. Printed beside it: a control on the
+    card with rows 5-7 by their plain versions (the path before them), and
+    the CPU's float32 against its float64 (what float32 resolves)."""
+    import torch
     from flybody_tpu_torch.model import spec
-    from flybody_tpu_torch.ops import arrow
-    from flybody_tpu_torch.physics import engine, solver
+    from flybody_tpu_torch.physics import engine
     cfg = dict(engine.PRESETS[preset], ls_iterations=30)
-    part = arrow.build_partition(model.meta)
-    names = ('qpos', 'qvel', 'qacc', 'sensordata')
-    res = []
-    for m, d in ((model, data1),
-                 (spec.load(spec.WALK_IMITATION_NPZ, device='cpu'),
-                  data1.to('cpu'))):
-        out = engine.step(m, d, cfg)
-        dd, efc, f_c = engine.fwd_acc(m, d, cfg)
-        a_free = arrow.solve_ref(part, dd.qLD, dd.qfrc_smooth)
-        ops = solver.operands(efc, cfg['sb_break'])
-        res.append([getattr(out, k).cpu() for k in names] + [
-            t.cpu() for t in cost_force(part, efc, ops, dd.qM, a_free,
-                                        dd.qacc, f_c[..., 0])])
-    card, cpu = res
-    rd = {f'{k}_share': share(env_err([a], [b]), CPU_TOL)
-          for k, a, b in zip(names, card, cpu)}
-    rd['median_env'] = env_err(card[:4], cpu[:4]).median().item()
-    for what, a, b in (('cost', card[4], cpu[4]),
-                       ('force', card[5], cpu[5])):
-        rel = (a - b).abs() / b.abs().clamp(
-            min=1e-6 * b.abs().max().item() + 1e-30)
-        rd[f'{what}_share'] = share(rel, CPU_TOL)
-    log(f'substep check [{preset}, ls 30] ({data1.qpos.shape[0]} envs): '
-        + json.dumps(rd))
+    card = substep_outputs(model, data1, cfg)
+    with plain_collision():
+        ctl = substep_outputs(model, data1, cfg)
+    cpu = substep_outputs(spec.load(spec.WALK_IMITATION_NPZ, device='cpu'),
+                          data1.to('cpu'), cfg)
+    cpu64 = substep_outputs(
+        spec.load(spec.WALK_IMITATION_NPZ, device='cpu',
+                  dtype=torch.float64),
+        data1.to('cpu', dtype=torch.float64), cfg)
+    rd = {'card_vs_cpu': substep_shares(card, cpu),
+          'control_rows_5_7_plain_vs_cpu': substep_shares(ctl, cpu),
+          'cpu_vs_cpu_float64': substep_shares(cpu, cpu64),
+          'card_vs_cpu_float64': substep_shares(card, cpu64)}
+    for k, v in rd.items():
+        log(f'substep check [{preset}, ls 30] ({data1.qpos.shape[0]} envs) '
+            f'{k}: ' + json.dumps(v))
     report[f'substep_check_{preset}'] = rd
-    low = {k: v for k, v in rd.items()
+    low = {k: v for k, v in rd['card_vs_cpu'].items()
            if k.endswith('_share') and not v >= CPU_ENV_SHARE}
     if low:
         raise AssertionError(f'{preset}: card and CPU disagree in one '

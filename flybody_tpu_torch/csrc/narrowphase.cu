@@ -1,0 +1,186 @@
+// Kernel 5: the analytic narrowphase.
+//
+// Replaces flybody_tpu/ops/narrowphase.py::_np_pallas (:269, the Pallas
+// call at :278). Semantics: narrowphase_ref in
+// flybody_tpu_torch/ops/narrowphase.py, the per-type row formulas
+// (plane-sphere, plane-capsule (2 rows), plane-ellipsoid, plane-cylinder
+// (3 rows), sphere-sphere, sphere-capsule) in canonical pair-major slot
+// order: a pair's rows land at slots first .. first + k - 1.
+//
+// What bounds it: bytes. Per env it reads the poses of the geoms its
+// pairs name (12 floats each) and writes 7 floats per slot; the walking
+// model's 115 pairs (174 slots) read 7.7 KB and write 4.9 KB. Design: one
+// thread per (env, pair), pairs of one env on neighbouring threads. The
+// pair table [type, geom1, geom2, first slot] is a small int array read
+// through the read-only cache; each thread gathers its two geoms' pose
+// rows by index (no pre-gathered planes, no one-hot products), and since
+// pairs are grouped by type, a warp takes one branch but at the seams of
+// the type segments.
+
+#include "geom.cuh"
+
+namespace {
+
+// Type codes: ops/narrowphase.py KERNEL_KEYS.
+enum PairType {
+  kPlaneSphere = 0,
+  kPlaneCapsule = 1,
+  kPlaneEllipsoid = 2,
+  kPlaneCylinder = 3,
+  kSphereSphere = 4,
+  kSphereCapsule = 5,
+};
+
+constexpr float kEps = 1e-15f;
+constexpr int kThreads = 128;
+
+struct Row {
+  float dist;
+  V3 pos, normal;
+};
+
+__device__ __forceinline__ V3 normalize(V3 a, float* n) {
+  *n = norm(a);
+  return a * (1.0f / fmaxf(*n, kEps));
+}
+
+__device__ __forceinline__ Row plane_sphere_row(V3 pp, V3 pn, V3 c, float r) {
+  Row o;
+  o.dist = dot(c - pp, pn) - r;
+  o.pos = c - pn * (r + 0.5f * o.dist);
+  o.normal = pn;
+  return o;
+}
+
+__device__ __forceinline__ Row sphere_sphere_row(V3 c1, float r1, V3 c2,
+                                                 float r2) {
+  float dn;
+  const V3 n = normalize(c2 - c1, &dn);
+  Row o;
+  o.dist = dn - r1 - r2;
+  o.pos = c1 + n * (r1 + 0.5f * o.dist);
+  o.normal = n;
+  return o;
+}
+
+__device__ __forceinline__ Row plane_ellipsoid_row(V3 p1, const M3& m1, V3 p2,
+                                                   const M3& m2, V3 s2) {
+  const V3 pn = col(m1, 2);
+  const V3 nl = mul_t(m2, pn);
+  const float a = s2.x * nl.x, b = s2.y * nl.y, c = s2.z * nl.z;
+  const float denom = sqrtf(a * a + b * b + c * c);
+  const float inv = -1.0f / fmaxf(denom, kEps);
+  const V3 xl = v3(s2.x * s2.x * nl.x * inv, s2.y * s2.y * nl.y * inv,
+                   s2.z * s2.z * nl.z * inv);
+  const V3 point = p2 + mul(m2, xl);
+  Row o;
+  o.dist = dot(point - p1, pn);
+  o.pos = point - pn * (0.5f * o.dist);
+  o.normal = pn;
+  return o;
+}
+
+// The three rows of a plane-cylinder pair: the deepest rim point and two
+// more rim points 120 degrees away, or, for a cylinder lying on the plane
+// (|cos| < 1e-4), the two ends of its lowest line (row 2 then far away).
+__device__ __forceinline__ void plane_cylinder_rows(V3 p1, const M3& m1,
+                                                    V3 p2, const M3& m2,
+                                                    V3 s2, Row* rows) {
+  const V3 n = col(m1, 2), a = col(m2, 2);
+  const float r = s2.x, h = s2.y;
+  const float ca = dot(a, n);
+  const V3 lower = p2 - a * (sgn(ca) * h);
+  float un;
+  const V3 u_n = normalize(n - a * ca, &un);
+  const V3 u = sel(un > 1e-12f, u_n, col(m2, 0));
+  const V3 w = cross(a, u);
+  const V3 deep = lower - u * r;
+  const float c120 = -0.5f, s120 = 0.866025403784439f;
+  const V3 rim2 = lower - (u * (r * c120) + w * (r * s120));
+  const V3 rim3 = lower - (u * (r * c120) - w * (r * s120));
+  const V3 side1 = (p2 + a * h) - u_n * r;
+  const V3 side2 = (p2 - a * h) - u_n * r;
+  const bool lying = fabsf(ca) < 1e-4f;
+  const V3 pts[3] = {sel(lying, side1, deep), sel(lying, side2, rim2),
+                     sel(lying, side2, rim3)};
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    float dist = dot(pts[i] - p1, n);
+    if (i == 2 && lying) dist = 1e10f;
+    rows[i].dist = dist;
+    rows[i].pos = pts[i] - n * (0.5f * dist);
+    rows[i].normal = n;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    narrowphase_kernel(const float* __restrict__ xpos,
+                       const float* __restrict__ xmat,
+                       const float* __restrict__ size,
+                       const int4* __restrict__ pairs,
+                       float* __restrict__ dist_o, float* __restrict__ pos_o,
+                       float* __restrict__ nrm_o, int B, int ngeom, int P,
+                       int S) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (long long)B * P) return;
+  const int e = (int)(t / P), p = (int)(t % P);
+  const int4 pr = __ldg(pairs + p);  // type, geom1, geom2, first slot
+  const float* xp = xpos + (size_t)e * ngeom * 3;
+  const float* xm = xmat + (size_t)e * ngeom * 9;
+  const V3 p1 = ld3(xp + 3 * pr.y), p2 = ld3(xp + 3 * pr.z);
+  const M3 m1 = ld9(xm + 9 * pr.y), m2 = ld9(xm + 9 * pr.z);
+  const V3 s1 = ld3(size + 3 * pr.y), s2 = ld3(size + 3 * pr.z);
+
+  Row rows[3];
+  int k = 1;
+  switch (pr.x) {
+    case kPlaneSphere:
+      rows[0] = plane_sphere_row(p1, col(m1, 2), p2, s2.x);
+      break;
+    case kPlaneCapsule: {
+      const V3 pn = col(m1, 2), axis = col(m2, 2);
+      rows[0] = plane_sphere_row(p1, pn, p2 + axis * s2.y, s2.x);
+      rows[1] = plane_sphere_row(p1, pn, p2 - axis * s2.y, s2.x);
+      k = 2;
+      break;
+    }
+    case kPlaneEllipsoid:
+      rows[0] = plane_ellipsoid_row(p1, m1, p2, m2, s2);
+      break;
+    case kPlaneCylinder:
+      plane_cylinder_rows(p1, m1, p2, m2, s2, rows);
+      k = 3;
+      break;
+    case kSphereSphere:
+      rows[0] = sphere_sphere_row(p1, s1.x, p2, s2.x);
+      break;
+    default: {  // kSphereCapsule
+      const V3 a = col(m2, 2);
+      const float h = s2.y;
+      const float tt = fminf(fmaxf(dot(p1 - p2, a), -h), h);
+      rows[0] = sphere_sphere_row(p1, s1.x, p2 + a * tt, s2.x);
+      break;
+    }
+  }
+  for (int r = 0; r < k; ++r) {
+    const size_t s = (size_t)e * S + pr.w + r;
+    dist_o[s] = rows[r].dist;
+    st3(pos_o + 3 * s, rows[r].pos);
+    st3(nrm_o + 3 * s, rows[r].normal);
+  }
+}
+
+}  // namespace
+
+FB_API int narrowphase_f32(const float* xpos, const float* xmat,
+                           const float* size, const int* pairs, float* dist,
+                           float* pos, float* normal, int B, int ngeom, int P,
+                           int S, void* stream) {
+  if (B < 1 || P < 1) return -1;
+  const long long n = (long long)B * P;
+  const int blocks = (int)((n + kThreads - 1) / kThreads);
+  narrowphase_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      xpos, xmat, size, reinterpret_cast<const int4*>(pairs), dist, pos,
+      normal, B, ngeom, P, S);
+  return launch_status();
+}

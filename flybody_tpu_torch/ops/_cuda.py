@@ -21,8 +21,8 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD = os.path.join(_PKG, '_build')
-SOURCES = ('pos_stage', 'force_stage', 'arrow', 'sens_stage', 'newton',
-           'noslip')
+SOURCES = ('pos_stage', 'narrowphase', 'mpr', 'force_stage', 'efc_stage',
+           'arrow', 'sens_stage', 'newton', 'noslip')
 
 _libs: dict = {}
 _fns: dict = {}
@@ -66,13 +66,16 @@ def build_all(names=SOURCES) -> dict:
             procs[name] = (out, subprocess.Popen(
                 _command(name, out + '.tmp'), stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True))
-    reports = {}
-    for name, (out, p) in procs.items():
+    reports, failed = {}, []
+    for name, (out, p) in procs.items():  # wait for every nvcc
         log, _ = p.communicate()
         if p.returncode != 0:
-            raise RuntimeError(f'nvcc failed for {name}.cu:\n{log}')
+            failed.append(f'nvcc failed for {name}.cu:\n{log}')
+            continue
         os.replace(out + '.tmp', out)
         reports[name] = log
+    if failed:
+        raise RuntimeError('\n'.join(failed))
     return reports
 
 

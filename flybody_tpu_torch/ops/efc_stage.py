@@ -1,0 +1,168 @@
+"""Contact constraint rows: kernel 7.
+
+Counterpart of flybody_tpu/ops/efc_stage.py (`make_efc_contacts_pe`,
+`_efc_pallas`, row 7 of PERF.md's kernel table): of the C candidate
+contacts (dense analytic slots, then the compact capsule-capsule and MPR
+blocks), the k with the smallest dist - includemargin, the lower index
+first among ties and NaN scores last (a stable sort, as
+collision.smallest); then their Jacobian rows in the contact frame,
+velocity, impedance, aref and D (MuJoCo's mj_makeConstraint for a single
+kinematic tree).
+
+Operands: cand_b (B, C, 7) [dist | pos | normal], cand_u (B, C, 14)
+efc_slot_table rows, cand_g (B, C) global slot ids as floats, and the
+forward pass's qvel, cdof and subtree_com. Returns con_J (B, k, 3, nv) and
+19 (B, k) rows: dist, active, frictional, mu, D, aref (3), pos (3),
+normal (3), body1, body2, self, break, slot id. `contact_rows` launches
+csrc/efc_stage.cu on CUDA tensors (float32, contiguous; anything else
+raises) and runs the plain version `contact_rows_ref` on CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from flybody_tpu_torch.ops import _cuda
+from flybody_tpu_torch.ops import arrow as _ar
+from flybody_tpu_torch.physics import collision as _col
+from flybody_tpu_torch.physics.math import cross
+
+launches = 0
+NROWS = 19
+
+
+def impedance(solimp, r):
+    d0, dmax, width, mid, power = solimp.unbind(-1)
+    x = torch.clamp(torch.abs(r) / torch.clamp(width, min=1e-15), 0.0, 1.0)
+    lo = x ** power / torch.clamp(mid ** (power - 1), min=1e-15)
+    hi = 1.0 - (1.0 - x) ** power / torch.clamp((1.0 - mid) ** (power - 1),
+                                                min=1e-15)
+    imp = d0 + torch.where(x <= mid, lo, hi) * (dmax - d0)
+    return torch.clamp(imp, 1e-5, 1.0 - 1e-5)
+
+
+def kbi(solref, solimp, r):
+    """Stiffness K, damping B and impedance of constraint rows."""
+    imp = impedance(solimp, r)
+    dmax = solimp[..., 1]
+    tc, dr = solref[..., 0], solref[..., 1]
+    std = tc > 0
+    K = torch.where(std, 1.0 / torch.clamp((dmax * tc * dr) ** 2, min=1e-15),
+                    -solref[..., 0] / torch.clamp(dmax * dmax, min=1e-15))
+    B = torch.where(std, 2.0 / torch.clamp(dmax * tc, min=1e-15),
+                    -solref[..., 1] / torch.clamp(dmax, min=1e-15))
+    return K, B, imp
+
+
+def make_frame(normal):
+    """Tangent basis (t1, t2) for contact normals."""
+    helper = torch.zeros_like(normal)
+    use_z = torch.abs(normal[..., 0]) > 0.9
+    helper[..., 0] = torch.where(use_z, 0.0, 1.0)
+    helper[..., 2] = torch.where(use_z, 1.0, 0.0)
+    t1 = cross(normal, helper)
+    t1 = t1 / torch.clamp(torch.linalg.norm(t1, dim=-1, keepdim=True),
+                          min=1e-15)
+    return t1, cross(normal, t1)
+
+
+def contact_rows_ref(model, data, cand_b, cand_u, cand_g, k):
+    """Top-k contact selection and row assembly (the JAX package's
+    _contact_rows_ref, flybody_tpu/physics/solver.py). Returns con_J
+    (B, k, 3, nv) and 19 (B, k) rows: dist, active, frictional, mu, D,
+    aref(3), pos(3), normal(3), body1, body2, self, break, slot id."""
+    meta = model.meta
+    dt = cand_b.dtype
+    score = cand_b[..., 0] - cand_u[..., 0]
+    sel = _col.smallest(score, k)
+    bsel = torch.gather(cand_b, 1, sel[..., None].expand(-1, -1, 7))
+    usel = torch.gather(cand_u, 1, sel[..., None].expand(-1, -1, 14))
+    gsel = torch.gather(cand_g, 1, sel)
+    c_dist, c_pos, c_n = bsel[..., 0], bsel[..., 1:4], bsel[..., 4:7]
+    c_incl, c_mu = usel[..., 0], usel[..., 1]
+    c_solref, c_solimp = usel[..., 2:4], usel[..., 4:9]
+    condim, diag_c = usel[..., 9], usel[..., 10]
+    b1f, b2f, c_self = usel[..., 11], usel[..., 12], usel[..., 13]
+    c_active = (c_dist < c_incl).to(dt)
+
+    t1, t2 = make_frame(c_n)
+    frame = torch.stack([c_n, t1, t2], dim=-2)  # (B, k, 3, 3)
+    b1, b2 = torch.round(b1f).long(), torch.round(b2f).long()
+    mask = model.body_dof_mask
+    w = mask[b2] - mask[b1]  # (B, k, nv)
+    arm = c_pos - data.subtree_com[:, tree_root(meta)][:, None, :]
+    gkr = torch.cat([cross(arm[..., None, :], frame), frame], -1)
+    con_J = torch.einsum('bkrx,bvx->bkrv', gkr, data.cdof) * w[..., None, :]
+
+    limb = limb_of_body(model)
+    l1, l2 = limb[b1], limb[b2]
+    c_break = ((torch.abs(l1 - l2) > 0.5) & (l1 > -0.5)
+               & (l2 > -0.5)).to(dt)
+
+    r_c = c_dist - c_incl
+    K_c, B_c, imp_c = kbi(c_solref, c_solimp, r_c)
+    vel = torch.einsum('bkrv,bv->bkr', con_J, data.qvel)
+    aref_n = -B_c * vel[..., 0] - K_c * imp_c * r_c
+    aref_t = -B_c[..., None] * vel[..., 1:]
+    R_c = torch.clamp((1.0 - imp_c) / imp_c * diag_c, min=1e-12)
+    scal = [c_dist, c_active, (condim >= 3).to(dt), c_mu, 1.0 / R_c, aref_n,
+            aref_t[..., 0], aref_t[..., 1], c_pos[..., 0], c_pos[..., 1],
+            c_pos[..., 2], c_n[..., 0], c_n[..., 1], c_n[..., 2], b1f, b2f,
+            c_self, c_break, gsel]
+    return con_J, scal
+
+
+def tree_root(meta) -> int:
+    """The root body of the one kinematic tree that holds every dof."""
+    root = np.array(meta.body_rootid)
+    roots = np.unique(root[np.array(meta.dof_bodyid)])
+    if len(roots) != 1:
+        raise NotImplementedError('contact rows: single kinematic tree only')
+    return int(roots[0])
+
+
+def limb_of_body(model):
+    """Each body's arrow limb, as a float (-1 outside the limbs)."""
+    part = _ar.build_partition(model.meta)
+    return model.const('limb_of_body',
+                       lambda: np.array(part.limb_of_body, np.float64))
+
+
+def contact_rows(model, data, cand_b, cand_u, cand_g, k):
+    """Kernel 7 on CUDA tensors, `contact_rows_ref` on CPU tensors."""
+    if cand_b.device.type == 'cpu':
+        return contact_rows_ref(model, data, cand_b, cand_u, cand_g, k)
+    global launches
+    meta = model.meta
+    B, C = cand_b.shape[:2]
+    nv, nb = meta.nv, meta.nbody
+    com = data.subtree_com[:, tree_root(meta)].contiguous()
+    mask, limb = model.body_dof_mask, limb_of_body(model)
+    for t, shape, name in ((cand_b, (B, C, 7), 'cand_b'),
+                           (cand_u, (B, C, 14), 'cand_u'),
+                           (cand_g, (B, C), 'cand_g'),
+                           (data.qvel, (B, nv), 'qvel'),
+                           (data.cdof, (B, nv, 6), 'cdof'),
+                           (com, (B, 3), 'subtree_com[root]'),
+                           (mask, (nb, nv), 'body_dof_mask'),
+                           (limb, (nb,), 'limb_of_body')):
+        _cuda.check(t, shape, name)
+    if not 0 < k <= C:
+        raise ValueError(f'contact_rows: k = {k} of {C} candidates')
+    con_J = torch.empty((B, k, 3, nv), dtype=torch.float32,
+                        device=cand_b.device)
+    scal = torch.empty((NROWS, B, k), dtype=torch.float32,
+                       device=cand_b.device)
+    V, I = ctypes.c_void_p, ctypes.c_int
+    fn = _cuda.function('efc_stage', 'efc_contacts_f32',
+                        [V] * 10 + [I] * 5 + [V])
+    rc = fn(cand_b.data_ptr(), cand_u.data_ptr(), cand_g.data_ptr(),
+            data.qvel.data_ptr(), data.cdof.data_ptr(), com.data_ptr(),
+            mask.data_ptr(), limb.data_ptr(), con_J.data_ptr(),
+            scal.data_ptr(), B, C, k, nv, nb, _cuda.stream())
+    _cuda.raise_on(rc, 'efc_contacts_f32')
+    launches += 1
+    return con_J, list(scal.unbind(0))

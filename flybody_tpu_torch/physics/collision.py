@@ -1,12 +1,13 @@
-"""Collision detection, compact path (plain PyTorch).
+"""Collision detection, compact path.
 
 Counterpart of flybody_tpu/physics/collision.py `collide(compact=True)`:
 static pair tables with MuJoCo's filters, the analytic narrowphase for
-plane/sphere groups (all pairs), a bounding-sphere broadphase + exact
-segment-segment narrowphase on the 128 closest capsule-capsule pairs, and
-one merged broadphase + type-dispatching MPR on the 128 closest mixed-type
-pairs. Every selection is a stable sort, so ties keep the lower index first
-as jax.lax.top_k does.
+the plane/sphere groups on all their pairs (kernel 5,
+ops/narrowphase.py), a bounding-sphere broadphase + exact segment-segment
+narrowphase on the closest capsule-capsule pairs (plain, as in JAX), and
+one merged broadphase + type-dispatching MPR on the closest mixed-type
+pairs (kernel 6, ops/mpr_kernel.py). Every selection is a stable sort, so
+ties keep the lower index first as jax.lax.top_k does.
 """
 
 from __future__ import annotations
@@ -19,10 +20,10 @@ import torch
 
 from flybody_tpu_torch.model import spec as _s
 from flybody_tpu_torch.model.spec import FlyModel
-from flybody_tpu_torch.physics import mpr as _mpr
+from flybody_tpu_torch.ops import mpr_kernel as _mprk
+from flybody_tpu_torch.ops import narrowphase as _np
+from flybody_tpu_torch.ops.narrowphase import _rows
 from flybody_tpu_torch.physics.state import Data
-
-_EPS = 1e-15
 
 _PAIR_NCON = {
     (_s.GEOM_PLANE, _s.GEOM_SPHERE): 1,
@@ -182,190 +183,29 @@ def efc_slot_table(model: FlyModel):
     return model.const('efc_slot_table', lambda: efc_slot_table_np(model))
 
 
-# ------------------------------------------------------- analytic rows
-# Component algebra on tuples of tensors (the JAX package's narrowphase
-# formulas, shared by all analytic pair types).
+def _dense(key) -> bool:
+    """Analytic groups that the compact collide evaluates on all pairs."""
+    return key in _np.ANALYTIC_KEYS and key != _CC_KEY
 
 
-def _dot(a, b):
-    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
-
-
-def _cross(a, b):
-    return (a[1] * b[2] - a[2] * b[1], a[2] * b[0] - a[0] * b[2],
-            a[0] * b[1] - a[1] * b[0])
-
-
-def _add(a, b):
-    return (a[0] + b[0], a[1] + b[1], a[2] + b[2])
-
-
-def _sub(a, b):
-    return (a[0] - b[0], a[1] - b[1], a[2] - b[2])
-
-
-def _scale(a, s):
-    return (a[0] * s, a[1] * s, a[2] * s)
-
-
-def _normalize(a):
-    n = torch.sqrt(_dot(a, a))
-    return _scale(a, 1.0 / torch.clamp(n, min=_EPS)), n
-
-
-def _where(c, a, b):
-    return tuple(torch.where(c, x, y) for x, y in zip(a, b))
-
-
-def _matcol(m, j):
-    return (m[0 + j], m[3 + j], m[6 + j])
-
-
-def _matvec(m, v):
-    return (m[0] * v[0] + m[1] * v[1] + m[2] * v[2],
-            m[3] * v[0] + m[4] * v[1] + m[5] * v[2],
-            m[6] * v[0] + m[7] * v[1] + m[8] * v[2])
-
-
-def _matvec_t(m, v):
-    return (m[0] * v[0] + m[3] * v[1] + m[6] * v[2],
-            m[1] * v[0] + m[4] * v[1] + m[7] * v[2],
-            m[2] * v[0] + m[5] * v[1] + m[8] * v[2])
-
-
-def _plane_sphere_row(pp, pn, c, r):
-    dist = _dot(_sub(c, pp), pn) - r
-    return dist, _sub(c, _scale(pn, r + 0.5 * dist)), pn
-
-
-def _rows_plane_sphere(p1, m1, s1, p2, m2, s2):
-    return [_plane_sphere_row(p1, _matcol(m1, 2), p2, s2[0])]
-
-
-def _rows_plane_capsule(p1, m1, s1, p2, m2, s2):
-    pn, axis = _matcol(m1, 2), _matcol(m2, 2)
-    r, h = s2[0], s2[1]
-    return [_plane_sphere_row(p1, pn, _add(p2, _scale(axis, h)), r),
-            _plane_sphere_row(p1, pn, _sub(p2, _scale(axis, h)), r)]
-
-
-def _rows_plane_ellipsoid(p1, m1, s1, p2, m2, s2):
-    pn = _matcol(m1, 2)
-    nl = _matvec_t(m2, pn)
-    sx, sy, sz = s2
-    denom = torch.sqrt((sx * nl[0]) ** 2 + (sy * nl[1]) ** 2
-                       + (sz * nl[2]) ** 2)
-    inv = -1.0 / torch.clamp(denom, min=_EPS)
-    x_local = (sx * sx * nl[0] * inv, sy * sy * nl[1] * inv,
-               sz * sz * nl[2] * inv)
-    point = _add(p2, _matvec(m2, x_local))
-    dist = _dot(_sub(point, p1), pn)
-    return [(dist, _sub(point, _scale(pn, 0.5 * dist)), pn)]
-
-
-def _rows_plane_cylinder(p1, m1, s1, p2, m2, s2):
-    n, a = _matcol(m1, 2), _matcol(m2, 2)
-    r, h = s2[0], s2[1]
-    ca = _dot(a, n)
-    lower = _sub(p2, _scale(a, torch.sign(ca) * h))
-    u_n, un = _normalize(_sub(n, _scale(a, ca)))
-    u = _where(un > 1e-12, u_n, _matcol(m2, 0))
-    w = _cross(a, u)
-    deep = _sub(lower, _scale(u, r))
-    c120, s120 = -0.5, 0.866025403784439
-    rim2 = _sub(lower, _add(_scale(u, r * c120), _scale(w, r * s120)))
-    rim3 = _sub(lower, _sub(_scale(u, r * c120), _scale(w, r * s120)))
-    nperp, _ = _normalize(_sub(n, _scale(a, ca)))
-    side1 = _sub(_add(p2, _scale(a, h)), _scale(nperp, r))
-    side2 = _sub(_sub(p2, _scale(a, h)), _scale(nperp, r))
-    lying = torch.abs(ca) < 1e-4
-    rows = []
-    for i, pt in enumerate([_where(lying, side1, deep),
-                            _where(lying, side2, rim2),
-                            _where(lying, side2, rim3)]):
-        dist = _dot(_sub(pt, p1), n)
-        if i == 2:
-            dist = torch.where(lying, torch.full_like(dist, 1e10), dist)
-        rows.append((dist, _sub(pt, _scale(n, 0.5 * dist)), n))
-    return rows
-
-
-def _sphere_sphere_row(c1, r1, c2, r2):
-    n, dn = _normalize(_sub(c2, c1))
-    dist = dn - r1 - r2
-    return dist, _add(c1, _scale(n, r1 + 0.5 * dist)), n
-
-
-def _rows_sphere_sphere(p1, m1, s1, p2, m2, s2):
-    return [_sphere_sphere_row(p1, s1[0], p2, s2[0])]
-
-
-def _rows_sphere_capsule(p1, m1, s1, p2, m2, s2):
-    a = _matcol(m2, 2)
-    h = s2[1]
-    t = torch.clamp(_dot(_sub(p1, p2), a), -h, h)
-    return [_sphere_sphere_row(p1, s1[0], _add(p2, _scale(a, t)), s2[0])]
-
-
-def _rows_capsule_capsule(p1, m1, s1, p2, m2, s2):
-    a1, a2 = _matcol(m1, 2), _matcol(m2, 2)
-    r1, h1, r2, h2 = s1[0], s1[1], s2[0], s2[1]
-    rv = _sub(p1, p2)
-    a_, e_, f_ = _dot(a1, a1), _dot(a2, a2), _dot(a2, rv)
-    cd, b_ = _dot(a1, rv), _dot(a1, a2)
-    denom = a_ * e_ - b_ * b_
-    s = torch.where(denom > 1e-14,
-                    (b_ * f_ - cd * e_) / torch.clamp(denom, min=_EPS),
-                    torch.zeros_like(denom))
-    s = torch.clamp(s, -h1, h1)
-    t = (b_ * s + f_) / torch.clamp(e_, min=_EPS)
-    t_cl = torch.clamp(t, -h2, h2)
-    s = torch.clamp((b_ * t_cl - cd) / torch.clamp(a_, min=_EPS), -h1, h1)
-    t = torch.clamp((b_ * s + f_) / torch.clamp(e_, min=_EPS), -h2, h2)
-    q1 = _add(p1, _scale(a1, s))
-    q2 = _add(p2, _scale(a2, t))
-    d = _sub(q2, q1)
-    tiny = torch.sqrt(_dot(d, d)) < 1e-12
-    fb = _cross(a1, a2)
-    fbn = torch.sqrt(_dot(fb, fb))
-    ex = (torch.ones_like(fbn), torch.zeros_like(fbn), torch.zeros_like(fbn))
-    fb = _where(fbn > 1e-12, _scale(fb, 1.0 / torch.clamp(fbn, min=_EPS)),
-                _cross(a1, ex))
-    q2 = _where(tiny, _add(q2, _scale(fb, 1e-12)), q2)
-    return [_sphere_sphere_row(q1, r1, q2, r2)]
-
-
-_ROW_FNS = {
-    (_s.GEOM_PLANE, _s.GEOM_SPHERE): _rows_plane_sphere,
-    (_s.GEOM_PLANE, _s.GEOM_CAPSULE): _rows_plane_capsule,
-    (_s.GEOM_PLANE, _s.GEOM_ELLIPSOID): _rows_plane_ellipsoid,
-    (_s.GEOM_PLANE, _s.GEOM_CYLINDER): _rows_plane_cylinder,
-    (_s.GEOM_SPHERE, _s.GEOM_SPHERE): _rows_sphere_sphere,
-    (_s.GEOM_SPHERE, _s.GEOM_CAPSULE): _rows_sphere_capsule,
-    (_s.GEOM_CAPSULE, _s.GEOM_CAPSULE): _rows_capsule_capsule,
-}
-ANALYTIC_KEYS = frozenset(_ROW_FNS)
-
-
-def _rows(key, c1, c2, s1, s2):
-    """(dist, pos, normal) rows of one type segment; c1/c2 (..., 12)
-    [pos | row-major mat], s1/s2 (..., 3)."""
-    c1t = c1.unbind(-1)
-    c2t = c2.unbind(-1)
-    rows = _ROW_FNS[key](c1t[:3], c1t[3:12], s1.unbind(-1), c2t[:3],
-                         c2t[3:12], s2.unbind(-1))
-    return [(d, torch.stack(p, -1), torch.stack(n, -1)) for d, p, n in rows]
+@functools.lru_cache(maxsize=8)
+def dense_segments(meta: _s.Meta) -> tuple:
+    """The narrowphase's segment table: (key, geom1 ids, geom2 ids, rows
+    per pair) of each dense analytic group, in slot order."""
+    tb = pair_tables(meta)
+    return tuple((key, tuple(int(g) for g in g1), tuple(int(g) for g in g2),
+                  k) for key, (g1, g2, k) in tb['groups'].items()
+                 if _dense(key))
 
 
 @functools.lru_cache(maxsize=8)
 def dense_slot_ids(meta: _s.Meta) -> np.ndarray:
-    """Global slot ids of the plane/sphere analytic slots that the
-    compact collide emits densely, in slot order."""
+    """Global slot ids of the dense analytic slots, in slot order."""
     tb = pair_tables(meta)
     ids, slot_lo = [], 0
     for key, (g1, g2, k) in tb['groups'].items():
         n = len(g1) * k
-        if key in ANALYTIC_KEYS and key != _CC_KEY:
+        if _dense(key):
             ids.append(slot_lo + np.arange(n, dtype=np.int64))
         slot_lo += n
     return np.concatenate(ids)
@@ -407,7 +247,7 @@ class CompactBlock:
 
 @dataclasses.dataclass
 class Contact:
-    """Dense plane/sphere slots (dense_slot_ids order) plus the compact
+    """Dense analytic slots (dense_slot_ids order) plus the compact
     capsule-capsule and MPR blocks."""
 
     dist: torch.Tensor  # (B, S_dense)
@@ -473,12 +313,7 @@ def _mpr_merged(model: FlyModel, data: Data, gcat, top_p: int
 
     idx, c1, c2 = _broadphase(model, data, gcat, ft, top_p)
     sel = model.const('mpr_table', table)[idx]
-    B, P = idx.shape
-    dist, n, pos = _mpr.mpr_penetration(
-        sel[..., 8], sel[..., 9], c1[..., :3], c1[..., 3:].reshape(B, P, 3, 3),
-        sel[..., 0:3], c2[..., :3], c2[..., 3:].reshape(B, P, 3, 3),
-        sel[..., 4:7], sel[..., 3], sel[..., 7], polish_iters=8,
-        smooth_mask=sel[..., 10] > 0.5)
+    dist, n, pos = _mprk.mpr_merged(c1, c2, sel[..., :11].contiguous(), 8)
     return CompactBlock(idx=sel[..., 25], dist=dist, pos=pos, normal=n,
                         params=sel[..., 11:25])
 
@@ -489,20 +324,10 @@ def collide(model: FlyModel, data: Data, mpr_top_p: int,
     capsule-capsule and merged-MPR blocks keep the `cc_top_p` and
     `mpr_top_p` broadphase candidates with the smallest bounding-sphere
     distance."""
-    meta = model.meta
-    tb = pair_tables(meta)
     gcat = _geom_cat(data)
-    size = model.geom_size
-    dists, poss, normals = [], [], []
-    for key, (g1, g2, k) in tb['groups'].items():
-        if key not in ANALYTIC_KEYS or key == _CC_KEY:
-            continue
-        rows = _rows(key, gcat[:, g1], gcat[:, g2], size[g1], size[g2])
-        # Slot order is pair-major: slot = pair * k + row.
-        dists.append(torch.stack([r[0] for r in rows], -1).flatten(1))
-        poss.append(torch.stack([r[1] for r in rows], -2).flatten(1, 2))
-        normals.append(torch.stack([r[2] for r in rows], -2).flatten(1, 2))
+    dist, pos, normal = _np.narrowphase(dense_segments(model.meta),
+                                        data.geom_xpos, data.geom_xmat,
+                                        model.geom_size)
     blocks = (_cc_compact(model, data, gcat, cc_top_p),
               _mpr_merged(model, data, gcat, mpr_top_p))
-    return Contact(dist=torch.cat(dists, 1), pos=torch.cat(poss, 1),
-                   normal=torch.cat(normals, 1), blocks=blocks)
+    return Contact(dist=dist, pos=pos, normal=normal, blocks=blocks)

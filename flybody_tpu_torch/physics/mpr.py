@@ -68,7 +68,8 @@ def support_any(tc, pos, mat, size, d):
 
 
 def mpr_penetration(t1, t2, pos1, mat1, size1, pos2, mat2, size2, margin1,
-                    margin2, polish_iters: int = 0, smooth_mask=None):
+                    margin2, polish_iters: int = 0, smooth_mask=None,
+                    refine_iters: int = REFINE_ITERS):
     """Batched MPR penetration query for mixed-type pairs."""
     total_margin = margin1 + margin2
 
@@ -131,7 +132,7 @@ def mpr_penetration(t1, t2, pos1, mat1, size1, pos2, mat2, size2, margin1,
     best_n = torch.zeros_like(v1)
     best_n[..., 2] = 1.0
     best_depth = torch.zeros_like(v1[..., 0])
-    for _ in range(REFINE_ITERS):
+    for _ in range(refine_iters):
         n = _norm(cross(v2 - v1, v3 - v1))
         v4, s4 = S(n)
         depth = _dot(v1, n)

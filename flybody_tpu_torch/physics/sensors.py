@@ -17,7 +17,7 @@ from flybody_tpu_torch.model import spec as _s
 from flybody_tpu_torch.model.spec import FlyModel
 from flybody_tpu_torch.physics import kinematics as _kin
 from flybody_tpu_torch.physics import math as sm
-from flybody_tpu_torch.physics.solver import make_frame
+from flybody_tpu_torch.ops.efc_stage import make_frame
 
 
 @functools.lru_cache(maxsize=8)

@@ -1,8 +1,8 @@
 """Constraint rows and the Newton solver.
 
 Counterpart of flybody_tpu/physics/solver.py: MuJoCo's soft constraints
-(joint limits + elliptic-cone contacts), `make_efc` through its single-tree
-row assembly (`_contact_rows_ref`), `solve` through the packed block-arrow
+(joint limits + elliptic-cone contacts), `make_efc` with its contact rows
+by kernel 7 (`efc_stage.contact_rows`), `solve` through the packed block-arrow
 branches and the packed `noslip` post-pass. `solve` dispatches as the JAX
 package does: iterations <= refactor period runs the whole solve in one
 launch of kernel 9 (`newton_fused.newton_solve`); otherwise each refactor
@@ -24,35 +24,13 @@ import torch
 from flybody_tpu_torch.model import spec as _s
 from flybody_tpu_torch.model.spec import FlyModel
 from flybody_tpu_torch.ops import arrow as _ar
+from flybody_tpu_torch.ops import efc_stage as _efc
 from flybody_tpu_torch.ops import newton_fused as _nf
 from flybody_tpu_torch.ops import noslip_gs as _ngs
+from flybody_tpu_torch.ops.efc_stage import kbi
 from flybody_tpu_torch.ops.newton_fused import cone_hessian, cone_residual
 from flybody_tpu_torch.physics import collision as _col
-from flybody_tpu_torch.physics.math import cross
 from flybody_tpu_torch.physics.state import Data
-
-
-def impedance(solimp, r):
-    d0, dmax, width, mid, power = solimp.unbind(-1)
-    x = torch.clamp(torch.abs(r) / torch.clamp(width, min=1e-15), 0.0, 1.0)
-    lo = x ** power / torch.clamp(mid ** (power - 1), min=1e-15)
-    hi = 1.0 - (1.0 - x) ** power / torch.clamp((1.0 - mid) ** (power - 1),
-                                                min=1e-15)
-    imp = d0 + torch.where(x <= mid, lo, hi) * (dmax - d0)
-    return torch.clamp(imp, 1e-5, 1.0 - 1e-5)
-
-
-def kbi(solref, solimp, r):
-    """Stiffness K, damping B and impedance of constraint rows."""
-    imp = impedance(solimp, r)
-    dmax = solimp[..., 1]
-    tc, dr = solref[..., 0], solref[..., 1]
-    std = tc > 0
-    K = torch.where(std, 1.0 / torch.clamp((dmax * tc * dr) ** 2, min=1e-15),
-                    -solref[..., 0] / torch.clamp(dmax * dmax, min=1e-15))
-    B = torch.where(std, 2.0 / torch.clamp(dmax * tc, min=1e-15),
-                    -solref[..., 1] / torch.clamp(dmax, min=1e-15))
-    return K, B, imp
 
 
 @dataclasses.dataclass
@@ -94,16 +72,22 @@ def limit_tables(meta: _s.Meta):
                                                                   np.int64))
 
 
-def make_frame(normal):
-    """Tangent basis (t1, t2) for contact normals."""
-    helper = torch.zeros_like(normal)
-    use_z = torch.abs(normal[..., 0]) > 0.9
-    helper[..., 0] = torch.where(use_z, 0.0, 1.0)
-    helper[..., 2] = torch.where(use_z, 1.0, 0.0)
-    t1 = cross(normal, helper)
-    t1 = t1 / torch.clamp(torch.linalg.norm(t1, dim=-1, keepdim=True),
-                          min=1e-15)
-    return t1, cross(normal, t1)
+def contact_candidates(model: FlyModel, con: _col.Contact):
+    """The operands of efc_stage.contact_rows: cand_b (B, C, 7) [dist |
+    pos | normal], cand_u (B, C, 14) efc_slot_table rows and cand_g (B, C)
+    global slot ids, the dense slots first, then the compact blocks."""
+    B = con.dist.shape[0]
+    dsid = _col.dense_slot_ids(model.meta)
+    ucat = _col.efc_slot_table(model)[dsid]
+    cand_b = torch.cat([torch.cat([con.dist[..., None], con.pos, con.normal],
+                                  -1)]
+                       + [torch.cat([b.dist[..., None], b.pos, b.normal], -1)
+                          for b in con.blocks], 1)
+    cand_u = torch.cat([ucat.expand(B, -1, -1)]
+                       + [b.params for b in con.blocks], 1)
+    gid = model.const('dense_slot_ids_f', lambda: dsid.astype(np.float64))
+    cand_g = torch.cat([gid.expand(B, -1)] + [b.idx for b in con.blocks], 1)
+    return cand_b, cand_u, cand_g
 
 
 def make_efc(model: FlyModel, data: Data, con: _col.Contact,
@@ -112,7 +96,6 @@ def make_efc(model: FlyModel, data: Data, con: _col.Contact,
     dist - includemargin (single kinematic tree)."""
     meta = model.meta
     dt = data.qpos.dtype
-    B = data.qpos.shape[0]
     lim_dof, lim_sign, lim_jid = limit_tables(meta)
     sign = model.const('lim_sign', lambda: lim_sign)
     jrange = model.jnt_range[lim_jid]
@@ -126,19 +109,9 @@ def make_efc(model: FlyModel, data: Data, con: _col.Contact,
     R = torch.clamp((1.0 - imp) / imp * model.dof_invweight0[lim_dof],
                     min=1e-12)
 
-    # Candidates: dense slots, then the compact blocks.
-    dsid = _col.dense_slot_ids(meta)
-    ucat = _col.efc_slot_table(model)[dsid]
-    cand_b = torch.cat([torch.cat([con.dist[..., None], con.pos, con.normal],
-                                  -1)]
-                       + [torch.cat([b.dist[..., None], b.pos, b.normal], -1)
-                          for b in con.blocks], 1)
-    cand_u = torch.cat([ucat.expand(B, -1, -1)]
-                       + [b.params for b in con.blocks], 1)
-    gid = model.const('dense_slot_ids_f', lambda: dsid.astype(np.float64))
-    cand_g = torch.cat([gid.expand(B, -1)] + [b.idx for b in con.blocks], 1)
+    cand_b, cand_u, cand_g = contact_candidates(model, con)
     k = min(ncon_max, cand_b.shape[1])
-    con_J, scal = contact_rows(model, data, cand_b, cand_u, cand_g, k)
+    con_J, scal = _efc.contact_rows(model, data, cand_b, cand_u, cand_g, k)
     return EfcRows(
         lim_dof=lim_dof, lim_sign=lim_sign, lim_active=lim_active,
         lim_aref=aref, lim_D=1.0 / R, lim_pos=dist, con_J=con_J,
@@ -150,58 +123,6 @@ def make_efc(model: FlyModel, data: Data, con: _col.Contact,
         con_body1=torch.round(scal[14]).long(),
         con_body2=torch.round(scal[15]).long(),
         con_self=scal[16], con_break=scal[17])
-
-
-def contact_rows(model, data, cand_b, cand_u, cand_g, k):
-    """Top-k contact selection and row assembly (the JAX package's
-    _contact_rows_ref). Returns con_J (B, k, 3, nv) and 19 (B, k) rows:
-    dist, active, frictional, mu, D, aref(3), pos(3), normal(3), body1,
-    body2, self, break, slot id."""
-    meta = model.meta
-    dt = cand_b.dtype
-    score = cand_b[..., 0] - cand_u[..., 0]
-    sel = _col.smallest(score, k)
-    bsel = torch.gather(cand_b, 1, sel[..., None].expand(-1, -1, 7))
-    usel = torch.gather(cand_u, 1, sel[..., None].expand(-1, -1, 14))
-    gsel = torch.gather(cand_g, 1, sel)
-    c_dist, c_pos, c_n = bsel[..., 0], bsel[..., 1:4], bsel[..., 4:7]
-    c_incl, c_mu = usel[..., 0], usel[..., 1]
-    c_solref, c_solimp = usel[..., 2:4], usel[..., 4:9]
-    condim, diag_c = usel[..., 9], usel[..., 10]
-    b1f, b2f, c_self = usel[..., 11], usel[..., 12], usel[..., 13]
-    c_active = (c_dist < c_incl).to(dt)
-
-    t1, t2 = make_frame(c_n)
-    frame = torch.stack([c_n, t1, t2], dim=-2)  # (B, k, 3, 3)
-    b1, b2 = torch.round(b1f).long(), torch.round(b2f).long()
-    mask = model.body_dof_mask
-    w = mask[b2] - mask[b1]  # (B, k, nv)
-    root = np.array(meta.body_rootid)
-    roots = np.unique(root[np.array(meta.dof_bodyid)])
-    if len(roots) != 1:
-        raise NotImplementedError('contact rows: single kinematic tree only')
-    arm = c_pos - data.subtree_com[:, int(roots[0])][:, None, :]
-    gkr = torch.cat([cross(arm[..., None, :], frame), frame], -1)
-    con_J = torch.einsum('bkrx,bvx->bkrv', gkr, data.cdof) * w[..., None, :]
-
-    part = _ar.build_partition(meta)
-    limb = model.const('limb_of_body',
-                       lambda: np.array(part.limb_of_body, np.float64))
-    l1, l2 = limb[b1], limb[b2]
-    c_break = ((torch.abs(l1 - l2) > 0.5) & (l1 > -0.5)
-               & (l2 > -0.5)).to(dt)
-
-    r_c = c_dist - c_incl
-    K_c, B_c, imp_c = kbi(c_solref, c_solimp, r_c)
-    vel = torch.einsum('bkrv,bv->bkr', con_J, data.qvel)
-    aref_n = -B_c * vel[..., 0] - K_c * imp_c * r_c
-    aref_t = -B_c[..., None] * vel[..., 1:]
-    R_c = torch.clamp((1.0 - imp_c) / imp_c * diag_c, min=1e-12)
-    scal = [c_dist, c_active, (condim >= 3).to(dt), c_mu, 1.0 / R_c, aref_n,
-            aref_t[..., 0], aref_t[..., 1], c_pos[..., 0], c_pos[..., 1],
-            c_pos[..., 2], c_n[..., 0], c_n[..., 1], c_n[..., 2], b1f, b2f,
-            c_self, c_break, gsel]
-    return con_J, scal
 
 
 class Operands(NamedTuple):

@@ -10,7 +10,13 @@ writes (--out, JSON):
   * the step's wall time (host clock, ending in a synchronize);
   * per engine stage (the 'fb/<stage>' ranges of physics/engine.py),
     summed over the 10 substeps: the host time inside the range, the
-    device time of the work it launched, and the operators it dispatched;
+    device time of the work it launched, and the operators it dispatched.
+    The device time counts the PyTorch operators dispatched inside the
+    range and the hand kernels (csrc/*.cu) that the stage launches: the
+    profiler links a kernel launched through ctypes to no operator, so
+    each goes to its stage by name (HAND_KERNELS; the arrow kernel, which
+    factor_solve and euler each launch once a substep, half to each, and
+    the observations' pos_stage launch after the substeps to position);
   * device busy time (sum of kernel and copy times) and the idle share
     1 - busy / wall;
   * the kernels with the most device time.
@@ -35,6 +41,25 @@ def _device_us(e, total: bool) -> float:
         if v is not None:
             return float(v)
     return 0.0
+
+
+# The hand kernels by the name of their __global__ function, and the
+# engine stages that launch them (physics/engine.py).
+HAND_KERNELS = {
+    'pos_stage_kernel': ('position',),
+    'narrowphase_kernel': ('collision',),
+    'mpr_kernel': ('collision',),
+    'force_stage_kernel': ('force',),
+    'efc_kernel': ('constraint_rows',),
+    'arrow_factor_solve_kernel': ('factor_solve', 'euler'),
+    'newton_kernel': ('newton',),
+    'noslip_kernel': ('noslip',),
+    'sens_stage_kernel': ('sensors',),
+}
+
+
+def _hand_kernel(name: str):
+    return next((k for k in HAND_KERNELS if k in name), None)
 
 
 def _is_kernel(e) -> bool:
@@ -100,12 +125,23 @@ def main(argv=None):
         if p is not None and p.name.startswith('fb/'):
             spans[p.name[3:]]['ops'] += 1
             spans[p.name[3:]]['device_ms'] += _device_us(e, True) / 1e3
+    # Hand kernels (launched through ctypes, so no operator of their own):
+    # to the stages that launch them, by name.
+    for sp in spans.values():
+        sp['hand_kernel_ms'] = 0.0
     kern = {}
     for e in events:
         if _is_kernel(e):
+            ms = _device_us(e, False) / 1e3
             k = kern.setdefault(e.name, [0.0, 0])
-            k[0] += _device_us(e, False) / 1e3
+            k[0] += ms
             k[1] += 1
+            hand = _hand_kernel(e.name)
+            for st in HAND_KERNELS.get(hand, ()):
+                if st in spans:
+                    share = ms / len(HAND_KERNELS[hand])
+                    spans[st]['hand_kernel_ms'] += share
+                    spans[st]['device_ms'] += share
     kernels = sorted(((n, t, c) for n, (t, c) in kern.items()),
                      key=lambda x: -x[1])
     busy = sum(k[1] for k in kernels) / 1e3
@@ -121,7 +157,8 @@ def main(argv=None):
           f'{report["idle_share"]:.3f}')
     for k, v in sorted(spans.items(), key=lambda kv: -kv[1]['host_ms']):
         print(f'  {k:16s} host {v["host_ms"]:9.1f} ms  device '
-              f'{v["device_ms"]:9.1f} ms  ops {v["ops"]}')
+              f'{v["device_ms"]:9.1f} ms (hand kernels '
+              f'{v["hand_kernel_ms"]:7.1f})  ops {v["ops"]}')
     for n, t, c in kernels[:15]:
         print(f'  {t:9.2f} ms  x{c:<6d} {n[:90]}')
     out = args.out or f'chiprun_out/profile_step_{args.preset}.json'

@@ -28,16 +28,17 @@ def env():
 
 @pytest.mark.gpu
 def test_kernels_match_plain_versions_on_the_card(env):
-    """The seven kernels (K1-K4, the Newton block, the whole Newton solve,
-    the fused noslip) against their plain versions (chip_smoke.py's kernel
-    phase, which raises on a disagreement) at its batch and seed: the
+    """The ten kernels (K1-K4, the narrowphase, the merged MPR, the
+    contact rows, the Newton block, the whole Newton solve, the fused
+    noslip) against their plain versions (chip_smoke.py's kernel phase,
+    which raises on a disagreement) at its batch and seed: the MPR and
     Newton kernels' limits are set on the distribution over that batch."""
     sys.path.insert(0, REPO)
     import chip_smoke
     kernels = chip_smoke.kernel_phase(env, chip_smoke.BATCH, chip_smoke.SEED,
                                       {})
     assert sorted(k['name'] for k in kernels) == sorted(chip_smoke.SOURCES)
-    assert len(chip_smoke.SOURCES) == 7
+    assert len(chip_smoke.SOURCES) == 10
 
 
 @pytest.mark.gpu
@@ -86,3 +87,66 @@ def test_newton_block_refuses_what_its_kernel_does_not_take(env):
     with pytest.raises(ValueError, match='contiguous'):
         nf.newton_block(*args(U=torch.zeros(B, nv, SB3,
                                             device=dev).transpose(1, 2)))
+
+
+@pytest.mark.gpu
+def test_collision_wrappers_refuse_what_their_kernels_do_not_take(env):
+    """narrowphase, mpr_merged and contact_rows raise on a float64 or a
+    non-contiguous CUDA operand instead of running their plain versions."""
+    from flybody_tpu_torch.ops import efc_stage, mpr_kernel, narrowphase
+    from flybody_tpu_torch.physics import collision, kinematics, solver
+    from flybody_tpu_torch.physics.state import make_data
+    model = env.model
+    d, _, _ = kinematics.fwd_position_smooth(model, make_data(model, 4))
+    segs = collision.dense_segments(model.meta)
+    narrowphase.narrowphase(segs, d.geom_xpos, d.geom_xmat, model.geom_size)
+    with pytest.raises(TypeError, match='float32'):
+        narrowphase.narrowphase(segs, d.geom_xpos.double(), d.geom_xmat,
+                                model.geom_size)
+    with pytest.raises(ValueError, match='contiguous'):
+        narrowphase.narrowphase(segs, d.geom_xpos.transpose(0, 1)
+                                .contiguous().transpose(0, 1), d.geom_xmat,
+                                model.geom_size)
+    c = torch.zeros(4, 8, 12, device='cuda')
+    prm = torch.zeros(4, 8, 11, device='cuda')
+    mpr_kernel.mpr_merged(c, c, prm, 8)
+    with pytest.raises(TypeError, match='float32'):
+        mpr_kernel.mpr_merged(c.double(), c, prm, 8)
+    with pytest.raises(ValueError, match='contiguous'):
+        mpr_kernel.mpr_merged(c, c, torch.zeros(4, 11, 8, device='cuda')
+                              .transpose(1, 2), 8)
+    con = collision.collide(model, d, 32, 16)
+    cand = solver.contact_candidates(model, con)
+    efc_stage.contact_rows(model, d, *cand, 24)
+    with pytest.raises(TypeError, match='float32'):
+        efc_stage.contact_rows(model, d, cand[0].double(), *cand[1:], 24)
+    with pytest.raises(ValueError, match='contiguous'):
+        efc_stage.contact_rows(model, d, cand[0], cand[1],
+                               torch.stack([cand[2]] * 2, -1)[..., 0], 24)
+
+
+@pytest.mark.gpu
+def test_contact_selection_orders_ties_and_nan_as_a_stable_sort(env):
+    """The contact-row kernel selects what collision.smallest (a stable
+    sort) selects when scores tie, are -0.0 / +0.0, infinite or NaN."""
+    from flybody_tpu_torch.ops import efc_stage
+    from flybody_tpu_torch.physics import collision, kinematics, solver
+    from flybody_tpu_torch.physics.state import make_data
+    model = env.model
+    d, _, _ = kinematics.fwd_position_smooth(model, make_data(model, 4))
+    cand_b, cand_u, cand_g = solver.contact_candidates(
+        model, collision.collide(model, d, 32, 16))
+    C = cand_b.shape[1]
+    g = torch.Generator(device='cpu').manual_seed(0)
+    choice = torch.tensor([0.0, -0.0, 1e-3, -1e-3, float('inf'),
+                           float('-inf'), float('nan'), 1e10])
+    dist = choice[torch.randint(0, len(choice), (4, C), generator=g)]
+    cand_b = cand_b.clone()
+    cand_b[..., 0] = dist.cuda()
+    cand_u = cand_u.clone()
+    cand_u[..., 0] = 0.0
+    for k in (24, 64, C):
+        got = efc_stage.contact_rows(model, d, cand_b, cand_u, cand_g, k)
+        want = efc_stage.contact_rows_ref(model, d, cand_b, cand_u, cand_g,
+                                          k)
+        assert torch.equal(got[1][18], want[1][18]), k
