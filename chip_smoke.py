@@ -3,10 +3,13 @@
 
     python3 chip_smoke.py            # from the repository root
 
-The main path is walk_imitation's batched step at both solver presets, the
-counterpart of the JAX package's default configuration (no kill switch in
-its dispatch gate, flybody_tpu/ops/dispatch.py): every TPU kernel that the
-JAX package's step launches runs here as a hand-written CUDA kernel.
+Two paths are driven, each the counterpart of the JAX package's default
+configuration (no kill switch in its dispatch gate,
+flybody_tpu/ops/dispatch.py), so every TPU kernel that the JAX package's
+step launches on them runs here as a hand-written CUDA kernel:
+walk_imitation's batched step at both solver presets (one fly, the
+block-arrow path), and engine.step on the two-fly scene at both presets
+(model/assets/two_fly.npz: no arrow partition, so the dense path).
 
 Phases (any failure exits non-zero):
   1. device: require CUDA; print the card's name and power limit;
@@ -21,7 +24,12 @@ Phases (any failure exits non-zero):
      default-preset forward pass; the whole Newton solve (row 9) and the
      noslip on 16 slots on a bench-preset forward pass. The Newton kernels
      are held per env (newton_checks), beside readings of the plain
-     version at float64 and of deliberately wrong controls;
+     version at float64 and of deliberately wrong controls. Then the dense
+     path's kernels on the operands of a two-fly step at batch 4096
+     (dense_kernels): the fused factor+solve (row 17, per env beside two
+     wrong controls) on M, a Newton Hessian and the damped Euler matrix,
+     the substitutions (rows 15, 16), the noslip sweeps (row 12) and the
+     line search (row 13, per search beside one refinement step fewer);
   4. main path, at each preset (default, bench): walk_imitation(
      functional=True) reset + 5 control steps at batch 8192; state
      finite; every kernel's launch count equal to the expected count;
@@ -31,7 +39,15 @@ Phases (any failure exits non-zero):
      read, not held, at the bench preset), and one substep's forward pass
      from the card's stepped state on both (substep_phase; printed beside
      it, a control with rows 5-7 plain on the card and the CPU's float32
-     against its float64).
+     against its float64);
+  6. two_fly, at each preset: reset + 5 engine.step substeps of the
+     two-fly scene at batch 4096 (8,192 flies); state finite; launch
+     counts exact; scene-substeps/s; one substep of 16 envs from the
+     stepped state on the card and on the CPU at float32 and float64
+     (held at the default preset: the card no further from the float64
+     answer than the CPU's float32, since float32 does not resolve this
+     substep to 1e-3 in every env; read at the bench one).
+Each phase's seconds are printed.
 The last line is {"ok": true, "device": {...}}; the two lines before it
 hold the per-kernel JSON and the card's name and power limit, and details
 go to chiprun_out/chip_smoke.json.
@@ -64,6 +80,11 @@ TPU_REFS = {  # the TPU kernel each port replaces
     'newton_block': 'flybody_tpu/ops/newton_fused.py:461',
     'newton_solve': 'flybody_tpu/ops/newton_fused.py:1038',
     'noslip_fused': 'flybody_tpu/ops/noslip_gs.py:227',
+    'noslip_gs': 'flybody_tpu/ops/noslip_gs.py:77',
+    'line_search': 'flybody_tpu/ops/linesearch.py:229',
+    'cho_solve': 'flybody_tpu/ops/cholesky.py:186',
+    'cho_solve_multi': 'flybody_tpu/ops/cholesky.py:256',
+    'chol_solve': 'flybody_tpu/ops/cholesky.py:333',
 }
 SOURCES = {
     'pos_stage': 'flybody_tpu_torch/csrc/pos_stage.cu',
@@ -76,7 +97,14 @@ SOURCES = {
     'newton_block': 'flybody_tpu_torch/csrc/newton.cu',
     'newton_solve': 'flybody_tpu_torch/csrc/newton.cu',
     'noslip_fused': 'flybody_tpu_torch/csrc/noslip.cu',
+    'noslip_gs': 'flybody_tpu_torch/csrc/noslip_gs.cu',
+    'line_search': 'flybody_tpu_torch/csrc/linesearch.cu',
+    'cho_solve': 'flybody_tpu_torch/csrc/cholesky.cu',
+    'cho_solve_multi': 'flybody_tpu_torch/csrc/cholesky.cu',
+    'chol_solve': 'flybody_tpu_torch/csrc/cholesky.cu',
 }
+DENSE = ('noslip_gs', 'line_search', 'cho_solve', 'cho_solve_multi',
+         'chol_solve')
 PRESETS = ('default', 'bench')
 # Launches of each kernel on the main path: reset (pos_stage once), then
 # per control step (10 substeps).
@@ -84,11 +112,30 @@ PER_STEP = {
     'default': {'pos_stage': 11, 'narrowphase': 10, 'mpr_merged': 10,
                 'force_stage': 10, 'efc_contacts': 10,
                 'arrow_factor_solve': 20, 'sens_stage': 10,
-                'newton_block': 100, 'newton_solve': 0, 'noslip_fused': 10},
+                'newton_block': 100, 'newton_solve': 0, 'noslip_fused': 10,
+                **{n: 0 for n in DENSE}},
     'bench': {'pos_stage': 11, 'narrowphase': 10, 'mpr_merged': 10,
               'force_stage': 10, 'efc_contacts': 10,
               'arrow_factor_solve': 20, 'sens_stage': 10,
-              'newton_block': 0, 'newton_solve': 10, 'noslip_fused': 10},
+              'newton_block': 0, 'newton_solve': 10, 'noslip_fused': 10,
+              **{n: 0 for n in DENSE}},
+}
+# The two-fly scene (model/assets/two_fly.npz: two flies, no arrow
+# partition, so the dense path): batch, substeps of its main-path phase,
+# envs re-run on the CPU, and launches of each kernel per substep (the
+# factor+solve of the smooth acceleration and of the damped Euler step
+# plus one per fresh Newton step; a substitution per reuse step; a line
+# search per Newton step).
+TWO_FLY_BATCH = 4096
+TWO_FLY_STEPS = 5
+TWO_FLY_CPU_ENVS = 16
+TWO_FLY_PER_SUBSTEP = {
+    'default': {'pos_stage': 1, 'narrowphase': 1, 'mpr_merged': 1,
+                'sens_stage': 1, 'chol_solve': 12, 'cho_solve': 0,
+                'line_search': 10, 'cho_solve_multi': 1, 'noslip_gs': 1},
+    'bench': {'pos_stage': 1, 'narrowphase': 1, 'mpr_merged': 1,
+              'sens_stage': 1, 'chol_solve': 3, 'cho_solve': 7,
+              'line_search': 8, 'cho_solve_multi': 1, 'noslip_gs': 1},
 }
 # The Newton kernels against their plain versions (newton_checks), per env:
 # a few envs end on another point than the plain version's, as the plain
@@ -189,6 +236,19 @@ def compare(name, outs, refs, names):
     return worst_abs, worst_rel
 
 
+def kernel_entry(name, err, ms, plain_ms, byts, flops, library_ms=None):
+    """A kernel's line of the kernels JSON; the bound is the larger of
+    bytes over the memory rate and operations over the float32 rate."""
+    return {'name': name, 'route': 'cuda', 'source': SOURCES[name],
+            'replaces': TPU_REFS[name], 'launches': None,
+            'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+            'bound_ms': max(byts / HBM_BYTES_PER_S,
+                            flops / FP32_FLOPS) * 1e3,
+            'bound_by': ('bytes' if byts / HBM_BYTES_PER_S
+                         >= flops / FP32_FLOPS else 'operations'),
+            'library_ms': library_ms}
+
+
 def kernel_phase(env, batch, seed, report):
     """Each kernel vs its plain version at the main path's shapes."""
     import torch
@@ -212,16 +272,8 @@ def kernel_phase(env, batch, seed, report):
     ctrl = randn(batch, meta.nu, scale=0.3)
     kernels = []
 
-    def entry(name, err, ms, plain_ms, byts, flops, library_ms=None):
-        bound = max(byts / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
-        kernels.append({
-            'name': name, 'route': 'cuda', 'source': SOURCES[name],
-            'replaces': TPU_REFS[name], 'launches': None,
-            'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
-            'bound_ms': bound,
-            'bound_by': ('bytes' if byts / HBM_BYTES_PER_S
-                         >= flops / FP32_FLOPS else 'operations'),
-            'library_ms': library_ms})
+    def entry(*a, **kw):
+        kernels.append(kernel_entry(*a, **kw))
 
     # K1.
     out = pos_stage.pos_stage(model, qpos)
@@ -757,9 +809,10 @@ def unpack(part, Mp):
 
 def counters():
     """Each kernel's launch counter: (module, attribute)."""
-    from flybody_tpu_torch.ops import (arrow, efc_stage, force_stage,
-                                       mpr_kernel, narrowphase, newton_fused,
-                                       noslip_gs, pos_stage, sens_stage)
+    from flybody_tpu_torch.ops import (arrow, cholesky, efc_stage,
+                                       force_stage, linesearch, mpr_kernel,
+                                       narrowphase, newton_fused, noslip_gs,
+                                       pos_stage, sens_stage)
     return {'pos_stage': (pos_stage, 'launches'),
             'narrowphase': (narrowphase, 'launches'),
             'mpr_merged': (mpr_kernel, 'launches'),
@@ -769,7 +822,12 @@ def counters():
             'sens_stage': (sens_stage, 'launches'),
             'newton_block': (newton_fused, 'launches'),
             'newton_solve': (newton_fused, 'solve_launches'),
-            'noslip_fused': (noslip_gs, 'launches')}
+            'noslip_fused': (noslip_gs, 'launches'),
+            'noslip_gs': (noslip_gs, 'gs_launches'),
+            'line_search': (linesearch, 'launches'),
+            'cho_solve': (cholesky, 'cho_solve_launches'),
+            'cho_solve_multi': (cholesky, 'cho_solve_multi_launches'),
+            'chol_solve': (cholesky, 'chol_solve_launches')}
 
 
 def main_path_phase(preset, batch, steps, cpu_envs, seed, report):
@@ -982,6 +1040,571 @@ def substep_phase(preset, model, data1, report):
                              f'substep: {low}')
 
 
+# ------------------------------------------------------- the two-fly scene
+#
+# The dense path: the two-fly scene has no arrow partition, so its step
+# runs rows 12, 13, 15, 16 and 17 (PERF.md's kernel table) besides K1, K4
+# and rows 5 and 6.
+
+# Row 17 per env: x against the plain version to this error relative to
+# each dof's scale (env_err), in at least this share of the envs; the
+# relative residual ||A x - b|| / (||A|| ||x||) of the kernel's x at most
+# this many times the plain version's worst. The kernel reads 1.0 and a
+# ratio of at most 1.2, the controls 0.0 (A rounded to bfloat16) and a
+# ratio of 26-71 (the diagonal scaled by 1 + 1e-5) (measured on one
+# H100).
+CHOL_ENV_TOL = 1e-3
+CHOL_ENV_SHARE = 0.98
+CHOL_RESIDUAL_RATIO = 10.0
+# Row 13 per line search: |alpha - alpha_plain| <= LS_ATOL + LS_RTOL
+# |alpha_plain| (tests/test_ops.py's bounds for the TPU kernel) in at least
+# LS_SHARE of the searches; the limit lies between the kernel's reading and
+# that of the plain version with one refinement step fewer.
+LS_ATOL = 1e-3
+LS_RTOL = 2e-2
+LS_SHARE = 0.99  # kernel 0.99685, control 0.98171 (one H100)
+SUBST_REL_TOL = 1e-3  # rows 15, 16 and 12: per-index relative error
+# The two-fly substep, card against CPU. Float32 does not resolve this
+# scene's substep to CPU_TOL: the CPU's own float32 step (the plain
+# versions, the JAX package's algorithm) departs from its float64 by more
+# than 1e-3 of a dof's scale on qacc in 5-7 of 16 envs (median env
+# 7.4e-4, measured on one H100; ROADMAP section 3). So the card is held
+# against the CPU's float64: per quantity, its median env error at most
+# TWO_FLY_F64_RATIO times the CPU float32's (or CPU_TOL, if larger), and
+# its worst env error at most TWO_FLY_F64_RATIO times the CPU float32's
+# worst. The limit lies between the card's reading (at most 2.0 times the
+# CPU float32's, on one H100) and those of the wrong controls of
+# two_fly_controls, which the phase runs on the card through the same
+# gate and which must fail it (PERF.md section 6). The card-vs-CPU shares
+# of substep_shares are printed beside it.
+TWO_FLY_F64_RATIO = 3.0
+
+
+def two_fly_data(model, batch, seed):
+    """The two-fly scene's reset state with qvel ~ N(0, 1) and ctrl ~
+    U(-1, 1) (numpy, `seed`): the flies flail into self- and inter-fly
+    contact."""
+    import numpy as np
+    import torch
+    from flybody_tpu_torch.physics.state import make_data
+    rng = np.random.RandomState(seed)
+    meta = model.meta
+    d = make_data(model, batch)
+    return d.replace(
+        qvel=torch.as_tensor(rng.randn(batch, meta.nv), dtype=model.dtype,
+                             device=model.device),
+        ctrl=torch.as_tensor(rng.uniform(-1.0, 1.0, (batch, meta.nu)),
+                             dtype=model.dtype, device=model.device))
+
+
+def contact_line(efc) -> str:
+    n = efc.con_active.sum(1)
+    return (f'active contact rows per env: min {int(n.min())}, mean '
+            f'{n.mean().item():.2f}, max {int(n.max())} (of '
+            f'{efc.con_active.shape[1]} slots)')
+
+
+@contextlib.contextmanager
+def recording(mod, name, keep):
+    """Calls of mod.<name> in the block: {call index: its arguments} for
+    the indices in `keep`."""
+    orig = getattr(mod, name)
+    got, n = {}, [0]
+
+    def wrapped(*a):
+        if n[0] in keep:
+            got[n[0]] = a
+        n[0] += 1
+        return orig(*a)
+
+    setattr(mod, name, wrapped)
+    try:
+        yield got
+    finally:
+        setattr(mod, name, orig)
+
+
+def residuals(A, b, x):
+    """Per env ||A x - b|| / (||A|| ||x||), in float64."""
+    import torch
+    A, b, x = A.double(), b.double(), x.double()
+    r = torch.einsum('bij,bj->bi', torch.tril(A) + torch.tril(A, -1).transpose(
+        1, 2), x) - b
+    return r.norm(dim=-1) / (A.norm(dim=(1, 2)) * x.norm(dim=-1)).clamp(
+        min=1e-30)
+
+
+def chol_checks(what, A, b):
+    """Row 17 on one operand (A, b) against its plain version, per env,
+    beside two wrong controls: the plain version on A with its diagonal
+    scaled by 1 + 1e-5, and on A rounded to bfloat16."""
+    import torch
+    from flybody_tpu_torch.ops import cholesky as ch
+    L, x = ch.chol_solve(A, b)
+    Lp, xp = ch.chol_solve_ref(A, b)
+    ctl = {'diagonal x (1 + 1e-5)': ch.chol_solve_ref(
+               A + 1e-5 * torch.diag_embed(torch.diagonal(A, dim1=1,
+                                                           dim2=2)), b)[1],
+           'bf16-rounded A': ch.chol_solve_ref(
+               A.to(torch.bfloat16).float(), b)[1]}
+    res_k, res_p = residuals(A, b, x), residuals(A, b, xp)
+    rd = {'kernel_share': share(env_err([x], [xp]), CHOL_ENV_TOL),
+          'kernel_L_share': share(env_err([L], [Lp]), CHOL_ENV_TOL),
+          'residual_max_kernel': res_k.max().item(),
+          'residual_max_plain': res_p.max().item(),
+          'residual_median_kernel': res_k.median().item()}
+    for name, xc in ctl.items():
+        rd[f'control {name}'] = dict(
+            share=share(env_err([xc], [xp]), CHOL_ENV_TOL),
+            residual_max=residuals(A, b, xc).max().item())
+    log(f'  chol_solve[{what}] readings (share of envs within '
+        f'{CHOL_ENV_TOL:.0e} of each dof\'s scale): ' + json.dumps(rd))
+    if not (rd['kernel_share'] >= CHOL_ENV_SHARE
+            and rd['kernel_L_share'] >= CHOL_ENV_SHARE
+            and rd['residual_max_kernel']
+            <= CHOL_RESIDUAL_RATIO * rd['residual_max_plain']):
+        raise AssertionError(f'chol_solve [{what}] disagrees: {rd}')
+    return (L, x), (Lp, xp), rd
+
+
+def gs_cases(gargs, L, seed):
+    """Row 12's operands beyond the path's own (gargs, whose contacts are
+    frictionless, so the sweeps change nothing): (1) the path's rows with
+    every slot swept as frictional at radius 1, ill-posed (the inactive
+    slots' 2x2 blocks are near-singular), read at float32 against float64
+    as a witness; (2) a well-conditioned case that sweeps all K slots: rows
+    J_t ~ N(0, 1) scaled per dof by sqrt(M_jj) from the path's factor L of
+    M, P = M^-1 J_t^T by row 16's plain version, aref and the radii drawn
+    at the rows' own scale (a generator seeded with `seed`), every slot
+    used. Returns the two cases' arguments, each at float32 and float64."""
+    import torch
+    from flybody_tpu_torch.ops import cholesky as ch
+    from flybody_tpu_torch.ops import noslip_gs as ng
+    Jt, Pt, Ainv, aref, _, use, x0, ft0, it = gargs
+    Bn, K, _, n = Jt.shape
+    ones = torch.ones_like(use)
+    every = (Jt, Pt, Ainv, aref, ones, ones, x0, ft0, it)
+
+    def in64(a):
+        J, P = a[0].double(), a[1].double()
+        return (J, P, ng.block_inverses(J, P)) + f64(a[3:8]) + (a[8],)
+
+    g = torch.Generator(device=Jt.device).manual_seed(seed)
+
+    def rand(*shape, normal=True):
+        f = torch.randn if normal else torch.rand
+        return f(*shape, generator=g, device=Jt.device, dtype=Jt.dtype)
+
+    d = (torch.tril(L) ** 2).sum(-1).sqrt()  # sqrt(M_jj), M = L L^T
+    Jw = (rand(Bn, K, 2, n) * d[:, None, None, :]).contiguous()
+    Pw = ch.cho_solve_multi_ref(L, Jw.reshape(Bn, 2 * K, n).transpose(
+        1, 2).contiguous()).reshape(Bn, n, K, 2).permute(0, 2, 3, 1)
+    Pw = Pw.contiguous()
+    Aw = ng.block_inverses(Jw, Pw).contiguous()
+    jx = torch.einsum('bkrv,bv->bkr', Jw, x0)
+    arefw = (jx + rand(Bn, K, 2) * jx.abs().mean((1, 2), keepdim=True))
+    first = torch.einsum('bkrs,bks->bkr', Aw, jx - arefw).norm(dim=-1)
+    limw = 4 * rand(Bn, K, normal=False) * first.median(1,
+                                                         keepdim=True).values
+    wc = (Jw, Pw, Aw, arefw.contiguous(), limw.contiguous(), ones, x0,
+          torch.zeros_like(ft0), it)
+    return every, in64(every), wc, in64(wc)
+
+
+def ls_share(a, ref):
+    return ((a - ref).abs() <= LS_ATOL + LS_RTOL * ref.abs()).double(
+        ).mean().item()
+
+
+def dense_kernels(batch, seed, report):
+    """Rows 12, 13, 15, 16 and 17 against their plain versions on the
+    operands of a real dense step of the two-fly scene at batch `batch`:
+    the mass matrix, the damped Euler matrix and a Newton Hessian (row
+    17), the noslip's factor and M^-1 J_t^T columns (rows 16, 12), the
+    search planes of every Newton step (row 13) and a reuse step's
+    substitution (row 15, bench preset, 8 substeps in, where half the envs
+    are in contact). Row 12 also on gs_cases' operands, since the path's
+    contacts are frictionless. Rows 13 and 17 are held per env beside
+    wrong controls."""
+    import torch
+    from flybody_tpu_torch.model import spec
+    from flybody_tpu_torch.ops import cholesky as ch
+    from flybody_tpu_torch.ops import linesearch as lsm
+    from flybody_tpu_torch.ops import noslip_gs as ng
+    from flybody_tpu_torch.physics import engine
+
+    model = spec.load(spec.TWO_FLY_NPZ, device='cuda')
+    data = two_fly_data(model, batch, seed)
+    for _ in range(2):  # into contact
+        data = engine.step(model, data).strip()
+    n = model.meta.nv
+    entries = []
+    calls = engine.PRESETS['default']['solver_iterations'] + 2
+    with recording(ch, 'chol_solve', {0, 1, calls - 1}) as c17, \
+            recording(ch, 'cho_solve_multi', {0}) as c16, \
+            recording(ng, 'gs', {0}) as c12, \
+            recording(lsm, 'line_search', set(range(10))) as c13:
+        engine.step(model, data)
+    # Row 15's operands: a bench substep further into contact (at the
+    # path's depth most envs have none, and then a zero reuse gradient).
+    bench = engine.PRESETS['bench']
+    deeper = data
+    for _ in range(6):
+        deeper = engine.step(model, deeper, bench).strip()
+    with recording(ch, 'cho_solve', {0}) as c15:
+        engine.step(model, deeper, bench)
+    _, efc, _ = engine.fwd_acc(model, deeper, bench)
+    log('two-fly kernel operands (row 15, 8 substeps in): '
+        + contact_line(efc))
+    del deeper, efc
+    _, efc, _ = engine.fwd_acc(model, data)
+    log('two-fly kernel operands: ' + contact_line(efc))
+    del efc
+
+    # Row 17.
+    rd17 = {}
+    for what, i in (('M', 0), ('Newton Hessian', 1), ('M + dt damping',
+                                                      calls - 1)):
+        A, b = c17[i]
+        out, ref, rd17[what] = chol_checks(what, A, b)
+    err = (out[1] - ref[1]).abs().max().item()
+    ms = cuda_ms(lambda: ch.chol_solve(A, b), 20)
+    pms = cuda_ms(lambda: ch.chol_solve_ref(A, b), 3)
+    lms = cuda_ms(lambda: torch.cholesky_solve(
+        b[..., None], torch.linalg.cholesky(A)), 5)
+    byts = batch * 4 * (n * (n + 1) // 2 + n * n + 2 * n)
+    fl = batch * (n ** 3 / 3 + 2 * n * n)
+    entries.append(kernel_entry('chol_solve', err, ms, pms, byts, fl, lms))
+    report['chol_solve_readings'] = rd17
+    log(f'chol_solve (n {n}): {ms:.3f} ms kernel, {pms:.3f} ms plain, '
+        f'{lms:.3f} ms torch.linalg.cholesky + torch.cholesky_solve')
+
+    # Row 15: a reuse step's substitution (bench preset), where envs with
+    # no active contact have a zero gradient, and the factor of M with the
+    # smooth force (every env, nonzero).
+    L, g = c15[0]
+    x, xr = ch.cho_solve(L, g), ch.cho_solve_ref(L, g)
+    err, rel = compare('cho_solve', (x,), (xr,), ('x',))
+    LM = ch.chol_solve(*c17[0])[0]
+    err_m, rel_m = compare('cho_solve[M, qfrc_smooth]',
+                       (ch.cho_solve(LM, c17[0][1]),),
+                       (ch.cho_solve_ref(LM, c17[0][1]),), ('x',))
+    del LM
+    report['cho_solve_nonzero_share'] = (g.abs().amax(1) > 0).double(
+        ).mean().item()
+    log(f'  cho_solve: envs with a nonzero reuse gradient '
+        f'{report["cho_solve_nonzero_share"]:.3f}')
+    if not max(rel, rel_m) <= SUBST_REL_TOL:
+        raise AssertionError(f'cho_solve disagrees: rel {rel:.3e} / '
+                             f'{rel_m:.3e}')
+    ms = cuda_ms(lambda: ch.cho_solve(L, g), 20)
+    pms = cuda_ms(lambda: ch.cho_solve_ref(L, g), 3)
+    lms = cuda_ms(lambda: torch.cholesky_solve(g[..., None], L), 5)
+    entries.append(kernel_entry('cho_solve', max(err, err_m), ms, pms,
+                                batch * 4 * (n * (n + 1) // 2 + 2 * n),
+                                batch * 2 * n * n, lms))
+    log(f'cho_solve: {ms:.3f} ms kernel, {pms:.3f} ms plain, {lms:.3f} ms '
+        f'torch.cholesky_solve')
+
+    # Row 16 (the noslip's M^-1 J_t^T, default preset: m = 2K).
+    L, R = c16[0]
+    m = R.shape[2]
+    X, Xr = ch.cho_solve_multi(L, R), ch.cho_solve_multi_ref(L, R)
+    err, rel = compare('cho_solve_multi', (X,), (Xr,), ('X',))
+    if not rel <= SUBST_REL_TOL:
+        raise AssertionError(f'cho_solve_multi disagrees: rel {rel:.3e}')
+    ms = cuda_ms(lambda: ch.cho_solve_multi(L, R), 20)
+    pms = cuda_ms(lambda: ch.cho_solve_multi_ref(L, R), 3)
+    lms = cuda_ms(lambda: torch.cholesky_solve(R, L), 5)
+    entries.append(kernel_entry(
+        'cho_solve_multi', err, ms, pms,
+        batch * 4 * (n * (n + 1) // 2 + 2 * n * m), batch * 2 * n * n * m,
+        lms))
+    log(f'cho_solve_multi (m {m}): {ms:.3f} ms kernel, {pms:.3f} ms plain, '
+        f'{lms:.3f} ms torch.cholesky_solve')
+
+    # Row 12 (the sweeps, default preset: all 64 slots). The path's own
+    # operands are frictionless in this state, so its sweeps change
+    # nothing (held all the same); gs_cases adds the ill-posed every-slot
+    # witness (read) and a well-conditioned case over all K slots (held).
+    gargs = c12[0]
+    K, it = gargs[0].shape[1], gargs[8]
+    every, every64, wc, wc64 = gs_cases(gargs, c16[0][0], seed)
+    _, rel = compare(f'noslip_gs[{K} slots, path]', ng.gs(*gargs),
+                     ng.gs_ref(*gargs), ('x', 'ft'))
+    rd12 = {'path_frictional_slots': int((gargs[5] > 0).sum())}
+    for what, a, a64 in (('every slot, radius 1', every, every64),
+                         ('well-conditioned', wc, wc64)):
+        ref = ng.gs_ref(*a)
+        _, r = compare(f'noslip_gs[{K} slots, {what}]', ng.gs(*a), ref,
+                       ('x', 'ft'))
+        _, r64 = compare(f'noslip_gs plain[{K} slots, {what}] vs float64',
+                         ref, ng.gs_ref(*a64), ('x', 'ft'))
+        rd12[what] = {'kernel_vs_plain': r, 'plain_vs_float64': r64}
+    log('  noslip_gs readings (worst per-index relative error): '
+        + json.dumps(rd12))
+    report['noslip_gs_readings'] = rd12
+    rel = max(rel, rd12['well-conditioned']['kernel_vs_plain'])
+    if not rel <= SUBST_REL_TOL:
+        raise AssertionError(f'noslip_gs disagrees: rel {rel:.3e}')
+    err = (ng.gs(*wc)[0] - ng.gs_ref(*wc)[0]).abs().max().item()
+    # The kernel does the same work whatever the mask: timed on the
+    # well-conditioned case.
+    ms = cuda_ms(lambda: ng.gs(*wc), 20)
+    pms = cuda_ms(lambda: ng.gs_ref(*wc), 3)
+    entries.append(kernel_entry(
+        'noslip_gs', err, ms, pms, nbytes(wc[:8]) + nbytes(gargs[6:8]),
+        batch * it * K * (8 * n + 20)))
+    del every, every64, wc, wc64
+    log(f'noslip_gs (K {K}, {it} sweeps): {ms:.3f} ms kernel, {pms:.3f} ms '
+        f'plain')
+
+    # Row 13 (every Newton step's search, default preset), per search.
+    outs, refs, ctls = [], [], []
+    for i in sorted(c13):
+        lim, con, sc, e_it, l_it = c13[i]
+        outs.append(lsm.line_search(lim, con, sc, e_it, l_it))
+        refs.append(lsm.line_search_ref(lim, con, sc, e_it, l_it))
+        ctls.append(lsm.line_search_ref(lim, con, sc, e_it, l_it - 1))
+    a, r, c = torch.cat(outs), torch.cat(refs), torch.cat(ctls)
+    rd13 = {'kernel_share': ls_share(a, r),
+            'control one refinement step fewer': ls_share(c, r),
+            'searches': a.numel(), 'steps_taken': (r > 0).double().mean(
+                ).item()}
+    log('  line_search readings (share of searches within '
+        f'{LS_ATOL:.0e} + {LS_RTOL:.0e} |alpha|): ' + json.dumps(rd13))
+    report['line_search_readings'] = rd13
+    if not rd13['kernel_share'] >= LS_SHARE:
+        raise AssertionError(f'line_search disagrees: {rd13}')
+    lim, con, sc, e_it, l_it = c13[0]
+    L_, K_ = lim.shape[2], con.shape[2]
+    ms = cuda_ms(lambda: lsm.line_search(lim, con, sc, e_it, l_it), 20)
+    pms = cuda_ms(lambda: lsm.line_search_ref(lim, con, sc, e_it, l_it), 3)
+    evals = e_it + 2 * l_it + 1
+    entries.append(kernel_entry(
+        'line_search', (a - r).abs().max().item(), ms, pms,
+        nbytes((lim, con, sc)) + 4 * batch,
+        batch * evals * (8 * L_ + 60 * K_)))
+    log(f'line_search (L {L_}, K {K_}, {l_it} steps): {ms:.3f} ms kernel, '
+        f'{pms:.3f} ms plain')
+    return entries
+
+
+@contextlib.contextmanager
+def path_work():
+    """How much real work rows 15 and 12 get on the path run in the block:
+    {'cho_solve': [(env, launch) pairs with a nonzero right-hand side,
+    pairs], 'noslip_gs': [slots swept as active and frictional, slots]},
+    the first counts summed on the card without a synchronisation."""
+    from flybody_tpu_torch.ops import cholesky as ch
+    from flybody_tpu_torch.ops import noslip_gs as ng
+    acc = {'cho_solve': [0, 0], 'noslip_gs': [0, 0]}
+    o15, o12 = ch.cho_solve, ng.gs
+
+    def w15(L, b):
+        acc['cho_solve'][0] = acc['cho_solve'][0] + (b.abs().amax(1) > 0
+                                                     ).sum()
+        acc['cho_solve'][1] += b.shape[0]
+        return o15(L, b)
+
+    def w12(*a):
+        acc['noslip_gs'][0] = acc['noslip_gs'][0] + (a[5] > 0).sum()
+        acc['noslip_gs'][1] += a[5].numel()
+        return o12(*a)
+
+    ch.cho_solve, ng.gs = w15, w12
+    try:
+        yield acc
+    finally:
+        ch.cho_solve, ng.gs = o15, o12
+        for v in acc.values():
+            v[0] = int(v[0])
+
+
+@contextlib.contextmanager
+def chol_diagonal(scale, env=None):
+    """A wrong control: row 17 factors A with its diagonal times `scale`,
+    in env `env` only (None: every env)."""
+    import torch
+    from flybody_tpu_torch.ops import cholesky as ch
+    orig = ch.chol_solve
+
+    def wrong(A, b):
+        s = A.new_full((A.shape[0], 1), scale)
+        if env is not None:
+            s.fill_(1.0)
+            s[env] = scale
+        d = torch.diagonal(A, dim1=1, dim2=2)
+        return orig((A + torch.diag_embed(d * (s - 1.0))).contiguous(), b)
+
+    ch.chol_solve = wrong
+    try:
+        yield
+    finally:
+        ch.chol_solve = orig
+
+
+def two_fly_controls():
+    """The two-fly gate's controls on the card: (name, context, preset
+    changes, whether the gate must fail it). The last is read only: at
+    this state the solve has converged before its last iteration."""
+    return [("row 17 with A's diagonal x (1 + 1e-3), every env",
+             lambda: chol_diagonal(1 + 1e-3), {}, True),
+            ("row 17 with A's diagonal x (1 + 1e-2), env 0 only",
+             lambda: chol_diagonal(1 + 1e-2, 0), {}, True),
+            ('one Newton iteration', contextlib.nullcontext,
+             {'solver_iterations': 1}, True),
+            ('one Newton iteration fewer', contextlib.nullcontext,
+             {'solver_iterations': 9}, False)]
+
+
+def two_fly_phase(preset, batch, steps, cpu_envs, seed, report):
+    """The two-fly scene's dense path on the card: reset + `steps`
+    engine.step substeps at `preset`; every env finite, every kernel's
+    launch count exact; scene-substeps/s. Then one substep of `cpu_envs`
+    envs from the stepped state on the card and on the CPU at float32 and
+    float64, at the preset with 30 line-search steps: held at the default
+    preset by f64_anchored (the card at most TWO_FLY_F64_RATIO times as
+    far from float64 as the CPU's float32), beside the wrong controls of
+    two_fly_controls run on the card, which must fail it; read at the
+    bench one. The card-vs-CPU shares of substep_shares are printed, and
+    how much real work rows 15 and 12 got on the path (path_work)."""
+    import torch
+    from flybody_tpu_torch.model import spec
+    from flybody_tpu_torch.physics import engine
+    cfg = engine.PRESETS[preset]
+    model = spec.load(spec.TWO_FLY_NPZ, device='cuda')
+    torch.cuda.synchronize()
+    for m, attr in counters().values():
+        setattr(m, attr, 0)
+    t0 = time.perf_counter()
+    data = two_fly_data(model, batch, seed)
+    torch.cuda.synchronize()
+    t_reset = time.perf_counter() - t0
+    times = []
+    with path_work() as work:
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            data = engine.step(model, data, cfg)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            data = data.strip()
+    launches = {n: getattr(m, attr) for n, (m, attr) in counters().items()}
+    log(f'two_fly [{preset}]: work on the path: row 15 right-hand sides '
+        f'nonzero in {work["cho_solve"][0]} of {work["cho_solve"][1]} '
+        f'(env, launch); row 12 slots swept as active and frictional: '
+        f'{work["noslip_gs"][0]} of {work["noslip_gs"][1]}')
+    expect = {n: steps * TWO_FLY_PER_SUBSTEP[preset].get(n, 0)
+              for n in launches}
+    log(f'two_fly [{preset}]: launches {launches} (expected {expect})')
+    if launches != expect:
+        raise AssertionError(f'two_fly {preset}: launch counts {launches} '
+                             f'!= {expect}')
+    for name in ('qpos', 'qvel', 'qacc'):
+        if not torch.isfinite(getattr(data, name)).all():
+            raise AssertionError(f'two_fly {preset}: non-finite {name} '
+                                 f'after {steps} substeps')
+    steady = times[1:] if steps > 1 else times
+    rate = batch * len(steady) / sum(steady)
+    _, efc, _ = engine.fwd_acc(model, data, cfg)
+    log(f'two_fly [{preset}]: ' + contact_line(efc))
+    log(f'two_fly [{preset}]: reset {t_reset:.3f} s, substep times '
+        f'{[round(t, 4) for t in times]} s, {rate:.1f} scene-substeps/s '
+        f'(substeps 2..{steps}, batch {batch}, {2 * batch} flies)')
+    rd = dict(batch=batch, substeps=steps, substep_s=times,
+              scene_substeps_per_s=rate, launches=launches, path_work=work,
+              active_contacts_mean=efc.con_active.sum(1).mean().item())
+    del efc
+
+    sub = data.index(slice(0, cpu_envs))
+    cfg30 = dict(cfg, ls_iterations=30)
+    card = two_fly_substep_outputs(model, sub, cfg30)
+    cpu = two_fly_substep_outputs(spec.load(spec.TWO_FLY_NPZ, device='cpu'),
+                                  sub.to('cpu'), cfg30)
+    cpu64 = two_fly_substep_outputs(
+        spec.load(spec.TWO_FLY_NPZ, device='cpu', dtype=torch.float64),
+        sub.to('cpu', dtype=torch.float64), cfg30)
+    chk = {'card_vs_cpu': substep_shares(card, cpu),
+           'cpu_vs_cpu_float64': substep_shares(cpu, cpu64),
+           'card_vs_cpu_float64': substep_shares(card, cpu64)}
+    for k, v in chk.items():
+        log(f'two_fly substep check [{preset}, ls 30] ({cpu_envs} envs) '
+            f'{k}: ' + json.dumps(v))
+    gate = f64_anchored(card, cpu, cpu64)
+    log(f'two_fly substep gate [{preset}] (per quantity: the card\'s and '
+        f'the CPU float32\'s median / worst env error against the CPU '
+        f'float64): ' + json.dumps(gate))
+    chk['f64_anchored'] = gate
+    rd['substep_check'] = chk
+    report[f'two_fly_{preset}'] = rd
+    if preset != 'default':
+        return launches
+    bad = {k: v for k, v in gate.items() if not v['ok']}
+    if bad:
+        raise AssertionError(f'two_fly: the card departs from float64 more '
+                             f'than the CPU float32 does: {bad}')
+    chk['controls'] = {}
+    for name, ctx, change, must_fail in two_fly_controls():
+        with ctx():
+            out = two_fly_substep_outputs(model, sub, dict(cfg30, **change))
+        g = f64_anchored(out, cpu, cpu64)
+        passed = all(v['ok'] for v in g.values())
+        chk['controls'][name] = dict(
+            passes=passed, must_fail=must_fail,
+            ratio={k: v['ratio'] for k, v in g.items()})
+        log(f'two_fly substep gate [{preset}] control: {name}: '
+            f'{"passes" if passed else "fails"} (card / CPU float32, median '
+            f'and worst env, per quantity: '
+            + json.dumps({k: [round(r, 2) for r in v['ratio']]
+                          for k, v in g.items()}) + ')')
+        if must_fail and passed:
+            raise AssertionError(f'two_fly: the gate passes a wrong '
+                                 f'control: {name}')
+    return launches
+
+
+def f64_anchored(card, cpu, cpu64):
+    """Per quantity of substep_outputs: the median and worst per-env error
+    against the CPU's float64 of the card and of the CPU's float32 (qpos,
+    qvel, qacc, sensordata relative to each index's scale, as env_err; the
+    primal cost and net normal force relative to their own value), and
+    whether the card's are within TWO_FLY_F64_RATIO times the CPU's (the
+    median also within CPU_TOL)."""
+    out = {}
+    for i, k in enumerate(SUBSTEP_NAMES + ('cost', 'force')):
+        if i < len(SUBSTEP_NAMES):
+            ec = env_err([card[i]], [cpu64[i]])
+            ep = env_err([cpu[i]], [cpu64[i]])
+        else:
+            b = cpu64[i].abs().clamp(
+                min=1e-6 * cpu64[i].abs().max().item() + 1e-30)
+            ec = (card[i] - cpu64[i]).abs() / b
+            ep = (cpu[i] - cpu64[i]).abs() / b
+        v = dict(card=[ec.median().item(), ec.max().item()],
+                 cpu_float32=[ep.median().item(), ep.max().item()])
+        v['ratio'] = [c / max(p, 1e-30) for c, p in zip(v['card'],
+                                                         v['cpu_float32'])]
+        v['ok'] = all(c <= max(TWO_FLY_F64_RATIO * p, floor)
+                      for c, p, floor in zip(v['card'], v['cpu_float32'],
+                                             (CPU_TOL, 0.0)))
+        out[k] = v
+    return out
+
+
+def two_fly_substep_outputs(model, data, cfg):
+    """substep_outputs for a dense-path model: qpos, qvel, qacc and
+    sensordata after one substep, the forward pass's primal cost and net
+    normal force, on the CPU as float64."""
+    from flybody_tpu_torch.ops import cholesky as ch
+    from flybody_tpu_torch.physics import engine, solver
+    out = engine.step(model, data, cfg)
+    dd, efc, f_c = engine.fwd_acc(model, data, cfg)
+    a_free = ch.cho_solve_ref(dd.qLD, dd.qfrc_smooth)
+    cost = solver.primal_cost_dense(dd.qM, efc, a_free, dd.qacc)
+    return [getattr(out, k).cpu().double() for k in SUBSTEP_NAMES] + [
+        cost.cpu().double(), f_c[..., 0].sum(-1).cpu().double()]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1007,22 +1630,43 @@ def main() -> int:
                 log(f'  {name}: {line.strip()}')
 
     from flybody_tpu_torch.envs import fly_envs
+    seconds = {}
+    t0 = time.perf_counter()
     env = fly_envs.walk_imitation(functional=True)
     kernels = kernel_phase(env, BATCH, SEED, report)
     del env
     torch.cuda.empty_cache()
+    kernels += dense_kernels(TWO_FLY_BATCH, SEED, report)
+    torch.cuda.empty_cache()
+    seconds['kernels'] = time.perf_counter() - t0
     total = {n: 0 for n in SOURCES}
     for preset in PRESETS:
+        t0 = time.perf_counter()
         state0, action, first, (model, data1), launches = main_path_phase(
             preset, BATCH, STEPS, CPU_ENVS, SEED, report)
         for n, c in launches.items():
             total[n] += c
+        seconds[f'main_path_{preset}'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         cpu_phase(preset, state0, action, first, CPU_ENVS, report)
         substep_phase(preset, model, data1, report)
         del state0, model, data1
         torch.cuda.empty_cache()
-    for k in kernels:  # launches over both presets' main-path runs
+        seconds[f'cpu_check_{preset}'] = time.perf_counter() - t0
+    for preset in PRESETS:
+        t0 = time.perf_counter()
+        launches = two_fly_phase(preset, TWO_FLY_BATCH, TWO_FLY_STEPS,
+                                 TWO_FLY_CPU_ENVS, SEED, report)
+        for n, c in launches.items():
+            total[n] += c
+        torch.cuda.empty_cache()
+        seconds[f'two_fly_{preset}'] = time.perf_counter() - t0
+    for k in kernels:  # launches over the main-path runs of both models
         k['launches'] = total[k['name']]
+    seconds['build'] = report['build_s']
+    report['phase_seconds'] = seconds
+    log('phase seconds: ' + json.dumps({k: round(v, 1)
+                                        for k, v in seconds.items()}))
 
     if 'jax' in sys.modules or any(m.startswith('flybody_tpu.')
                                    or m == 'flybody_tpu'

@@ -177,6 +177,12 @@ __device__ __forceinline__ float dot6(const float* a, const float* b) {
   return s;
 }
 
+// Sum over the 32 lanes of a warp; every lane returns the total.
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
 // Launch geometry shared by the one-thread-per-env stage kernels.
 constexpr int kEnvThreads = 32;
 

@@ -13,11 +13,6 @@
 
 #include "common.cuh"
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // The alpha-independent precomputes of one env, in shared memory.
 struct LsRows {
   const float *jl, *vl, *al, *Dl;   // L limit rows: jar0, jv, active, D

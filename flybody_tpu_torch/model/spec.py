@@ -3,8 +3,11 @@
 Counterpart of flybody_tpu/model/spec.py. A model is compiled once, on the
 host, into static metadata (`Meta`, hashable) plus a dataclass of tensors
 (`FlyModel`). The on-disk format is the JAX package's `.npz` (arrays plus
-JSON metadata), so a model saved there loads here unchanged; the walking
-model ships as `assets/walk_imitation.npz`.
+JSON metadata), so a model saved there loads here unchanged. Two models
+ship: the walking model (`assets/walk_imitation.npz`, WALK_IMITATION_NPZ)
+and the two-fly scene of the JAX package's surgery.multi_fly_xml(2)
+(`assets/two_fly.npz`, TWO_FLY_NPZ), which has no arrow partition and so
+runs the dense path.
 
 Conventions: quaternions (w, x, y, z), CGS units, topological dof order.
 """
@@ -55,6 +58,7 @@ SENS_TORQUE = 5
 
 ASSET_DIR = os.path.join(os.path.dirname(__file__), 'assets')
 WALK_IMITATION_NPZ = os.path.join(ASSET_DIR, 'walk_imitation.npz')
+TWO_FLY_NPZ = os.path.join(ASSET_DIR, 'two_fly.npz')
 
 
 @dataclasses.dataclass(frozen=True, eq=True)

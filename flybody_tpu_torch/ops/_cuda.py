@@ -22,7 +22,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD = os.path.join(_PKG, '_build')
 SOURCES = ('pos_stage', 'narrowphase', 'mpr', 'force_stage', 'efc_stage',
-           'arrow', 'sens_stage', 'newton', 'noslip')
+           'arrow', 'sens_stage', 'newton', 'noslip', 'cholesky',
+           'linesearch', 'noslip_gs')
 
 _libs: dict = {}
 _fns: dict = {}

@@ -1,0 +1,142 @@
+"""Dense batched Cholesky factor and substitutions: rows 15, 16 and 17.
+
+Counterpart of flybody_tpu/ops/cholesky.py, used by the dense path (scenes
+without an arrow partition, such as several flies):
+
+  * `chol_solve(A, b)` (row 17, the TPU's `_chol_solve_pallas`): the
+    lower factor L of A (zeros above the diagonal) and x with A x = b;
+  * `cho_solve(L, b)` (row 15, `_solve_pallas`): x with L L^T x = b;
+  * `cho_solve_multi(L, R)` (row 16, `_solve_multi_pallas`): X with
+    L L^T X = R for R (B, n, m).
+
+Shapes are batch-leading: A, L (B, n, n), b (B, n). CUDA tensors launch
+csrc/cholesky.cu (float32, contiguous; anything else raises); CPU tensors
+run the plain versions `*_ref`, which repeat the kernels' algorithm: a
+column-by-column factor that reads the lower triangle and clamps each
+pivot at 1e-30 (the TPU kernel's rsqrt(max(d, 1e-30))), forward
+substitution by columns and backward substitution by dot products. No
+jitter is added here: callers add their own.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from flybody_tpu_torch.ops import _cuda
+
+chol_solve_launches = 0  # row 17
+cho_solve_launches = 0  # row 15
+cho_solve_multi_launches = 0  # row 16
+
+
+# ------------------------------------------------------ plain versions
+
+
+def chol_ref(A):
+    """Lower Cholesky factor of the lower triangle of A (B, n, n)."""
+    n = A.shape[-1]
+    W = torch.tril(A)
+    L = torch.zeros_like(A)
+    for k in range(n):
+        d = W[:, k, k]
+        inv = torch.rsqrt(torch.clamp(d, min=1e-30))
+        c = W[:, k:, k] * inv[:, None]
+        L[:, k:, k] = c
+        W[:, k + 1:, k + 1:] -= c[:, 1:, None] * c[:, None, 1:]
+    return L
+
+
+def subst_ref(L, R):
+    """X with L L^T X = R, for R (B, n, m)."""
+    n = L.shape[-1]
+    r = R.clone()
+    y = torch.empty_like(R)
+    for k in range(n):
+        y[:, k] = r[:, k] / L[:, k, k, None]
+        r[:, k + 1:] -= L[:, k + 1:, k, None] * y[:, k, None]
+    x = torch.empty_like(R)
+    for k in range(n - 1, -1, -1):
+        s = torch.einsum('bj,bjm->bm', L[:, k + 1:, k], x[:, k + 1:])
+        x[:, k] = (y[:, k] - s) / L[:, k, k, None]
+    return x
+
+
+def cho_solve_ref(L, b):
+    """Plain version of row 15."""
+    return subst_ref(L, b[..., None])[..., 0]
+
+
+def cho_solve_multi_ref(L, R):
+    """Plain version of row 16."""
+    return subst_ref(L, R)
+
+
+def chol_solve_ref(A, b):
+    """Plain version of row 17: (L, x)."""
+    L = chol_ref(A)
+    return L, cho_solve_ref(L, b)
+
+
+# ------------------------------------------------------------ kernels
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _check_square(A, what):
+    if A.dim() != 3 or A.shape[1] != A.shape[2]:
+        raise ValueError(f'{what}: expected (B, n, n), got {tuple(A.shape)}')
+    _cuda.check(A, A.shape, what)
+    return A.shape[0], A.shape[1]
+
+
+def chol_solve(A, b):
+    """Row 17 on CUDA tensors, `chol_solve_ref` on CPU tensors."""
+    if A.device.type == 'cpu':
+        return chol_solve_ref(A, b)
+    global chol_solve_launches
+    Bn, n = _check_square(A, 'A')
+    _cuda.check(b, (Bn, n), 'b')
+    L = torch.empty_like(A)
+    x = torch.empty_like(b)
+    fn = _cuda.function('cholesky', 'chol_solve_f32', [_P] * 4 + [_I, _I, _P])
+    rc = fn(A.data_ptr(), b.data_ptr(), L.data_ptr(), x.data_ptr(), Bn, n,
+            _cuda.stream())
+    _cuda.raise_on(rc, 'chol_solve_f32')
+    chol_solve_launches += 1
+    return L, x
+
+
+def cho_solve(L, b):
+    """Row 15 on CUDA tensors, `cho_solve_ref` on CPU tensors."""
+    if L.device.type == 'cpu':
+        return cho_solve_ref(L, b)
+    global cho_solve_launches
+    Bn, n = _check_square(L, 'L')
+    _cuda.check(b, (Bn, n), 'b')
+    x = torch.empty_like(b)
+    fn = _cuda.function('cholesky', 'cho_solve_f32', [_P] * 3 + [_I, _I, _P])
+    rc = fn(L.data_ptr(), b.data_ptr(), x.data_ptr(), Bn, n, _cuda.stream())
+    _cuda.raise_on(rc, 'cho_solve_f32')
+    cho_solve_launches += 1
+    return x
+
+
+def cho_solve_multi(L, R):
+    """Row 16 on CUDA tensors, `cho_solve_multi_ref` on CPU tensors."""
+    if L.device.type == 'cpu':
+        return cho_solve_multi_ref(L, R)
+    global cho_solve_multi_launches
+    Bn, n = _check_square(L, 'L')
+    if R.dim() != 3:
+        raise ValueError(f'R: expected (B, n, m), got {tuple(R.shape)}')
+    _cuda.check(R, (Bn, n, R.shape[2]), 'R')
+    X = torch.empty_like(R)
+    fn = _cuda.function('cholesky', 'cho_solve_multi_f32',
+                        [_P] * 3 + [_I, _I, _I, _P])
+    rc = fn(L.data_ptr(), R.data_ptr(), X.data_ptr(), Bn, n, R.shape[2],
+            _cuda.stream())
+    _cuda.raise_on(rc, 'cho_solve_multi_f32')
+    cho_solve_multi_launches += 1
+    return X

@@ -69,50 +69,69 @@ def make_frame(normal):
     return t1, cross(normal, t1)
 
 
+def select(cand_b, cand_u, cand_g, k):
+    """The k candidates with the smallest dist - includemargin (a stable
+    sort: the lower index first among ties): their rows of cand_b (B, k,
+    7), cand_u (B, k, 14) and cand_g (B, k)."""
+    sel = _col.smallest(cand_b[..., 0] - cand_u[..., 0], k)
+    return (torch.gather(cand_b, 1, sel[..., None].expand(-1, -1, 7)),
+            torch.gather(cand_u, 1, sel[..., None].expand(-1, -1, 14)),
+            torch.gather(cand_g, 1, sel))
+
+
+def frame_rows(bsel):
+    """The contact frames (B, k, 3, 3): rows normal, t1, t2."""
+    c_n = bsel[..., 4:7]
+    t1, t2 = make_frame(c_n)
+    return torch.stack([c_n, t1, t2], dim=-2)
+
+
+def body_ids(usel):
+    return torch.round(usel[..., 11]).long(), torch.round(usel[..., 12]).long()
+
+
+def row_scalars(bsel, usel, gsel, con_J, c_break, qvel):
+    """The 19 (B, k) rows of the selected slots from their Jacobian rows:
+    dist, active, frictional, mu, D, aref(3), pos(3), normal(3), body1,
+    body2, self, break, slot id."""
+    dt = bsel.dtype
+    c_dist, c_pos, c_n = bsel[..., 0], bsel[..., 1:4], bsel[..., 4:7]
+    c_incl, c_mu = usel[..., 0], usel[..., 1]
+    c_solref, c_solimp = usel[..., 2:4], usel[..., 4:9]
+    condim, diag_c = usel[..., 9], usel[..., 10]
+    r_c = c_dist - c_incl
+    K_c, B_c, imp_c = kbi(c_solref, c_solimp, r_c)
+    vel = torch.einsum('bkrv,bv->bkr', con_J, qvel)
+    aref_n = -B_c * vel[..., 0] - K_c * imp_c * r_c
+    aref_t = -B_c[..., None] * vel[..., 1:]
+    R_c = torch.clamp((1.0 - imp_c) / imp_c * diag_c, min=1e-12)
+    return [c_dist, (c_dist < c_incl).to(dt), (condim >= 3).to(dt), c_mu,
+            1.0 / R_c, aref_n, aref_t[..., 0], aref_t[..., 1], c_pos[..., 0],
+            c_pos[..., 1], c_pos[..., 2], c_n[..., 0], c_n[..., 1],
+            c_n[..., 2], usel[..., 11], usel[..., 12], usel[..., 13],
+            c_break, gsel]
+
+
 def contact_rows_ref(model, data, cand_b, cand_u, cand_g, k):
     """Top-k contact selection and row assembly (the JAX package's
     _contact_rows_ref, flybody_tpu/physics/solver.py). Returns con_J
     (B, k, 3, nv) and 19 (B, k) rows: dist, active, frictional, mu, D,
     aref(3), pos(3), normal(3), body1, body2, self, break, slot id."""
-    meta = model.meta
-    dt = cand_b.dtype
-    score = cand_b[..., 0] - cand_u[..., 0]
-    sel = _col.smallest(score, k)
-    bsel = torch.gather(cand_b, 1, sel[..., None].expand(-1, -1, 7))
-    usel = torch.gather(cand_u, 1, sel[..., None].expand(-1, -1, 14))
-    gsel = torch.gather(cand_g, 1, sel)
-    c_dist, c_pos, c_n = bsel[..., 0], bsel[..., 1:4], bsel[..., 4:7]
-    c_incl, c_mu = usel[..., 0], usel[..., 1]
-    c_solref, c_solimp = usel[..., 2:4], usel[..., 4:9]
-    condim, diag_c = usel[..., 9], usel[..., 10]
-    b1f, b2f, c_self = usel[..., 11], usel[..., 12], usel[..., 13]
-    c_active = (c_dist < c_incl).to(dt)
-
-    t1, t2 = make_frame(c_n)
-    frame = torch.stack([c_n, t1, t2], dim=-2)  # (B, k, 3, 3)
-    b1, b2 = torch.round(b1f).long(), torch.round(b2f).long()
+    bsel, usel, gsel = select(cand_b, cand_u, cand_g, k)
+    frame = frame_rows(bsel)
+    b1, b2 = body_ids(usel)
     mask = model.body_dof_mask
     w = mask[b2] - mask[b1]  # (B, k, nv)
-    arm = c_pos - data.subtree_com[:, tree_root(meta)][:, None, :]
+    arm = bsel[..., 1:4] - data.subtree_com[:, tree_root(model.meta)][
+        :, None, :]
     gkr = torch.cat([cross(arm[..., None, :], frame), frame], -1)
     con_J = torch.einsum('bkrx,bvx->bkrv', gkr, data.cdof) * w[..., None, :]
 
     limb = limb_of_body(model)
     l1, l2 = limb[b1], limb[b2]
     c_break = ((torch.abs(l1 - l2) > 0.5) & (l1 > -0.5)
-               & (l2 > -0.5)).to(dt)
-
-    r_c = c_dist - c_incl
-    K_c, B_c, imp_c = kbi(c_solref, c_solimp, r_c)
-    vel = torch.einsum('bkrv,bv->bkr', con_J, data.qvel)
-    aref_n = -B_c * vel[..., 0] - K_c * imp_c * r_c
-    aref_t = -B_c[..., None] * vel[..., 1:]
-    R_c = torch.clamp((1.0 - imp_c) / imp_c * diag_c, min=1e-12)
-    scal = [c_dist, c_active, (condim >= 3).to(dt), c_mu, 1.0 / R_c, aref_n,
-            aref_t[..., 0], aref_t[..., 1], c_pos[..., 0], c_pos[..., 1],
-            c_pos[..., 2], c_n[..., 0], c_n[..., 1], c_n[..., 2], b1f, b2f,
-            c_self, c_break, gsel]
-    return con_J, scal
+               & (l2 > -0.5)).to(bsel.dtype)
+    return con_J, row_scalars(bsel, usel, gsel, con_J, c_break, data.qvel)
 
 
 def tree_root(meta) -> int:

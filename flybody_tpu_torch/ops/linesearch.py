@@ -1,4 +1,4 @@
-"""Exact Newton line search along a direction (plain PyTorch).
+"""Exact Newton line search along a direction: row 13.
 
 Counterpart of flybody_tpu/ops/linesearch.py (`alpha_ref`, and the same
 math as `search_planes`, which the TPU's Newton kernels inline). Along
@@ -8,14 +8,20 @@ limit rows (jar0, jv, active, D), the contact slots (jar0 xyz, jv xyz, mu,
 frictional, active, D) and the smooth terms sm0 = msm.dx, smm = dx.M dx.
 Bracket doubling from a = 1, then guarded Newton/bisection on phi'; fixed
 trip counts. Its CUDA counterpart is `ls_alpha_warp` in
-csrc/linesearch.cuh, which the Newton kernels (csrc/newton.cu) inline.
-The separate TPU line-search kernel (`_ls_pallas`, dense path only) is not
-ported.
+csrc/linesearch.cuh, which the Newton kernels (csrc/newton.cu) inline and
+the standalone kernel of the dense path (`line_search`, row 13, the TPU's
+`_ls_pallas`; csrc/linesearch.cu) runs one warp per env.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from flybody_tpu_torch.ops import _cuda
+
+launches = 0  # line_search kernel launches
 
 
 def slope_curv(a, lim, con, sm0, smm):
@@ -79,3 +85,31 @@ def alpha_ref(lim, con, sm0, smm, expand_iters: int, ls_iters: int):
     alpha = 0.5 * (lo + hi)
     s0, _ = slope_curv(torch.zeros_like(alpha), lim, con, sm0, smm)
     return torch.where(s0 < 0, alpha, torch.zeros_like(alpha))
+
+
+def line_search_ref(lim, con, sc, expand_iters: int, ls_iters: int):
+    """Plain version of row 13 on stacked planes: lim (B, 4, L) [jar0 | jv
+    | active | D], con (B, 10, K) [jar0 xyz | jv xyz | mu | frictional |
+    active | D], sc (B, 2) [sm0 | smm]; alpha (B,)."""
+    return alpha_ref(lim.unbind(1), con.unbind(1), sc[:, 0], sc[:, 1],
+                     expand_iters, ls_iters)
+
+
+def line_search(lim, con, sc, expand_iters: int, ls_iters: int):
+    """Row 13 on CUDA tensors, `line_search_ref` on CPU tensors."""
+    if lim.device.type == 'cpu':
+        return line_search_ref(lim, con, sc, expand_iters, ls_iters)
+    global launches
+    Bn, L, K = lim.shape[0], lim.shape[2], con.shape[2]
+    _cuda.check(lim, (Bn, 4, L), 'lim')
+    _cuda.check(con, (Bn, 10, K), 'con')
+    _cuda.check(sc, (Bn, 2), 'sc')
+    alpha = sc.new_empty((Bn,))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = _cuda.function('linesearch', 'line_search_f32',
+                        [P] * 4 + [I] * 5 + [P])
+    rc = fn(lim.data_ptr(), con.data_ptr(), sc.data_ptr(), alpha.data_ptr(),
+            Bn, L, K, expand_iters, ls_iters, _cuda.stream())
+    _cuda.raise_on(rc, 'line_search_f32')
+    launches += 1
+    return alpha

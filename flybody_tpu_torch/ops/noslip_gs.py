@@ -1,12 +1,20 @@
-"""The fused noslip post-pass: kernel 11.
+"""The noslip post-pass: kernels 11 (packed factor) and 12 (dense path).
 
-Counterpart of flybody_tpu/ops/noslip_gs.py (`make_noslip_fused_pe`).
-Gauss-Seidel sweeps over the friction rows of the active frictional
-contacts with the normal forces held fixed, each slot's tangent force
-clamped to its friction circle. `noslip_fused` launches csrc/noslip.cu on
-CUDA tensors (float32, contiguous; anything else raises) and runs the
-plain version `noslip_fused_ref` (the JAX package's `_fused_ref`) on CPU
-tensors.
+Counterpart of flybody_tpu/ops/noslip_gs.py. Gauss-Seidel sweeps over the
+friction rows of the active frictional contacts with the normal forces
+held fixed, each slot's tangent force clamped to its friction circle.
+
+  * `noslip_fused` (kernel 11, csrc/noslip.cu; the TPU's
+    `make_noslip_fused_pe`): the M^-1 J_t^T solve by the packed arrow
+    factor, the 2x2 block inverses and the sweeps in one launch. Plain
+    version `noslip_fused_ref` (the JAX package's `_fused_ref`).
+  * `gs` (row 12, csrc/noslip_gs.cu; the TPU's `_noslip_pallas` behind
+    `make_gs_pe`): the sweeps alone, given P = M^-1 J_t^T and the
+    inverses (the dense path computes them outside). Plain version
+    `gs_ref` (the JAX package's `_reference`).
+
+CUDA tensors launch the kernels (float32, contiguous; anything else
+raises); CPU tensors run the plain versions.
 """
 
 from __future__ import annotations
@@ -18,7 +26,8 @@ import torch
 from flybody_tpu_torch.ops import _cuda
 from flybody_tpu_torch.ops import arrow as _ar
 
-launches = 0
+launches = 0  # noslip_fused (kernel 11) launches
+gs_launches = 0  # gs (row 12) launches
 
 
 def noslip_fused_ref(part, F, Jt, aref_t, lim, use, x0, ft0,
@@ -30,15 +39,31 @@ def noslip_fused_ref(part, F, Jt, aref_t, lim, use, x0, ft0,
     Bn, K = Jt.shape[:2]
     nv = part.nv
     Pt = _ar.solve_ref(part, F, Jt.reshape(Bn, 2 * K, nv).transpose(1, 2))
-    Pt = Pt.reshape(Bn, nv, K, 2).permute(0, 2, 1, 3)  # (B, K, nv, 2)
-    A = torch.einsum('bkrv,bkvs->bkrs', Jt, Pt)
+    Pt = Pt.reshape(Bn, nv, K, 2).permute(0, 2, 3, 1)  # (B, K, 2, nv)
+    return gs_ref(Jt, Pt, block_inverses(Jt, Pt), aref_t, lim, use, x0, ft0,
+                  iterations)
+
+
+def block_inverses(Jt, Pt):
+    """Closed-form inverses (B, K, 2, 2) of the 2x2 blocks A_k = J_t,k
+    P_k (Jt, Pt (B, K, 2, nv)), the determinant held at least 1e-12 from
+    zero with its sign."""
+    A = torch.einsum('bkrv,bksv->bkrs', Jt, Pt)
     a, b_, c_, d_ = A[..., 0, 0], A[..., 0, 1], A[..., 1, 0], A[..., 1, 1]
     det = a * d_ - b_ * c_
     det = torch.where(torch.abs(det) > 1e-12, det,
                       torch.where(det >= 0, torch.full_like(det, 1e-12),
                                   torch.full_like(det, -1e-12)))
-    Ainv = torch.stack([torch.stack([d_, -b_], -1),
+    return torch.stack([torch.stack([d_, -b_], -1),
                         torch.stack([-c_, a], -1)], -2) / det[..., None, None]
+
+
+def gs_ref(Jt, Pt, Ainv, aref_t, lim, use, x0, ft0, iterations: int):
+    """Plain version of row 12: `iterations` Gauss-Seidel sweeps over the
+    K slots. Shapes: Jt, Pt (B, K, 2, nv) (Pt[:, k, r] = M^-1 J_t[k, r]);
+    Ainv (B, K, 2, 2); aref_t (B, K, 2); lim, use (B, K); x0 (B, nv); ft0
+    (B, K, 2). Returns (x (B, nv), ft (B, K, 2))."""
+    K = Jt.shape[1]
     on = use > 0
     x = x0
     ft = ft0.clone()
@@ -51,7 +76,7 @@ def noslip_fused_ref(part, F, Jt, aref_t, lim, use, x0, ft0,
             new = torch.where(norm > lk,
                               new * (lk / torch.clamp(norm, min=1e-15)), new)
             new = torch.where(on[:, k, None], new, ft[:, k])
-            x = x + torch.einsum('bvs,bs->bv', Pt[:, k], new - ft[:, k])
+            x = x + torch.einsum('brv,br->bv', Pt[:, k], new - ft[:, k])
             ft[:, k] = new
     return x, ft
 
@@ -81,4 +106,31 @@ def noslip_fused(part, F, Jt, aref_t, lim, use, x0, ft0, iterations: int):
             _cuda.stream())
     _cuda.raise_on(rc, 'noslip_fused_f32')
     launches += 1
+    return x, ft
+
+
+def gs(Jt, Pt, Ainv, aref_t, lim, use, x0, ft0, iterations: int):
+    """Row 12 on CUDA tensors, `gs_ref` on CPU tensors (same arguments and
+    results)."""
+    if Jt.device.type == 'cpu':
+        return gs_ref(Jt, Pt, Ainv, aref_t, lim, use, x0, ft0, iterations)
+    global gs_launches
+    Bn, K, _, nv = Jt.shape
+    for t, shape, name in ((Jt, (Bn, K, 2, nv), 'Jt'),
+                           (Pt, (Bn, K, 2, nv), 'Pt'),
+                           (Ainv, (Bn, K, 2, 2), 'Ainv'),
+                           (aref_t, (Bn, K, 2), 'aref_t'),
+                           (lim, (Bn, K), 'lim'), (use, (Bn, K), 'use'),
+                           (x0, (Bn, nv), 'x0'), (ft0, (Bn, K, 2), 'ft0')):
+        _cuda.check(t, shape, name)
+    x = torch.empty_like(x0)
+    ft = torch.empty_like(ft0)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = _cuda.function('noslip_gs', 'noslip_gs_f32',
+                        [P] * 10 + [I] * 4 + [P])
+    rc = fn(*(t.data_ptr() for t in (Jt, Pt, Ainv, aref_t, lim, use, x0, ft0,
+                                     x, ft)),
+            Bn, nv, K, iterations, _cuda.stream())
+    _cuda.raise_on(rc, 'noslip_gs_f32')
+    gs_launches += 1
     return x, ft

@@ -2,11 +2,17 @@
 
 Counterpart of flybody_tpu/physics/engine.py. One substep runs, in
 MuJoCo's stage order: the position stage (kernel K1), collision, the
-velocity/force stage (K2), constraint rows and adhesion transmission, the
-arrow factor+solve of the smooth acceleration (K3), the Newton solve (the
-block kernel per refactor block, or the whole-solve kernel once) and the
-fused noslip, the sensors (K4), then semi-implicit Euler with implicit
-damping (K3 again).
+velocity/force stage, constraint rows and adhesion transmission, the
+factor+solve of the smooth acceleration, the Newton solve and the noslip,
+the sensors (K4), then semi-implicit Euler with implicit damping.
+
+Dispatch follows the JAX package's. A model with an arrow partition (one
+walking fly) runs the fused force stage (K2) with a packed mass matrix, the
+arrow factor+solve (K3), the block or whole-solve Newton kernel and the
+fused noslip. A model without one (several flies, ops/arrow.py's
+build_partition is None) runs the plain stage chain with a dense mass
+matrix, and the dense Cholesky, line-search and Gauss-Seidel kernels
+(rows 12-17) through the solver's dense branches.
 """
 
 from __future__ import annotations
@@ -17,9 +23,11 @@ import numpy as np
 import torch
 
 from flybody_tpu_torch.model.spec import FlyModel, TRN_BODY
+from flybody_tpu_torch.ops import arrow as _ar
 from flybody_tpu_torch.ops import force_stage as _fs
 from flybody_tpu_torch.ops import sens_stage as _ss
 from flybody_tpu_torch.physics import collision as _col
+from flybody_tpu_torch.physics import fluid as _fl
 from flybody_tpu_torch.physics import kinematics as _kin
 from flybody_tpu_torch.physics import smooth as _sm
 from flybody_tpu_torch.physics import solver as _sol
@@ -86,24 +94,43 @@ def fwd_acc(model: FlyModel, data: Data, preset: dict | None = None,
         data, _, _ = _kin.fwd_position_smooth(model, data)
     with _span('collision'):
         con = _col.collide(model, data, p['mpr_top_p'], p['cc_top_p'])
-    with _span('force'):
-        (cvel, cdof_dot, ten_velocity, qfrc_bias, qfrc_passive, qfrc_fluid,
-         qfrc_actuator, actuator_force, act_dot, Mp) = _fs.force_stage(
-            model, data.qpos, data.qvel, data.act, data.ctrl, data.cdof,
-            data.cinert, data.xipos, data.ximat, data.subtree_com,
-            data.geom_xpos, data.geom_xmat, data.ten_length)
-    data = data.replace(
-        cvel=cvel, cdof_dot=cdof_dot, ten_velocity=ten_velocity,
-        qfrc_bias=qfrc_bias, qfrc_passive=qfrc_passive,
-        qfrc_fluid=qfrc_fluid, qfrc_actuator=qfrc_actuator,
-        actuator_force=actuator_force, act_dot=act_dot, qM=Mp)
-    with _span('constraint_rows'):
-        efc = _sol.make_efc(model, data, con, p['ncon_max'])
-        adh_u, adh_mom = adhesion_moment(model, efc)
+    dense = _ar.build_partition(meta) is None
+    if dense:
+        # The JAX package's plain chain, in its order (engine.py:121-139).
+        with _span('force'):
+            data = _sm.com_vel(model, data)
+            data = _sm.tendon_vel(model, data)
+        with _span('constraint_rows'):
+            efc = _sol.make_efc(model, data, con, p['ncon_max'])
+            adh_u, adh_mom = adhesion_moment(model, efc)
+        with _span('force'):
+            data = _sm.actuation(model, data)
+    else:
+        with _span('force'):
+            (cvel, cdof_dot, ten_velocity, qfrc_bias, qfrc_passive,
+             qfrc_fluid, qfrc_actuator, actuator_force, act_dot,
+             Mp) = _fs.force_stage(
+                model, data.qpos, data.qvel, data.act, data.ctrl, data.cdof,
+                data.cinert, data.xipos, data.ximat, data.subtree_com,
+                data.geom_xpos, data.geom_xmat, data.ten_length)
+        data = data.replace(
+            cvel=cvel, cdof_dot=cdof_dot, ten_velocity=ten_velocity,
+            qfrc_bias=qfrc_bias, qfrc_passive=qfrc_passive,
+            qfrc_fluid=qfrc_fluid, qfrc_actuator=qfrc_actuator,
+            actuator_force=actuator_force, act_dot=act_dot, qM=Mp)
+        with _span('constraint_rows'):
+            efc = _sol.make_efc(model, data, con, p['ncon_max'])
+            adh_u, adh_mom = adhesion_moment(model, efc)
     if len(adh_u):
         qfrc_adh = torch.einsum('buv,bu->bv', adh_mom,
                                 data.actuator_force[:, adh_u])
         data = data.replace(qfrc_actuator=data.qfrc_actuator + qfrc_adh)
+    if dense:
+        with _span('force'):
+            data = _sm.crb(model, data)
+            data = _sm.rne(model, data)
+            data = _sm.passive(model, data)
+            data = _fl.fluid(model, data)
 
     qfrc_smooth = (data.qfrc_passive + data.qfrc_fluid + data.qfrc_actuator
                    - data.qfrc_bias + _sm.xfrc_accumulate(model, data))
@@ -138,11 +165,12 @@ def _sensors(model, data, efc, f_c):
     if data.xfrc_applied is None:
         cb12 = torch.stack([efc.con_body1, efc.con_body2], 1).to(
             data.qacc.dtype)
-        return _ss.sens_stage(model, data.qacc, data.qvel, data.cvel,
-                              data.cdof, data.cdof_dot, data.cinert,
-                              data.site_xpos, data.site_xmat,
-                              data.subtree_com, efc.con_xpos, efc.con_normal,
-                              cb12, efc.con_active, f_c)
+        # The plain force chain of the dense path leaves some of these as
+        # strided views; the kernel takes contiguous operands.
+        return _ss.sens_stage(model, *(t.contiguous() for t in (
+            data.qacc, data.qvel, data.cvel, data.cdof, data.cdof_dot,
+            data.cinert, data.site_xpos, data.site_xmat, data.subtree_com,
+            efc.con_xpos, efc.con_normal, cb12, efc.con_active, f_c)))
     from flybody_tpu_torch.physics import sensors as _sens
     return _sens.sensordata(
         model, data.qacc, data.qvel, data.cvel, data.cdof, data.cdof_dot,

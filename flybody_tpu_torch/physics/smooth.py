@@ -1,10 +1,14 @@
-"""Smooth dynamics: velocities, packed CRB mass matrix, RNE, passive
-forces, actuation, and the semi-implicit Euler step.
+"""Smooth dynamics: velocities, CRB mass matrix, RNE, passive forces,
+actuation, and the semi-implicit Euler step.
 
-Counterpart of flybody_tpu/physics/smooth.py (packed block-arrow path),
-batched over a leading env dimension. com_vel .. actuation are the plain
-version of kernel K2 (ops/force_stage.py); factor_solve_m and euler run
-the arrow factor+solve, kernel K3 (ops/arrow.py).
+Counterpart of flybody_tpu/physics/smooth.py, batched over a leading env
+dimension. With an arrow partition (the walking fly) M stays packed
+(`crb_packed`): com_vel .. actuation are then the plain version of kernel
+K2 (ops/force_stage.py), and factor_solve_m and euler run the arrow
+factor+solve, kernel K3 (ops/arrow.py). Without one (several flies) M is
+dense (`crb`), and factor_solve_m, solve_m and euler run the dense
+Cholesky kernels, rows 15-17 (ops/cholesky.py). The form is read from
+qM's rank, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import torch
 from flybody_tpu_torch.model import spec as _s
 from flybody_tpu_torch.model.spec import FlyModel
 from flybody_tpu_torch.ops import arrow as _ar
+from flybody_tpu_torch.ops import cholesky as _chol
 from flybody_tpu_torch.physics import kinematics as _kin
 from flybody_tpu_torch.physics import math as sm
 from flybody_tpu_torch.physics.state import Data
@@ -38,36 +43,59 @@ def tendon_vel(model: FlyModel, data: Data) -> Data:
 
 
 @functools.lru_cache(maxsize=8)
-def crb_tables(meta: _s.Meta) -> dict:
+def anc_low(meta: _s.Meta) -> np.ndarray:
     """anc_low[i, j] = 1 iff dof j is an ancestor-or-self dof of dof i
-    with j <= i; its limb blocks and root block for the packed CRB."""
+    with j <= i (the lower triangle of M's tree sparsity)."""
     tb = _kin.tables(meta)
-    nv = meta.nv
     dof_body = np.array(meta.dof_bodyid)
     body_dof = tb['subtree_mask'][dof_body, :].T  # (nbody, nv)
-    anc_low = body_dof[dof_body] * np.tril(np.ones((nv, nv)))
+    return body_dof[dof_body] * np.tril(np.ones((meta.nv, meta.nv)))
+
+
+def _crb_buf(model: FlyModel, data: Data):
+    """buf_i = I^c_{b(i)} cdof_i (B, nv, 6): each dof's body's composite
+    inertia (the sum of cinert over its subtree) applied to the dof."""
+    tb = _kin.tables(model.meta)
+    B, nb = data.qpos.shape[0], model.meta.nbody
+    sub = model.const('subtree_mask', lambda: tb['subtree_mask'])
+    crb = torch.einsum('bc,Bcx->Bbx', sub,
+                       data.cinert.reshape(B, nb, 36)).reshape(B, nb, 6, 6)
+    Ic = crb[:, tb['dof_body']]
+    return torch.sum(Ic * data.cdof[:, :, None, :], dim=-1)
+
+
+def crb(model: FlyModel, data: Data) -> Data:
+    """Dense mass matrix (B, nv, nv) by composite rigid bodies:
+    M[i, j] = cdof_j . buf_i on the tree's sparsity, plus armature."""
+    buf = _crb_buf(model, data)
+    P = buf @ data.cdof.transpose(1, 2)
+    ML = model.const('crb_anc_low', lambda: anc_low(model.meta)) * P
+    M = (ML + ML.transpose(1, 2)
+         - torch.diag_embed(torch.diagonal(ML, dim1=1, dim2=2))
+         + torch.diag(model.dof_armature))
+    return data.replace(qM=M)
+
+
+@functools.lru_cache(maxsize=8)
+def crb_tables(meta: _s.Meta) -> dict:
+    """The limb blocks and root block of anc_low for the packed CRB."""
+    anc = anc_low(meta)
     part = _ar.build_partition(meta)
     nl, dm, nr = len(part.ds), part.dmax, part.nr
     ancp = np.zeros((nl, dm, dm))
     for i, (lo, d) in enumerate(zip(part.los, part.ds)):
-        ancp[i, :d, :d] = anc_low[lo:lo + d, lo:lo + d]
-    return dict(part=part, ancp=ancp, anc_root=anc_low[:nr, :nr])
+        ancp[i, :d, :d] = anc[lo:lo + d, lo:lo + d]
+    return dict(part=part, ancp=ancp, anc_root=anc[:nr, :nr])
 
 
 def crb_packed(model: FlyModel, data: Data) -> Data:
     """Mass matrix in packed block-arrow form (ops/arrow.py layout) by
     composite rigid bodies; the dense (nv, nv) M is never formed."""
-    meta = model.meta
-    tb = _kin.tables(meta)
-    pt = crb_tables(meta)
+    pt = crb_tables(model.meta)
     part = pt['part']
     nl, dm, nr = len(part.ds), part.dmax, part.nr
-    B, nb = data.qpos.shape[0], meta.nbody
-    sub = model.const('subtree_mask', lambda: tb['subtree_mask'])
-    crb = torch.einsum('bc,Bcx->Bbx', sub,
-                       data.cinert.reshape(B, nb, 36)).reshape(B, nb, 6, 6)
-    Ic = crb[:, tb['dof_body']]
-    buf = torch.sum(Ic * data.cdof[:, :, None, :], dim=-1)  # (B, nv, 6)
+    B = data.qpos.shape[0]
+    buf = _crb_buf(model, data)  # (B, nv, 6)
     idx, w, _ = _ar._tables(part, buf)
     arm = model.dof_armature
     bufp = buf[:, idx] * w[..., None]
@@ -92,10 +120,22 @@ def crb_packed(model: FlyModel, data: Data) -> Data:
 
 
 def factor_solve_m(model: FlyModel, data: Data, rhs):
-    """Arrow factor of qM fused with the solve qM x = rhs (kernel K3)."""
-    part = _ar.build_partition(model.meta)
-    qLD, x = _ar.factor_solve(part, data.qM, rhs)
+    """Factor of qM fused with the solve qM x = rhs: the arrow kernel K3
+    on a packed qM, row 17 on a dense one."""
+    if data.qM.dim() == 3:
+        qLD, x = _chol.chol_solve(data.qM, rhs)
+    else:
+        part = _ar.build_partition(model.meta)
+        qLD, x = _ar.factor_solve(part, data.qM, rhs)
     return data.replace(qLD=qLD), x
+
+
+def solve_m(data: Data, rhs):
+    """qM x = rhs by the dense factor qLD: rhs (B, nv) by row 15, (B, nv,
+    m) by row 16 (the dense noslip's M^-1 J_t^T)."""
+    if rhs.dim() == 2:
+        return _chol.cho_solve(data.qLD, rhs)
+    return _chol.cho_solve_multi(data.qLD, rhs)
 
 
 def rne(model: FlyModel, data: Data) -> Data:
@@ -272,9 +312,13 @@ def euler(model: FlyModel, data: Data) -> Data:
     qfrc = data.qfrc_smooth
     if data.qfrc_constraint is not None:
         qfrc = qfrc + data.qfrc_constraint
-    part = _ar.build_partition(model.meta)
-    Md = _ar.add_diag_packed(part, data.qM, dt * model.dof_damping)
-    qLD, qacc = _ar.factor_solve(part, Md, qfrc)
+    damp = dt * model.dof_damping
+    if data.qM.dim() == 3:
+        qLD, qacc = _chol.chol_solve(data.qM + torch.diag(damp), qfrc)
+    else:
+        part = _ar.build_partition(model.meta)
+        Md = _ar.add_diag_packed(part, data.qM, damp)
+        qLD, qacc = _ar.factor_solve(part, Md, qfrc)
     data = data.replace(qLD=qLD)
     act = advance_act(model, data, dt)
     qvel = data.qvel + dt * qacc

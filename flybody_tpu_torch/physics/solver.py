@@ -1,15 +1,26 @@
 """Constraint rows and the Newton solver.
 
 Counterpart of flybody_tpu/physics/solver.py: MuJoCo's soft constraints
-(joint limits + elliptic-cone contacts), `make_efc` with its contact rows
-by kernel 7 (`efc_stage.contact_rows`), `solve` through the packed block-arrow
-branches and the packed `noslip` post-pass. `solve` dispatches as the JAX
-package does: iterations <= refactor period runs the whole solve in one
-launch of kernel 9 (`newton_fused.newton_solve`); otherwise each refactor
-block assembles the packed Hessian (bf16-rounded J^T W J operands at
-float32, as the JAX split form) and the Woodbury rows here and launches
-kernel 8 (`newton_fused.newton_block`). `noslip` launches kernel 11
-(`noslip_gs.noslip_fused`). All functions carry a leading env dimension.
+(joint limits + elliptic-cone contacts), `make_efc`, `solve` and the
+`noslip` post-pass. All functions carry a leading env dimension.
+
+`make_efc` takes its contact rows from kernel 7 (`efc_stage.contact_rows`)
+when every dof hangs from one kinematic root, and otherwise (several
+flies) from the plain multi-tree form with a reference point per dof
+(`contact_rows_multi`), as the JAX package does.
+
+On a packed block-arrow M (the walking fly), `solve` dispatches as the
+JAX package does: iterations <= refactor period runs the whole solve in
+one launch of kernel 9 (`newton_fused.newton_solve`); otherwise each
+refactor block assembles the packed Hessian (bf16-rounded J^T W J
+operands at float32, as the JAX split form) and the Woodbury rows here and
+launches kernel 8 (`newton_fused.newton_block`); `noslip` launches kernel
+11 (`noslip_gs.noslip_fused`). On a dense M (no arrow partition) they run
+the JAX package's dense branches: each fresh Newton step assembles the
+dense Hessian and factors and solves it (row 17, ops/cholesky.py), reuse
+steps substitute with the last factor (row 15), every step's exact line
+search is row 13 (ops/linesearch.py); the noslip solves P = M^-1 J_t^T by
+row 16 and sweeps by row 12 (noslip_gs.gs).
 """
 
 from __future__ import annotations
@@ -24,12 +35,16 @@ import torch
 from flybody_tpu_torch.model import spec as _s
 from flybody_tpu_torch.model.spec import FlyModel
 from flybody_tpu_torch.ops import arrow as _ar
+from flybody_tpu_torch.ops import cholesky as _chol
 from flybody_tpu_torch.ops import efc_stage as _efc
+from flybody_tpu_torch.ops import linesearch as _ls
 from flybody_tpu_torch.ops import newton_fused as _nf
 from flybody_tpu_torch.ops import noslip_gs as _ngs
 from flybody_tpu_torch.ops.efc_stage import kbi
 from flybody_tpu_torch.ops.newton_fused import cone_hessian, cone_residual
 from flybody_tpu_torch.physics import collision as _col
+from flybody_tpu_torch.physics import smooth as _sm
+from flybody_tpu_torch.physics.math import cross
 from flybody_tpu_torch.physics.state import Data
 
 
@@ -90,10 +105,40 @@ def contact_candidates(model: FlyModel, con: _col.Contact):
     return cand_b, cand_u, cand_g
 
 
+def tree_count(meta: _s.Meta) -> int:
+    """The number of kinematic roots that hold dofs (one per fly)."""
+    root = np.array(meta.body_rootid)
+    return len(np.unique(root[np.array(meta.dof_bodyid)]))
+
+
+def contact_rows_multi(model: FlyModel, data: Data, cand_b, cand_u, cand_g,
+                       k: int):
+    """The plain multi-tree form of efc_stage.contact_rows (the JAX
+    package's branch for several kinematic trees): the same selection and
+    rows, with each dof's Jacobian taken about the subtree CoM of its own
+    tree's root, and no cross-limb flag (there is no arrow partition)."""
+    meta = model.meta
+    bsel, usel, gsel = _efc.select(cand_b, cand_u, cand_g, k)
+    frame = _efc.frame_rows(bsel)
+    b1, b2 = _efc.body_ids(usel)
+    mask = model.body_dof_mask
+    w = mask[b2] - mask[b1]  # (B, k, nv)
+    root = np.array(meta.body_rootid)
+    ref = data.subtree_com[:, root[np.array(meta.dof_bodyid)]]  # (B, nv, 3)
+    arm = bsel[..., None, 1:4] - ref[:, None]  # (B, k, nv, 3)
+    contrib = (data.cdof[:, None, :, 3:]
+               + cross(data.cdof[:, None, :, :3], arm))
+    con_J = torch.einsum('bkrx,bkvx->bkrv', frame,
+                         contrib * w[..., None])
+    c_break = torch.zeros_like(bsel[..., 0])
+    return con_J, _efc.row_scalars(bsel, usel, gsel, con_J, c_break,
+                                   data.qvel)
+
+
 def make_efc(model: FlyModel, data: Data, con: _col.Contact,
              ncon_max: int) -> EfcRows:
     """Joint-limit rows + the ncon_max contact slots with the smallest
-    dist - includemargin (single kinematic tree)."""
+    dist - includemargin."""
     meta = model.meta
     dt = data.qpos.dtype
     lim_dof, lim_sign, lim_jid = limit_tables(meta)
@@ -111,7 +156,9 @@ def make_efc(model: FlyModel, data: Data, con: _col.Contact,
 
     cand_b, cand_u, cand_g = contact_candidates(model, con)
     k = min(ncon_max, cand_b.shape[1])
-    con_J, scal = _efc.contact_rows(model, data, cand_b, cand_u, cand_g, k)
+    rows = (_efc.contact_rows if tree_count(meta) == 1
+            else contact_rows_multi)
+    con_J, scal = rows(model, data, cand_b, cand_u, cand_g, k)
     return EfcRows(
         lim_dof=lim_dof, lim_sign=lim_sign, lim_active=lim_active,
         lim_aref=aref, lim_D=1.0 / R, lim_pos=dist, con_J=con_J,
@@ -195,9 +242,13 @@ def solve(model: FlyModel, data: Data, efc: EfcRows, a_free,
     Hessian, factors it (block-arrow) and carries up to `sb_break`
     cross-limb contact slots by a rank-3*SB Woodbury correction;
     iterations inside a block reuse the factor. The starting point is
-    whichever of (warmstart, a_free) has the lower primal cost."""
-    part = _ar.build_partition(model.meta)
+    whichever of (warmstart, a_free) has the lower primal cost. A dense
+    qM takes the dense branch (`solve_dense`)."""
     M = data.qM
+    if M.dim() == 3:
+        return solve_dense(M, efc, a_free, iterations, ls_iterations,
+                           warmstart, refactor_period)
+    part = _ar.build_partition(model.meta)
     ops = operands(efc, sb_break)
     if iterations <= max(1, refactor_period):
         return _nf.newton_solve(*solve_args(part, M, efc, ops, a_free,
@@ -214,13 +265,143 @@ def solve(model: FlyModel, data: Data, efc: EfcRows, a_free,
         done += n
 
     x, _, jar_l, jar_c = st
+    f_l, f_c = _forces(efc, jar_l, jar_c)
+    return x, _jt_forces(efc, f_l, f_c), f_l, f_c
+
+
+# ------------------------------------------------------------ dense path
+
+
+def _mv(M, x):
+    return torch.einsum('bij,bj->bi', M, x)
+
+
+def _forces(efc: EfcRows, jar_l, jar_c):
+    """Limit-row and contact forces at the constraint residuals."""
     f_l = -efc.lim_D * jar_l * (efc.lim_active * (jar_l < 0))
     f_c = -efc.con_D[..., None] * cone_residual(
         jar_c, efc.con_mu, efc.con_frictional, efc.con_active)
-    qfrc = (_nf.lim_scatter(part.nv, efc.lim_dof,
-                            f_l * x.new_tensor(efc.lim_sign))
-            + _nf.jtf(ops.conJ, f_c))
-    return x, qfrc, f_l, f_c
+    return f_l, f_c
+
+
+def _jt_forces(efc: EfcRows, f_l, f_c):
+    """J^T f (B, nv): the limit rows scattered to their dofs plus the
+    contact rows."""
+    nv = efc.con_J.shape[-1]
+    return (_nf.lim_scatter(nv, efc.lim_dof, f_l * f_l.new_tensor(
+        efc.lim_sign)) + _nf.jtf(efc.con_J, f_c))
+
+
+def primal_cost_dense(M, efc: EfcRows, a_free, x):
+    """0.5 (x - a_free)^T M (x - a_free) + the constraint cost, per env
+    (the JAX package's _primal_cost with a dense M)."""
+    dx = x - a_free
+    jl = x[:, efc.lim_dof] * x.new_tensor(efc.lim_sign) - efc.lim_aref
+    res = cone_residual(_nf.jv(efc.con_J, x) - efc.con_aref, efc.con_mu,
+                        efc.con_frictional, efc.con_active)
+    return (0.5 * torch.sum(dx * _mv(M, dx), -1)
+            + 0.5 * torch.sum(efc.lim_D * efc.lim_active * (jl < 0) * jl ** 2,
+                              -1)
+            + 0.5 * torch.sum(efc.con_D[..., None] * res ** 2, (-2, -1)))
+
+
+def hessian_dense(M, efc: EfcRows, jar_l, jar_c):
+    """Newton Hessian M + J^T (D H) J + the limit diagonal at the residuals
+    (B, nv, nv). At float32 the J^T (H J) operands are rounded to bfloat16
+    and multiplied in float32, as the JAX package's MXU form
+    (solver.py:717-723)."""
+    Bn, K, _, nv = efc.con_J.shape
+    hd = efc.lim_D * efc.lim_active * (jar_l < 0)
+    Hc = cone_hessian(jar_c, efc.con_mu, efc.con_frictional,
+                      efc.con_active) * efc.con_D[..., None, None]
+    J2 = efc.con_J.reshape(Bn, 3 * K, nv)
+    JH = torch.einsum('bkrs,bksv->bkrv', Hc, efc.con_J).reshape(Bn, 3 * K,
+                                                                 nv)
+    if J2.dtype == torch.float32:
+        # A full-float32 product of the rounded operands:
+        # torch.backends.cuda.matmul.allow_tf32 must stay False.
+        J2 = J2.to(torch.bfloat16).to(torch.float32)
+        JH = JH.to(torch.bfloat16).to(torch.float32)
+    return (M + J2.transpose(1, 2) @ JH
+            + torch.diag_embed(_nf.lim_scatter(nv, efc.lim_dof, hd)))
+
+
+def solve_dense(M, efc: EfcRows, a_free, iterations: int, ls_iterations: int,
+                warmstart, refactor_period: int):
+    """The dense Newton solve (solver.py's dense branch): the start is the
+    one of (warmstart, a_free) with the lower primal cost; blocks of one
+    fresh step (Hessian, 1e-12 jitter, factor + solve: row 17) and
+    refactor_period - 1 reuse steps (substitution with the block's factor:
+    row 15), each followed by the exact line search (row 13) and the
+    carried state's linear update. Returns (qacc, qfrc_constraint, f_l,
+    f_c)."""
+    sign = a_free.new_tensor(efc.lim_sign)
+    x = a_free
+    if warmstart is not None:
+        x = torch.where((primal_cost_dense(M, efc, a_free, warmstart)
+                         < primal_cost_dense(M, efc, a_free, a_free))[:, None],
+                        warmstart, a_free)
+    st = (x, _mv(M, x - a_free), x[:, efc.lim_dof] * sign - efc.lim_aref,
+          _nf.jv(efc.con_J, x) - efc.con_aref)
+    eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
+
+    def grad(st):
+        f_l, f_c = _forces(efc, st[2], st[3])
+        return st[1] - _jt_forces(efc, f_l, f_c)
+
+    def ls_and_update(st, dx):
+        x, msm, jar_l, jar_c = st
+        mdx = _mv(M, dx)
+        jv_l = dx[:, efc.lim_dof] * sign
+        jv_c = _nf.jv(efc.con_J, dx)
+        lim = torch.stack([jar_l, jv_l, efc.lim_active, efc.lim_D], 1)
+        con = torch.cat([jar_c.transpose(1, 2), jv_c.transpose(1, 2),
+                         torch.stack([efc.con_mu, efc.con_frictional,
+                                      efc.con_active, efc.con_D], 1)], 1)
+        sc = torch.stack([torch.sum(msm * dx, -1), torch.sum(dx * mdx, -1)],
+                         1)
+        alpha = _ls.line_search(lim.contiguous(), con.contiguous(),
+                                sc.contiguous(), 6, ls_iterations)
+        a = alpha[:, None]
+        return (x + a * dx, msm + a * mdx, jar_l + a * jv_l,
+                jar_c + alpha[:, None, None] * jv_c)
+
+    p = max(1, refactor_period)
+    done = 0
+    while done < iterations:
+        n = min(p, iterations - done)
+        H = hessian_dense(M, efc, st[2], st[3]) + 1e-12 * eye
+        L, sol = _chol.chol_solve(H.contiguous(), grad(st).contiguous())
+        st = ls_and_update(st, -sol)
+        for _ in range(n - 1):
+            st = ls_and_update(st, -_chol.cho_solve(L, grad(st).contiguous()))
+        done += n
+
+    x, _, jar_l, jar_c = st
+    f_l, f_c = _forces(efc, jar_l, jar_c)
+    return x, _jt_forces(efc, f_l, f_c), f_l, f_c
+
+
+def noslip_dense(data: Data, efc: EfcRows, qacc, f_c, iterations: int,
+                 max_contacts: int | None):
+    """The dense noslip (solver.py's dense branch) on the swept prefix:
+    P = M^-1 J_t^T by the dense factor data.qLD (smooth.solve_m: row 16),
+    the clamped 2x2 inverses, then the sweeps (row 12). Returns (x, ft
+    (B, K, 2)) over the prefix and the prefix's operands Jt, ft0."""
+    Bn, Kall, _, nv = efc.con_J.shape
+    K = Kall if max_contacts is None else min(max_contacts, Kall)
+    Jt = efc.con_J[:, :K, 1:, :].contiguous()  # (B, K, 2, nv)
+    P = _sm.solve_m(data, Jt.reshape(Bn, 2 * K, nv).transpose(
+        1, 2).contiguous())  # (B, nv, 2K)
+    Pt = P.reshape(Bn, nv, K, 2).permute(0, 2, 3, 1).contiguous()
+    use = (efc.con_active[:, :K] * efc.con_frictional[:, :K] > 0).to(
+        qacc.dtype)
+    lim = torch.clamp(efc.con_mu[:, :K] * f_c[:, :K, 0], min=0.0)
+    ft0 = f_c[:, :K, 1:].contiguous()
+    x, ft = _ngs.gs(Jt, Pt, _ngs.block_inverses(Jt, Pt).contiguous(),
+                    efc.con_aref[:, :K, 1:].contiguous(), lim.contiguous(),
+                    use, qacc.contiguous(), ft0, iterations)
+    return x, ft, Jt, ft0
 
 
 def noslip_operands(qLD, efc: EfcRows, qacc, f_c,
@@ -240,14 +421,20 @@ def noslip_operands(qLD, efc: EfcRows, qacc, f_c,
 
 def noslip(model: FlyModel, data: Data, efc: EfcRows, qacc, f_c,
            iterations: int, max_contacts: int | None):
-    """Noslip post-pass (packed factor): Gauss-Seidel over the friction
+    """Noslip post-pass: Gauss-Seidel over the friction
     rows of active frictional contacts of the swept prefix
     (`noslip_operands`) with normal forces held fixed, clamped to the
-    friction circle. Returns (qacc, f_c, the change of qfrc_constraint)."""
-    part = _ar.build_partition(model.meta)
-    args = noslip_operands(data.qLD, efc, qacc, f_c, max_contacts)
-    x, ft = _ngs.noslip_fused(part, *args, iterations)
+    friction circle. Returns (qacc, f_c, the change of qfrc_constraint).
+    A dense factor takes the dense branch (`noslip_dense`)."""
+    if data.qLD.dim() == 3:
+        x, ft, Jt, ft0 = noslip_dense(data, efc, qacc, f_c, iterations,
+                                      max_contacts)
+    else:
+        part = _ar.build_partition(model.meta)
+        args = noslip_operands(data.qLD, efc, qacc, f_c, max_contacts)
+        x, ft = _ngs.noslip_fused(part, *args, iterations)
+        Jt, ft0 = args[1], args[6]
     K = ft.shape[1]
-    dqfrc = torch.einsum('bkrv,bkr->bv', args[1], ft - args[6])
+    dqfrc = torch.einsum('bkrv,bkr->bv', Jt, ft - ft0)
     ft = torch.cat([ft, f_c[:, K:, 1:]], 1)
     return x, torch.cat([f_c[..., :1], ft], -1), dqfrc

@@ -47,8 +47,10 @@ class Data:
     cvel: T = None
     cdof_dot: T = None
 
-    qM: T = None  # packed block-arrow (B, nl+1, dm+nr, dm)
-    qLD: T = None  # packed arrow factor, same shape
+    # Packed block-arrow (B, nl+1, dm+nr, dm) when the model has an arrow
+    # partition, else dense (B, nv, nv); qLD is its factor in the same form.
+    qM: T = None
+    qLD: T = None
 
     qfrc_bias: T = None
     qfrc_passive: T = None

@@ -1,11 +1,16 @@
-"""Where a walk_imitation control step spends its time, on one GPU.
+"""Where a control step spends its time, on one GPU.
 
     python -m flybody_tpu_torch.tools.profile_step --batch 8192 \
         [--preset default|bench]
+    python -m flybody_tpu_torch.tools.profile_step --model two_fly \
+        [--batch 4096] [--preset default|bench]
 
-Resets `batch` envs at the solver preset, takes one warm-up control step,
-then records one
-control step with torch.profiler (CPU and CUDA activities). Prints and
+walk_imitation (the default model): resets `batch` envs at the solver
+preset, takes one warm-up control step, then records one control step
+(10 substeps) with torch.profiler (CPU and CUDA activities). two_fly: the
+two-fly scene's dense path (model/assets/two_fly.npz) from its reset
+state with qvel ~ N(0, 1) and ctrl ~ U(-1, 1) (numpy, --seed), two
+warm-up substeps, then 10 recorded engine.step substeps. Prints and
 writes (--out, JSON):
   * the step's wall time (host clock, ending in a synchronize);
   * per engine stage (the 'fb/<stage>' ranges of physics/engine.py),
@@ -14,9 +19,12 @@ writes (--out, JSON):
     The device time counts the PyTorch operators dispatched inside the
     range and the hand kernels (csrc/*.cu) that the stage launches: the
     profiler links a kernel launched through ctypes to no operator, so
-    each goes to its stage by name (HAND_KERNELS; the arrow kernel, which
-    factor_solve and euler each launch once a substep, half to each, and
-    the observations' pos_stage launch after the substeps to position);
+    each goes to its stage by name (HAND_KERNELS; a kernel that several
+    stages launch is split by their launches a substep: the arrow kernel
+    half to factor_solve and half to euler, the dense factor+solve one
+    share each to factor_solve and euler and one a fresh Newton step to
+    newton; the observations' pos_stage launch after the substeps to
+    position);
   * device busy time (sum of kernel and copy times) and the idle share
     1 - busy / wall;
   * the kernels with the most device time.
@@ -55,7 +63,25 @@ HAND_KERNELS = {
     'newton_kernel': ('newton',),
     'noslip_kernel': ('noslip',),
     'sens_stage_kernel': ('sensors',),
+    'chol_solve_kernel': ('factor_solve', 'newton', 'euler'),
+    'cho_solve_multi_kernel': ('noslip',),
+    'cho_solve_kernel': ('newton',),
+    'linesearch_kernel': ('newton',),
+    'noslip_gs_kernel': ('noslip',),
 }
+
+
+def stage_weights(hand: str, preset: dict) -> dict:
+    """Each stage's share of a hand kernel's launches in a substep."""
+    stages = HAND_KERNELS[hand]
+    if hand == 'chol_solve_kernel':  # one a fresh Newton step
+        p = max(1, preset['refactor_period'])
+        fresh = -(-preset['solver_iterations'] // p)
+        w = {'factor_solve': 1, 'newton': fresh, 'euler': 1}
+    else:
+        w = {st: 1 for st in stages}
+    total = sum(w.values())
+    return {st: v / total for st, v in w.items()}
 
 
 def _hand_kernel(name: str):
@@ -72,42 +98,38 @@ def _is_kernel(e) -> bool:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument('--batch', type=int, default=8192)
+    ap.add_argument('--model', default='walk_imitation',
+                    choices=('walk_imitation', 'two_fly'))
+    ap.add_argument('--batch', type=int, default=None,
+                    help='envs (8192 walk_imitation, 4096 two_fly)')
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--preset', default='default',
                     help="solver preset (physics/engine.py PRESETS)")
     ap.add_argument('--out', default=None,
-                    help='JSON path (chiprun_out/profile_step_<preset>.json)')
+                    help='JSON path (chiprun_out/profile_step'
+                         '[_two_fly]_<preset>.json)')
     ap.add_argument('--trace', default=None,
                     help='optional chrome trace path')
     args = ap.parse_args(argv)
 
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from flybody_tpu_torch.envs import fly_envs
+    from flybody_tpu_torch.physics import engine
 
     if not torch.cuda.is_available():
         raise SystemExit('profile_step needs a CUDA device')
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                            '--format=csv,noheader'], capture_output=True,
                           text=True).stdout.strip()
-    env = fly_envs.walk_imitation(functional=True, preset=args.preset)
-    g = torch.Generator().manual_seed(args.seed)
-    lo = torch.as_tensor(env.action_min, dtype=torch.float32)
-    hi = torch.as_tensor(env.action_max, dtype=torch.float32)
-
-    def action():
-        return (lo + (hi - lo) * torch.rand(args.batch, len(lo),
-                                            generator=g)).cuda()
-
-    state, _ = env.reset(args.batch, generator=g)
-    state, _ = env.step(state, action())
-    a = action()
+    two_fly = args.model == 'two_fly'
+    if args.batch is None:
+        args.batch = 4096 if two_fly else 8192
+    run = (_two_fly_run if two_fly else _walk_run)(args)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, _ = env.step(state, a)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -137,36 +159,92 @@ def main(argv=None):
             k[0] += ms
             k[1] += 1
             hand = _hand_kernel(e.name)
-            for st in HAND_KERNELS.get(hand, ()):
+            if hand is None:
+                continue
+            weights = stage_weights(hand, engine.PRESETS[args.preset])
+            for st, wt in weights.items():
                 if st in spans:
-                    share = ms / len(HAND_KERNELS[hand])
-                    spans[st]['hand_kernel_ms'] += share
-                    spans[st]['device_ms'] += share
+                    spans[st]['hand_kernel_ms'] += ms * wt
+                    spans[st]['device_ms'] += ms * wt
     kernels = sorted(((n, t, c) for n, (t, c) in kern.items()),
                      key=lambda x: -x[1])
     busy = sum(k[1] for k in kernels) / 1e3
-    report = dict(card=card, batch=args.batch, preset=args.preset,
-                  wall_s=wall,
+    rate = args.batch * (SUBSTEPS if two_fly else 1) / wall
+    unit = 'scene_substeps_per_s' if two_fly else 'env_steps_per_s'
+    report = dict(card=card, model=args.model, batch=args.batch,
+                  preset=args.preset, wall_s=wall,
                   device_busy_s=busy, idle_share=1.0 - busy / wall,
-                  env_steps_per_s=args.batch / wall, spans=spans,
-                  top_kernels=[dict(name=n, device_ms=t, count=c)
-                               for n, t, c in kernels[:25]])
+                  spans=spans, top_kernels=[dict(name=n, device_ms=t,
+                                                 count=c)
+                                            for n, t, c in kernels[:25]])
+    report[unit] = rate
     print(f'card: {card}')
-    print(f'step wall {wall:.3f} s at batch {args.batch}, preset '
-          f'{args.preset}; device busy {busy:.3f} s; idle share '
-          f'{report["idle_share"]:.3f}')
+    print(f'{args.model}: {SUBSTEPS} substeps, wall {wall:.3f} s at batch '
+          f'{args.batch}, preset {args.preset} ({unit} {rate:.1f}); device '
+          f'busy {busy:.3f} s; idle share {report["idle_share"]:.3f}')
     for k, v in sorted(spans.items(), key=lambda kv: -kv[1]['host_ms']):
         print(f'  {k:16s} host {v["host_ms"]:9.1f} ms  device '
               f'{v["device_ms"]:9.1f} ms (hand kernels '
               f'{v["hand_kernel_ms"]:7.1f})  ops {v["ops"]}')
     for n, t, c in kernels[:15]:
         print(f'  {t:9.2f} ms  x{c:<6d} {n[:90]}')
-    out = args.out or f'chiprun_out/profile_step_{args.preset}.json'
+    out = args.out or (f'chiprun_out/profile_step'
+                       f'{"_two_fly" if two_fly else ""}_{args.preset}.json')
     os.makedirs(os.path.dirname(out) or '.', exist_ok=True)
     with open(out, 'w') as f:
         json.dump(report, f, indent=1)
     if args.trace:
         prof.export_chrome_trace(args.trace)
+
+
+SUBSTEPS = 10  # physics substeps of the recorded window
+
+
+def _walk_run(args):
+    """walk_imitation at batch, after one warm-up control step: returns
+    the recorded control step."""
+    import torch
+    from flybody_tpu_torch.envs import fly_envs
+    env = fly_envs.walk_imitation(functional=True, preset=args.preset)
+    g = torch.Generator().manual_seed(args.seed)
+    lo = torch.as_tensor(env.action_min, dtype=torch.float32)
+    hi = torch.as_tensor(env.action_max, dtype=torch.float32)
+
+    def action():
+        return (lo + (hi - lo) * torch.rand(args.batch, len(lo),
+                                            generator=g)).cuda()
+
+    state, _ = env.reset(args.batch, generator=g)
+    state, _ = env.step(state, action())
+    a = action()
+    return lambda: env.step(state, a)
+
+
+def _two_fly_run(args):
+    """The two-fly scene at batch after two warm-up substeps: returns
+    the recorded SUBSTEPS substeps."""
+    import numpy as np
+    import torch
+    from flybody_tpu_torch.model import spec
+    from flybody_tpu_torch.physics import engine
+    from flybody_tpu_torch.physics.state import make_data
+    model = spec.load(spec.TWO_FLY_NPZ, device='cuda')
+    rng = np.random.RandomState(args.seed)
+    meta = model.meta
+    data = make_data(model, args.batch).replace(
+        qvel=torch.as_tensor(rng.randn(args.batch, meta.nv),
+                             dtype=torch.float32, device='cuda'),
+        ctrl=torch.as_tensor(rng.uniform(-1.0, 1.0, (args.batch, meta.nu)),
+                             dtype=torch.float32, device='cuda'))
+    cfg = engine.PRESETS[args.preset]
+    for _ in range(2):
+        data = engine.step(model, data, cfg).strip()
+
+    def run():
+        d = data
+        for _ in range(SUBSTEPS):
+            d = engine.step(model, d, cfg).strip()
+    return run
 
 
 if __name__ == '__main__':

@@ -28,17 +28,22 @@ def env():
 
 @pytest.mark.gpu
 def test_kernels_match_plain_versions_on_the_card(env):
-    """The ten kernels (K1-K4, the narrowphase, the merged MPR, the
+    """The fifteen kernels (K1-K4, the narrowphase, the merged MPR, the
     contact rows, the Newton block, the whole Newton solve, the fused
-    noslip) against their plain versions (chip_smoke.py's kernel phase,
-    which raises on a disagreement) at its batch and seed: the MPR and
-    Newton kernels' limits are set on the distribution over that batch."""
+    noslip; and on the two-fly scene's dense path the noslip sweeps, the
+    line search and the three dense Cholesky kernels) against their plain
+    versions (chip_smoke.py's kernel phase, which raises on a
+    disagreement) at its batches and seed: the MPR, Newton, line-search
+    and factor+solve kernels' limits are set on the distribution over
+    those batches."""
     sys.path.insert(0, REPO)
     import chip_smoke
     kernels = chip_smoke.kernel_phase(env, chip_smoke.BATCH, chip_smoke.SEED,
                                       {})
+    kernels += chip_smoke.dense_kernels(chip_smoke.TWO_FLY_BATCH,
+                                        chip_smoke.SEED, {})
     assert sorted(k['name'] for k in kernels) == sorted(chip_smoke.SOURCES)
-    assert len(chip_smoke.SOURCES) == 10
+    assert len(chip_smoke.SOURCES) == 15
 
 
 @pytest.mark.gpu
@@ -150,3 +155,51 @@ def test_contact_selection_orders_ties_and_nan_as_a_stable_sort(env):
         want = efc_stage.contact_rows_ref(model, d, cand_b, cand_u, cand_g,
                                           k)
         assert torch.equal(got[1][18], want[1][18]), k
+
+
+@pytest.mark.gpu
+def test_dense_wrappers_refuse_what_their_kernels_do_not_take(env):
+    """chol_solve, cho_solve, cho_solve_multi, line_search and gs raise on
+    a float64 or a non-contiguous CUDA operand instead of running their
+    plain versions."""
+    from flybody_tpu_torch.ops import cholesky, linesearch, noslip_gs
+    dev = torch.device('cuda')
+    B, n = 4, 24
+    A = (torch.eye(n, device=dev) * 2.0).expand(B, n, n).contiguous()
+    b = torch.ones(B, n, device=dev)
+    L, _ = cholesky.chol_solve(A, b)  # the well-formed calls launch
+    cholesky.cho_solve(L, b)
+    cholesky.cho_solve_multi(L, torch.ones(B, n, 3, device=dev))
+    with pytest.raises(TypeError, match='float32'):
+        cholesky.chol_solve(A.double(), b.double())
+    with pytest.raises(ValueError, match='contiguous'):
+        cholesky.chol_solve(A.transpose(1, 2), b)
+    with pytest.raises(TypeError, match='float32'):
+        cholesky.cho_solve(L, b.double())
+    with pytest.raises(ValueError, match='contiguous'):
+        cholesky.cho_solve_multi(L, torch.ones(B, 3, n, device=dev)
+                                 .transpose(1, 2))
+    lim = torch.zeros(B, 4, 8, device=dev)
+    con = torch.zeros(B, 10, 5, device=dev)
+    sc = torch.ones(B, 2, device=dev)
+    linesearch.line_search(lim, con, sc, 6, 8)
+    with pytest.raises(TypeError, match='float32'):
+        linesearch.line_search(lim.double(), con, sc, 6, 8)
+    with pytest.raises(ValueError, match='contiguous'):
+        linesearch.line_search(lim, con, torch.ones(2, B, device=dev).t(),
+                               6, 8)
+    K, nv = 3, 20
+    g = dict(Jt=torch.zeros(B, K, 2, nv, device=dev),
+             Pt=torch.zeros(B, K, 2, nv, device=dev),
+             Ainv=torch.zeros(B, K, 2, 2, device=dev),
+             aref=torch.zeros(B, K, 2, device=dev),
+             lim=torch.ones(B, K, device=dev),
+             use=torch.ones(B, K, device=dev),
+             x0=torch.zeros(B, nv, device=dev),
+             ft0=torch.zeros(B, K, 2, device=dev))
+    noslip_gs.gs(*g.values(), 3)
+    with pytest.raises(TypeError, match='float32'):
+        noslip_gs.gs(*dict(g, x0=g['x0'].double()).values(), 3)
+    with pytest.raises(ValueError, match='contiguous'):
+        noslip_gs.gs(*dict(g, Pt=torch.zeros(B, K, nv, 2, device=dev)
+                           .transpose(2, 3)).values(), 3)

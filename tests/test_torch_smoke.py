@@ -62,3 +62,80 @@ def test_compare_catches_a_zeroed_sensor(sensordata, k):
     bad[:, ch] = 0.0
     _, rel = chip_smoke.compare('sd', (bad,), (sd,), ('sd',))
     assert rel == pytest.approx(1.0)
+
+
+def _substep(seed, rel):
+    """Six substep quantities (qpos, qvel, qacc, sensordata (16, 5); cost
+    and force (16,)), each times (1 + rel * N(0, 1)) elementwise."""
+    g = torch.Generator().manual_seed(0)
+    base = ([torch.randn(16, 5, generator=g, dtype=torch.float64)
+             for _ in range(4)]
+            + [1.0 + torch.rand(16, generator=g, dtype=torch.float64)
+               for _ in range(2)])
+    g = torch.Generator().manual_seed(seed)
+    return [b * (1.0 + rel * torch.randn(b.shape, generator=g,
+                                         dtype=torch.float64))
+            for b in base]
+
+
+def test_two_fly_gate_passes_a_card_like_the_cpu():
+    """A card whose errors against float64 are of the CPU float32's size
+    passes chip_smoke's two-fly substep gate."""
+    gate = chip_smoke.f64_anchored(_substep(1, 1e-4), _substep(2, 1e-4),
+                                   _substep(3, 0.0))
+    assert all(v['ok'] for v in gate.values()), gate
+
+
+@pytest.mark.parametrize('k', range(6))
+def test_two_fly_gate_catches_one_wrong_env(k):
+    """One env of one quantity 1% off fails the gate; every other
+    quantity passes."""
+    card = _substep(1, 1e-4)
+    card[k][3] = card[k][3] * 1.01
+    gate = chip_smoke.f64_anchored(card, _substep(2, 1e-4), _substep(3, 0.0))
+    names = list(chip_smoke.SUBSTEP_NAMES) + ['cost', 'force']
+    assert [v['ok'] for v in gate.values()] == [n != names[k] for n in names]
+
+
+def test_chol_diagonal_control_touches_one_env():
+    """The gate's control scales A's diagonal in the env it names only."""
+    from flybody_tpu_torch.ops import cholesky as ch
+    g = torch.Generator().manual_seed(0)
+    R = torch.randn(3, 6, 6, generator=g, dtype=torch.float64)
+    A = R @ R.transpose(1, 2) + 6 * torch.eye(6, dtype=torch.float64)
+    b = torch.randn(3, 6, generator=g, dtype=torch.float64)
+    x = ch.chol_solve(A, b)[1]
+    with chip_smoke.chol_diagonal(1.5, 1):
+        y = ch.chol_solve(A, b)[1]
+    Ad = A.clone()
+    Ad[1] += torch.diag(0.5 * torch.diagonal(A[1]))
+    assert torch.equal(y[[0, 2]], x[[0, 2]])
+    torch.testing.assert_close(y[1], torch.linalg.solve(Ad[1], b[1]))
+    assert ch.chol_solve(A, b)[1].equal(x)  # restored
+
+
+def test_gs_cases_well_conditioned_sweeps_every_slot():
+    """Row 12's well-conditioned case uses every slot, clamps some of them
+    and not others, and float32 resolves it (the plain version at float32
+    within 1e-4 of each index's scale of its float64)."""
+    from flybody_tpu_torch.ops import noslip_gs as ng
+    g = torch.Generator().manual_seed(0)
+    B, K, n = 3, 8, 12
+    R = torch.randn(B, n, n, generator=g)
+    L = torch.linalg.cholesky(R @ R.transpose(1, 2) + n * torch.eye(n))
+
+    def rn(*s):
+        return torch.randn(*s, generator=g)
+
+    gargs = (rn(B, K, 2, n), rn(B, K, 2, n), rn(B, K, 2, 2), rn(B, K, 2),
+             torch.rand(B, K, generator=g), torch.zeros(B, K), rn(B, n),
+             rn(B, K, 2), 3)
+    every, every64, wc, wc64 = chip_smoke.gs_cases(gargs, L, 0)
+    assert bool((wc[5] == 1).all()) and bool((every[5] == 1).all())
+    assert wc64[0].dtype == torch.float64 and wc64[8] == 3
+    x, ft = ng.gs_ref(*wc)
+    x64, ft64 = ng.gs_ref(*wc64)
+    at_radius = (ft64.norm(dim=-1) - wc64[4]).abs() < 1e-9
+    assert 0 < at_radius.double().mean() < 1
+    for o, r in ((x, x64), (ft, ft64)):
+        assert chip_smoke.env_err([o], [r]).max() < 1e-4
