@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py            # from the repository root
 
-Two paths are driven, each the counterpart of the JAX package's default
+Three paths are driven, each the counterpart of the JAX package's default
 configuration (no kill switch in its dispatch gate,
 flybody_tpu/ops/dispatch.py), so every TPU kernel that the JAX package's
 step launches on them runs here as a hand-written CUDA kernel:
 walk_imitation's batched step at both solver presets (one fly, the
 block-arrow path), and engine.step on the two-fly scene at both presets
-(model/assets/two_fly.npz: no arrow partition, so the dense path).
+(model/assets/two_fly.npz: no arrow partition, so the dense path); and
+tools/profile_engine.py's stage chain, the walking model with a dense mass
+matrix (the arrow path on an unpacked M).
 
 Phases (any failure exits non-zero):
   1. device: require CUDA; print the card's name and power limit;
@@ -47,6 +49,18 @@ Phases (any failure exits non-zero):
      (held at the default preset: the card no further from the float64
      answer than the CPU's float32, since float32 does not resolve this
      substep to 1e-3 in every env; read at the bench one).
+  7. unpacked: tools/profile_engine.py's stage chain on the walking model
+     with a dense mass matrix at batch 8192 (unpacked_phase): one pass
+     with exact launch counts (rows 18 and 19 once, K3 five times: four
+     fresh arrow Newton steps with 1 + 3 SB right-hand sides and euler;
+     rows 14, 15, 13 and the reuse kernel, row 10, four times; row 11 and
+     K4 once); then on a flailing state's operands the new kernels against
+     their plain versions (rows 18, 19, 14 and K3's dense form per env by
+     each dof's scale and residual, beside a bf16-rounded-A control that
+     must fail; row 10 through newton_checks beside one iteration more,
+     which must fail) and solver.solve on the dense M for 64 envs, card
+     against CPU, by primal cost and net normal force; then the tool's
+     stage table.
 Each phase's seconds are printed.
 The last line is {"ok": true, "device": {...}}; the two lines before it
 hold the per-kernel JSON and the card's name and power limit, and details
@@ -85,6 +99,10 @@ TPU_REFS = {  # the TPU kernel each port replaces
     'cho_solve': 'flybody_tpu/ops/cholesky.py:186',
     'cho_solve_multi': 'flybody_tpu/ops/cholesky.py:256',
     'chol_solve': 'flybody_tpu/ops/cholesky.py:333',
+    'chol': 'flybody_tpu/ops/cholesky.py:79',
+    'arrow_factor': 'flybody_tpu/ops/arrow.py:524',
+    'arrow_solve': 'flybody_tpu/ops/arrow.py:554',
+    'newton_reuse': 'flybody_tpu/ops/newton_fused.py:232',
 }
 SOURCES = {
     'pos_stage': 'flybody_tpu_torch/csrc/pos_stage.cu',
@@ -102,9 +120,14 @@ SOURCES = {
     'cho_solve': 'flybody_tpu_torch/csrc/cholesky.cu',
     'cho_solve_multi': 'flybody_tpu_torch/csrc/cholesky.cu',
     'chol_solve': 'flybody_tpu_torch/csrc/cholesky.cu',
+    'chol': 'flybody_tpu_torch/csrc/cholesky.cu',
+    'arrow_factor': 'flybody_tpu_torch/csrc/arrow.cu',
+    'arrow_solve': 'flybody_tpu_torch/csrc/arrow.cu',
+    'newton_reuse': 'flybody_tpu_torch/csrc/newton.cu',
 }
 DENSE = ('noslip_gs', 'line_search', 'cho_solve', 'cho_solve_multi',
          'chol_solve')
+UNPACKED = ('chol', 'arrow_factor', 'arrow_solve', 'newton_reuse')
 PRESETS = ('default', 'bench')
 # Launches of each kernel on the main path: reset (pos_stage once), then
 # per control step (10 substeps).
@@ -113,12 +136,12 @@ PER_STEP = {
                 'force_stage': 10, 'efc_contacts': 10,
                 'arrow_factor_solve': 20, 'sens_stage': 10,
                 'newton_block': 100, 'newton_solve': 0, 'noslip_fused': 10,
-                **{n: 0 for n in DENSE}},
+                **{n: 0 for n in DENSE + UNPACKED}},
     'bench': {'pos_stage': 11, 'narrowphase': 10, 'mpr_merged': 10,
               'force_stage': 10, 'efc_contacts': 10,
               'arrow_factor_solve': 20, 'sens_stage': 10,
               'newton_block': 0, 'newton_solve': 10, 'noslip_fused': 10,
-              **{n: 0 for n in DENSE}},
+              **{n: 0 for n in DENSE + UNPACKED}},
 }
 # The two-fly scene (model/assets/two_fly.npz: two flies, no arrow
 # partition, so the dense path): batch, substeps of its main-path phase,
@@ -155,7 +178,8 @@ NEWTON_ENV_TOL = 1e-3
 NEWTON_ENV_SHARE = 0.98
 F64_SHARE_SLACK = 0.005
 COST_REL_TOL = {'newton_block': (1e-5, 1e-2),  # (median env, batch mean)
-                'newton_solve': (2e-3, 8e-3)}
+                'newton_solve': (2e-3, 8e-3),
+                'newton_reuse': (1e-5, 1e-2)}  # row 8's
 NOSLIP_REL_TOL = 1e-3  # per-index rel. error of the noslip kernel
 NARROW_REL_TOL = 1e-5  # per-slot rel. error of the narrowphase kernel
 EFC_REL_TOL = 1e-5  # per-field rel. error of the contact-row kernel
@@ -827,7 +851,11 @@ def counters():
             'line_search': (linesearch, 'launches'),
             'cho_solve': (cholesky, 'cho_solve_launches'),
             'cho_solve_multi': (cholesky, 'cho_solve_multi_launches'),
-            'chol_solve': (cholesky, 'chol_solve_launches')}
+            'chol_solve': (cholesky, 'chol_solve_launches'),
+            'chol': (cholesky, 'chol_launches'),
+            'arrow_factor': (arrow, 'factor_launches'),
+            'arrow_solve': (arrow, 'solve_launches'),
+            'newton_reuse': (newton_fused, 'reuse_launches')}
 
 
 def main_path_phase(preset, batch, steps, cpu_envs, seed, report):
@@ -1125,12 +1153,14 @@ def recording(mod, name, keep):
 
 
 def residuals(A, b, x):
-    """Per env ||A x - b|| / (||A|| ||x||), in float64."""
+    """Per env ||A x - b|| / (||A|| ||x||) for b, x (B, n) or (B, n, m), A
+    read from its lower triangle, in float64."""
     import torch
     A, b, x = A.double(), b.double(), x.double()
-    r = torch.einsum('bij,bj->bi', torch.tril(A) + torch.tril(A, -1).transpose(
-        1, 2), x) - b
-    return r.norm(dim=-1) / (A.norm(dim=(1, 2)) * x.norm(dim=-1)).clamp(
+    S = torch.tril(A) + torch.tril(A, -1).transpose(1, 2)
+    r = (S @ (x if x.dim() == 3 else x[..., None])).reshape(b.shape) - b
+    return r.flatten(1).norm(dim=-1) / (A.norm(dim=(1, 2))
+                                        * x.flatten(1).norm(dim=-1)).clamp(
         min=1e-30)
 
 
@@ -1563,16 +1593,17 @@ def two_fly_phase(preset, batch, steps, cpu_envs, seed, report):
     return launches
 
 
-def f64_anchored(card, cpu, cpu64):
-    """Per quantity of substep_outputs: the median and worst per-env error
-    against the CPU's float64 of the card and of the CPU's float32 (qpos,
-    qvel, qacc, sensordata relative to each index's scale, as env_err; the
-    primal cost and net normal force relative to their own value), and
-    whether the card's are within TWO_FLY_F64_RATIO times the CPU's (the
-    median also within CPU_TOL)."""
+def f64_anchored(card, cpu, cpu64, names=SUBSTEP_NAMES + ('cost', 'force')):
+    """Per quantity of substep_outputs (or of `names`): the median and worst
+    per-env error against the CPU's float64 of the card and of the CPU's
+    float32 (qpos, qvel, qacc, sensordata relative to each index's scale,
+    as env_err; a quantity of one number per env, the primal cost and net
+    normal force, relative to its own value), and whether the card's are
+    within TWO_FLY_F64_RATIO times the CPU's (the median also within
+    CPU_TOL)."""
     out = {}
-    for i, k in enumerate(SUBSTEP_NAMES + ('cost', 'force')):
-        if i < len(SUBSTEP_NAMES):
+    for i, k in enumerate(names):
+        if card[i].dim() > 1:
             ec = env_err([card[i]], [cpu64[i]])
             ep = env_err([cpu[i]], [cpu64[i]])
         else:
@@ -1603,6 +1634,404 @@ def two_fly_substep_outputs(model, data, cfg):
     cost = solver.primal_cost_dense(dd.qM, efc, a_free, dd.qacc)
     return [getattr(out, k).cpu().double() for k in SUBSTEP_NAMES] + [
         cost.cpu().double(), f_c[..., 0].sum(-1).cpu().double()]
+
+
+# The unpacked-M path (tools/profile_engine.py's stage chain on the walking
+# model with a dense mass matrix): batch, line-search steps of its
+# card-vs-CPU solve, and the launches of one pass of the chain (prep:
+# position, collide, contact rows, factor_m, solve_m; the Newton solve at 8
+# iterations / refactor 2: four fresh arrow steps (K3 on the Hessian with
+# 1 + 3 SB right-hand sides, row 14 on the capacitance, row 15, row 13) and
+# four reuse launches of one iteration each (row 10); noslip, sensors, and
+# euler (K3 on the dense damped M)).
+UNPACKED_BATCH = 8192
+UNPACKED_CPU_ENVS = 64
+UNPACKED_PER_CHAIN = {'pos_stage': 1, 'narrowphase': 1, 'mpr_merged': 1,
+                      'efc_contacts': 1, 'arrow_factor': 1, 'arrow_solve': 1,
+                      'arrow_factor_solve': 5, 'chol': 4, 'cho_solve': 4,
+                      'line_search': 4, 'newton_reuse': 4,
+                      'noslip_fused': 1, 'sens_stage': 1}
+
+
+def flail_data(model, batch, seed):
+    """The walking model's flailing state (tests/walk_states.py): qpos0
+    with every joint below the root moved by 0.2 N(0, 1) rad, qvel ~ N(0,
+    1) (numpy, `seed`), qacc zero: legs and wings cross each other and the
+    floor, so the Woodbury part of the arrow Newton step carries load."""
+    import numpy as np
+    import torch
+    from flybody_tpu_torch.physics.state import make_data
+    rng = np.random.RandomState(seed)
+    d = make_data(model, batch)
+    qpos = d.qpos.cpu().double().numpy()
+    qpos[:, 7:] += 0.2 * rng.randn(batch, qpos.shape[1] - 7)
+    as_t = lambda a: torch.as_tensor(a, dtype=model.dtype,
+                                     device=model.device)
+    return d.replace(qpos=as_t(qpos),
+                     qvel=as_t(rng.randn(batch, model.meta.nv)),
+                     qacc=torch.zeros_like(d.qvel))
+
+
+def solve_gate(what, A, b, x, xp, ctl):
+    """A kernel's solution x of A x = b against the plain version's xp, per
+    env (as chol_checks holds row 17): at least CHOL_ENV_SHARE of the envs
+    within CHOL_ENV_TOL of each dof's scale, and the worst residual at most
+    CHOL_RESIDUAL_RATIO times the plain version's. `ctl`: the plain
+    version's solution from A rounded to bfloat16, a wrong control that
+    must fail the same gate."""
+    res_p = residuals(A, b, xp).max().item()
+
+    def reading(y):
+        return {'share': share(env_err([y], [xp]), CHOL_ENV_TOL),
+                'residual_ratio': residuals(A, b, y).max().item()
+                / max(res_p, 1e-30)}
+
+    def passes(r):
+        return (r['share'] >= CHOL_ENV_SHARE
+                and r['residual_ratio'] <= CHOL_RESIDUAL_RATIO)
+    rd = {'kernel': reading(x), 'control bf16-rounded A': reading(ctl),
+          'residual_max_plain': res_p}
+    log(f'  {what} readings (share of envs within {CHOL_ENV_TOL:.0e} of '
+        f'each dof\'s scale; worst residual over the plain version\'s): '
+        + json.dumps(rd))
+    if not passes(rd['kernel']):
+        raise AssertionError(f'{what} disagrees: {rd}')
+    if passes(rd['control bf16-rounded A']):
+        raise AssertionError(f'{what}: the bf16 control passes: {rd}')
+    return rd
+
+
+def bf16(A):
+    import torch
+    return A.to(torch.bfloat16).float()
+
+
+def newton_gate_fails(name, reading) -> bool:
+    """Whether a control's newton_checks reading fails the kernel's gate."""
+    med_tol, mean_tol = COST_REL_TOL[name]
+    return (reading['kernel_vs_plain'] < NEWTON_ENV_SHARE
+            or any(v['median_env'] > med_tol or v['batch_mean'] > mean_tol
+                   for v in reading['preset_steps'].values()))
+
+
+def arrow_dense_bytes(part) -> int:
+    """Bytes of one env's dense A (row-major, float32) that the arrow
+    kernels' gather reads, counted in whole 32-byte sectors: the root
+    block, the borders A[0:nr, limb] and each limb's block; the zeros
+    between limbs are never read."""
+    nv, nr = part.nv, part.nr
+    idx = {r * nv + c for r in range(nr) for c in range(nr)}
+    for lo, d in zip(part.los, part.ds):
+        idx |= {r * nv + lo + c for r in range(nr) for c in range(d)}
+        idx |= {(lo + r) * nv + lo + c for r in range(d) for c in range(d)}
+    return 32 * len({4 * i // 32 for i in idx})
+
+
+def reuse_flops(part, K, L, SB3, n_iters, ls_iters) -> float:
+    """Operations of one env's reuse launch (dense M): the capacitance
+    inverse, then per iteration the gradient, the substitution, the
+    Woodbury correction, M dx and J dx, and the line search."""
+    nv, R3 = part.nv, 3 * K
+    ls_eval = 8 * L + 60 * K
+    it = (4 * R3 * nv + arrow_flops(part, 1, False) + 4 * SB3 * nv
+          + 2 * SB3 * SB3 + 2 * nv * nv + 8 * nv
+          + (6 + 2 * ls_iters + 1) * ls_eval)
+    return SB3 ** 3 / 3 + n_iters * it
+
+
+def unpacked_kernels(model, args, batch, seed, report, path=None):
+    """Rows 14, 18, 19 and 10 and K3's dense form against their plain
+    versions at the path's shapes, on the operands of one pass of the
+    chain from the flailing state: rows 18 (factor_m on the dense M) and 19
+    (solve_m, m 1; and m 25, the JAX tool's micro-bench) and K3 (the first
+    fresh Newton step: the Hessian with 1 + 3 SB right-hand sides) per env
+    by each dof's scale and residual, beside a bf16-rounded-A control that
+    must fail; row 14 on that step's capacitance (n 24) and on M (n 108)
+    the same way. Row 10 on the first reuse launch's operands of the
+    tool's own state (`path`: (the launch's arguments, M, efc, a_free) of
+    the counted chain; None: a chain is run from it here) through
+    newton_checks with row 8's limits, beside one iteration more, a control
+    that must fail; on the flailing state's, its share of envs within
+    NEWTON_ENV_TOL at 30 line-search steps is held too, and its cost and
+    force at the preset's steps are read, beside the plain float32
+    version's and the kernel's against the plain float64 version: there a
+    few envs' costs are orders of magnitude above the rest, so the
+    batch-mean statistic follows the line search's rounding-level choices
+    in those envs (ROADMAP section 3). Then solver.solve on the card
+    against the CPU (see below). Returns the kernels' JSON entries."""
+    import torch
+    from flybody_tpu_torch.ops import arrow as ar
+    from flybody_tpu_torch.ops import cholesky as ch
+    from flybody_tpu_torch.ops import newton_fused as nf
+    from flybody_tpu_torch.physics import engine, solver
+    from flybody_tpu_torch.tools import profile_engine as pe
+
+    part = ar.build_partition(model.meta)
+    nv = part.nv
+    d0 = flail_data(model, batch, seed)
+    with recording(ar, 'factor_solve', {0}) as c3, \
+            recording(ch, 'chol', {0}) as c14, \
+            recording(ch, 'cho_solve', {0}) as c15, \
+            recording(nf, 'reuse', {0}) as c10:
+        d, efc, a_free, qacc, _, _ = pe.chain(model, d0, args)
+    ops = solver.operands(efc, engine.PRESETS['default']['sb_break'])
+    log('unpacked kernel operands (flailing state): ' + contact_line(efc)
+        + f'; cross-limb {ops.brk.sum(1).mean().item():.2f} per env')
+    report['unpacked_operands'] = dict(
+        active_mean=efc.con_active.sum(1).mean().item(),
+        cross_limb_mean=ops.brk.sum(1).mean().item())
+    entries, rd = [], {}
+    M, b = d.qM.contiguous(), d.qfrc_smooth.contiguous()
+
+    # Row 18 on M (factor_m), held through the solution it gives.
+    F, Fp = ar.factor(part, M), ar.factor_ref(part, M)
+    rd['arrow_factor'] = solve_gate(
+        'arrow_factor[M]', M, b, ar.solve_ref(part, F, b),
+        ar.solve_ref(part, Fp, b),
+        ar.solve_ref(part, ar.factor_ref(part, bf16(M)), b))
+    err = (F - Fp).abs().max().item()
+    ms = cuda_ms(lambda: ar.factor(part, M), 20)
+    pms = cuda_ms(lambda: ar.factor_ref(part, M), 3)
+    lms = cuda_ms(lambda: torch.linalg.cholesky(M), 5)
+    a_bytes = batch * arrow_dense_bytes(part)
+    entries.append(kernel_entry('arrow_factor', err, ms, pms,
+                                a_bytes + nbytes((F,)),
+                                batch * arrow_flops(part, 0, True), lms))
+    log(f'arrow_factor (dense A): {ms:.3f} ms kernel, {pms:.3f} ms plain, '
+        f'{lms:.3f} ms torch.linalg.cholesky')
+
+    # Row 19 with the plain factor: m 1 (solve_m) and m 25.
+    Fc = ar.factor_ref(part, bf16(M))
+    Ld = torch.linalg.cholesky(M)
+    g = torch.Generator(device=M.device).manual_seed(seed)
+    g25 = torch.cat([b[..., None], torch.randn(
+        batch, nv, 24, generator=g, device=M.device)], -1).contiguous()
+    times = {}
+    for m, rhs in ((1, b), (25, g25)):
+        x = ar.solve(part, Fp, rhs)
+        rd[f'arrow_solve m {m}'] = solve_gate(
+            f'arrow_solve[m {m}]', M, rhs, x, ar.solve_ref(part, Fp, rhs),
+            ar.solve_ref(part, Fc, rhs))
+        r2 = rhs if m > 1 else rhs[..., None]
+        times[m] = dict(
+            ms=cuda_ms(lambda: ar.solve(part, Fp, rhs), 20),
+            plain_ms=cuda_ms(lambda: ar.solve_ref(part, Fp, rhs), 3),
+            library_ms=cuda_ms(lambda: torch.cholesky_solve(r2, Ld), 5),
+            bytes=nbytes((Fp, rhs, x)), flops=batch * arrow_flops(
+                part, m, False),
+            err=(x - ar.solve_ref(part, Fp, rhs)).abs().max().item())
+        log(f'arrow_solve (m {m}): {times[m]["ms"]:.3f} ms kernel, '
+            f'{times[m]["plain_ms"]:.3f} ms plain, '
+            f'{times[m]["library_ms"]:.3f} ms torch.cholesky_solve')
+    t = times[1]
+    entries.append(kernel_entry('arrow_solve', t['err'], t['ms'],
+                                t['plain_ms'], t['bytes'], t['flops'],
+                                t['library_ms']))
+    report['arrow_solve_m25'] = dict(times[25], bound_ms=max(
+        times[25]['bytes'] / HBM_BYTES_PER_S,
+        times[25]['flops'] / FP32_FLOPS) * 1e3)
+    del Fc, Ld, g25
+
+    # K3's dense form on the first fresh step's Hessian, 1 + 3 SB columns.
+    _, H, rhs = c3[0]
+    Fk, xk = ar.factor_solve(part, H, rhs)
+    Fr, xr = ar.factor_solve_ref(part, H, rhs)
+    rd['arrow_factor_solve dense'] = solve_gate(
+        f'arrow_factor_solve[Hessian, m {rhs.shape[2]}]', H, rhs, xk, xr,
+        ar.factor_solve_ref(part, bf16(H), rhs)[1])
+    ms = cuda_ms(lambda: ar.factor_solve(part, H, rhs), 20)
+    pms = cuda_ms(lambda: ar.factor_solve_ref(part, H, rhs), 3)
+    lms = cuda_ms(lambda: torch.linalg.solve(H, rhs), 5)
+    byts = a_bytes + nbytes((rhs, Fk, xk))
+    report['arrow_factor_solve_dense'] = dict(
+        m=rhs.shape[2], ms=ms, plain_ms=pms, library_ms=lms,
+        max_abs_err=(xk - xr).abs().max().item(),
+        bound_ms=max(byts / HBM_BYTES_PER_S, batch * arrow_flops(
+            part, rhs.shape[2], True) / FP32_FLOPS) * 1e3)
+    log(f'arrow_factor_solve (dense A, m {rhs.shape[2]}): {ms:.3f} ms '
+        f'kernel, {pms:.3f} ms plain, {lms:.3f} ms torch.linalg.solve, '
+        f'bound {report["arrow_factor_solve_dense"]["bound_ms"]:.4f} ms')
+    del H, rhs, Fk, xk, Fr, xr
+
+    # Row 14: the capacitance (n 24, with the rhs U t of its cho_solve) and
+    # M (n 108).
+    C = c14[0][0]
+    t24 = c15[0][1]
+    for what, A, rhs in (('capacitance', C, t24), ('M', M, b)):
+        L, Lp = ch.chol(A), ch.chol_ref(A)
+        rd[f'chol {what}'] = solve_gate(
+            f'chol[{what}, n {A.shape[1]}]', A, rhs,
+            ch.cho_solve_ref(L, rhs), ch.cho_solve_ref(Lp, rhs),
+            ch.cho_solve_ref(ch.chol_ref(bf16(A)), rhs))
+        ms = cuda_ms(lambda: ch.chol(A), 20)
+        pms = cuda_ms(lambda: ch.chol_ref(A), 3)
+        lms = cuda_ms(lambda: torch.linalg.cholesky(A), 5)
+        n = A.shape[1]
+        fl = batch * n ** 3 / 3
+        byts = batch * 4 * n * (n + 1) // 2 + nbytes((L,))  # A's lower half
+        report[f'chol_{what}'] = dict(n=n, ms=ms, plain_ms=pms,
+                                      library_ms=lms, bound_ms=max(
+                                          byts / HBM_BYTES_PER_S,
+                                          fl / FP32_FLOPS) * 1e3)
+        if what == 'capacitance':
+            entries.append(kernel_entry('chol', (L - Lp).abs().max().item(),
+                                        ms, pms, byts, fl, lms))
+        log(f'chol (n {n}): {ms:.3f} ms kernel, {pms:.3f} ms plain, '
+            f'{lms:.3f} ms torch.linalg.cholesky')
+    report['unpacked_readings'] = rd
+
+    # Row 10: the flailing state's first reuse launch, then the tool's.
+    def stats_of(efc_, M_, af_):
+        ops_ = solver.operands(efc_, engine.PRESETS['default']['sb_break'])
+
+        def stats(o):
+            fc = -efc_.con_D[..., None] * nf.cone_residual(
+                o[3], efc_.con_mu, efc_.con_frictional, efc_.con_active)
+            return cost_force(part, efc_, ops_, M_, af_, o[0], fc[..., 0])
+        return stats
+
+    f10 = c10[0]
+    fo30 = nf.reuse(*f10[:-2], 30, f10[-1])
+    k32, p32 = nf.reuse(*f10), nf.reuse_ref(*f10)
+    p64 = nf.reuse_ref(*f64(f10[:-2]), *f10[-2:])
+    s64 = stats_of(efc.to(dtype=torch.float64), M.double(), a_free.double())
+
+    def at64(o):  # cost and force of outputs, evaluated in float64
+        return s64([t.double() for t in o])
+    rdf = {'kernel_vs_plain': share(env_err(
+        fo30, nf.reuse_ref(*f10[:-2], 30, f10[-1]))),
+        'preset_steps (read)': cost_force_stats(
+            stats_of(efc, M, a_free)(k32), stats_of(efc, M, a_free)(p32)),
+        'preset_steps, plain float32 vs float64 (read)': cost_force_stats(
+            at64(p32), at64(p64)),
+        'preset_steps, kernel vs float64 (read)': cost_force_stats(
+            at64(k32), at64(p64))}
+    del k32, p32, p64
+    log('  newton_reuse readings, flailing state (share of envs within '
+        f'{NEWTON_ENV_TOL:.0e} at ls 30; cost / force at the preset\'s '
+        'steps, read, the plain float32 version\'s and the kernel\'s '
+        'against float64 beside): ' + json.dumps(rdf))
+    if not rdf['kernel_vs_plain'] >= NEWTON_ENV_SHARE:
+        raise AssertionError(f'newton_reuse (flailing state): {rdf}')
+    del fo30, f10, c10
+    if path is None:
+        with recording(nf, 'reuse', {0}) as c10:
+            dp, ep, ap = pe.chain(model, pe.setup(args)[1], args)[:3]
+        path = (c10[0], dp.qM, ep, ap)
+    a10, Mp_, efc_p, af_p = path
+    args10, ls, n_it = a10[:-2], a10[-2], a10[-1]
+    controls = {'one iteration more':
+                lambda ls_, n: nf.reuse(*args10, ls_, n + 1)}
+    o30, r30, out, rd10 = newton_checks('newton_reuse', nf.reuse,
+                                        nf.reuse_ref, args10, ls, n_it,
+                                        controls,
+                                        stats_of(efc_p, Mp_, af_p))
+    if not newton_gate_fails('newton_reuse',
+                             rd10['control one iteration more']):
+        raise AssertionError(f'newton_reuse: the control passes: {rd10}')
+    rd10['flailing state'] = rdf
+    report['newton_readings_reuse'] = rd10
+    err, _ = compare('newton_reuse[ls 30]', o30, r30,
+                     ('x', 'msm', 'jar_l', 'jar_c'))
+    ms = cuda_ms(lambda: nf.reuse(*args10, ls, n_it), 20)
+    pms = cuda_ms(lambda: nf.reuse_ref(*args10, ls, n_it), 3)
+    K, L, SB3 = efc_p.con_J.shape[1], len(efc_p.lim_dof), args10[7].shape[1]
+    entries.append(kernel_entry(
+        'newton_reuse', err, ms, pms,
+        nbytes(a for a in args10 if torch.is_tensor(a)) + nbytes(out),
+        batch * reuse_flops(part, K, L, SB3, n_it, ls)))
+    log(f'newton_reuse: {ms:.3f} ms kernel, {pms:.3f} ms plain (dense M, K '
+        f'{K}, 3SB {SB3}, ls {ls}, {n_it} iteration)')
+
+    # solver.solve on the dense M (30 line-search steps) for the first
+    # UNPACKED_CPU_ENVS envs on the card and on the CPU at float32 and
+    # float64, by primal cost and net normal force per env: held as the
+    # two-fly substep is (f64_anchored), since float32 does not resolve
+    # every flailing env's solve, beside one Newton iteration on the card,
+    # which must fail the gate; the card-vs-CPU shares are printed.
+    from flybody_tpu_torch.model import spec
+    sl = slice(0, UNPACKED_CPU_ENVS)
+
+    def cost_force_on(device, dtype, flags=()):
+        args30 = pe.parser().parse_args(['--iters-ls', '30', *flags])
+        m_ = spec.load(spec.WALK_IMITATION_NPZ, device=device, dtype=dtype)
+        dd = d.index(sl).to(device, dtype=dtype)
+        ee = efc.index(sl).to(device, dtype)
+        af = a_free[sl].to(device, dtype=dtype)
+        o = pe.solve(m_, dd, ee, af, args30)
+        return [solver.primal_cost_dense(dd.qM, ee, af, o[0]).double().cpu(),
+                o[3][..., 0].sum(-1).double().cpu()]
+    card = cost_force_on(d.qpos.device, torch.float32)
+    cpu = cost_force_on('cpu', torch.float32)
+    cpu64 = cost_force_on('cpu', torch.float64)
+    gate = f64_anchored(card, cpu, cpu64, ('cost', 'force'))
+    # A wrong control on the card through the same gate, which must fail.
+    ctl = f64_anchored(cost_force_on(d.qpos.device, torch.float32,
+                                     ('--iters-solver', '1')),
+                       cpu, cpu64, ('cost', 'force'))
+    shares = {k: share((a - b).abs() / b.abs().clamp(
+        min=1e-6 * b.abs().max().item() + 1e-30), CPU_TOL)
+        for k, a, b in zip(('cost', 'force'), card, cpu)}
+    log(f'unpacked solve gate ({UNPACKED_CPU_ENVS} envs, ls 30; per '
+        'quantity: the card\'s and the CPU float32\'s median / worst env '
+        'error against the CPU float64): ' + json.dumps(gate)
+        + f'; card vs CPU float32, share of envs within {CPU_TOL:.0e}: '
+        + json.dumps(shares))
+    log('  control one Newton iteration, through the gate: '
+        + json.dumps(ctl))
+    report['unpacked_solve_gate'] = dict(
+        gate=gate, card_vs_cpu=shares, control_one_newton_iteration=ctl)
+    if not all(v['ok'] for v in gate.values()):
+        raise AssertionError(f'unpacked solve: card vs CPU float64 {gate}')
+    if all(v['ok'] for v in ctl.values()):
+        raise AssertionError(f'unpacked solve: the control passes: {ctl}')
+    return entries
+
+
+def unpacked_phase(batch, seed, report):
+    """tools/profile_engine.py's stage chain on the card at batch `batch`:
+    one pass from the tool's own state with every launch counted (exactly
+    UNPACKED_PER_CHAIN, everything else 0) and its outputs finite, then
+    unpacked_kernels on a flailing state, then the tool's stage table (3
+    timed calls a stage). Returns (kernel entries, launches)."""
+    import torch
+    from flybody_tpu_torch.tools import profile_engine as pe
+    args = pe.parser().parse_args(['--batch', str(batch), '--iters', '3',
+                                   '--seed', str(seed)])
+    from flybody_tpu_torch.ops import newton_fused as nf
+    model, d0 = pe.setup(args)
+    torch.cuda.synchronize()
+    for m, attr in counters().values():
+        setattr(m, attr, 0)
+    t0 = time.perf_counter()
+    with recording(nf, 'reuse', {0}) as c10:
+        outs = pe.chain(model, d0, args)
+    torch.cuda.synchronize()
+    t_chain = time.perf_counter() - t0
+    launches = {n: getattr(m, attr) for n, (m, attr) in counters().items()}
+    expect = {n: UNPACKED_PER_CHAIN.get(n, 0) for n in launches}
+    log(f'unpacked chain: launches {launches} (expected {expect}), '
+        f'{t_chain:.3f} s')
+    if launches != expect:
+        raise AssertionError(f'unpacked chain: launch counts {launches} != '
+                             f'{expect}')
+    for name, t in zip(('a_free', 'qacc', 'qacc after noslip', 'qpos'),
+                       outs[2:]):
+        if not torch.isfinite(t).all():
+            raise AssertionError(f'unpacked chain: non-finite {name}')
+    entries = unpacked_kernels(model, args, batch, seed, report,
+                               (c10[0], outs[0].qM, outs[1], outs[2]))
+    del outs, c10
+    torch.cuda.empty_cache()
+    results = pe.stages(model, d0, args)
+    tab = pe.table(results, batch, f'gpu ({torch.cuda.get_device_name(0)})',
+                   args.iters)
+    log(tab)
+    report['profile_engine'] = dict(
+        batch=batch, iters=args.iters,
+        ms={k: v * 1e3 for k, v in results.items()},
+        steps_per_s=batch / results['FULL step'], launches=launches)
+    return entries, launches
 
 
 def main() -> int:
@@ -1661,6 +2090,13 @@ def main() -> int:
             total[n] += c
         torch.cuda.empty_cache()
         seconds[f'two_fly_{preset}'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    entries, launches = unpacked_phase(UNPACKED_BATCH, SEED, report)
+    kernels += entries
+    for n, c in launches.items():
+        total[n] += c
+    torch.cuda.empty_cache()
+    seconds['unpacked'] = time.perf_counter() - t0
     for k in kernels:  # launches over the main-path runs of both models
         k['launches'] = total[k['name']]
     seconds['build'] = report['build_s']

@@ -1,7 +1,11 @@
-// Rows 15, 16 and 17: the dense batched Cholesky family of the dense
-// (multi-fly) path.
+// Rows 14, 15, 16 and 17: the dense batched Cholesky family.
 //
 // Replaces flybody_tpu/ops/cholesky.py:
+//   * chol_f32 (row 14): _chol_pallas (:79, the Pallas call at :84), the
+//     factor alone: A (B, n, n) -> L lower with zeros above. smooth.factor_m
+//     runs it on a model without an arrow partition (n = 216 for two
+//     flies), and the arrow Newton step on an unpacked M on its capacitance
+//     I + U^T Z + 1e-10 I (n = 3 SB = 24 at SB 8; solver.py:857);
 //   * chol_solve_f32 (row 17): _chol_solve_pallas (:333, the Pallas call at
 //     :337), the fused factor + single-RHS solve: A (B, n, n), b (B, n) ->
 //     L (B, n, n) lower with zeros above, x with A x = b. The dense path
@@ -14,7 +18,7 @@
 // Semantics: chol_solve_ref / cho_solve_ref / cho_solve_multi_ref in
 // flybody_tpu_torch/ops/cholesky.py.
 //
-// What bounds them: bytes for rows 15 and 17 (per env at n = 216 the lower
+// What bounds them: bytes for rows 14, 15 and 17 (per env at n = 216 the lower
 // triangle in, 93.7 KB, and for row 17 the full factor out, 187 KB; the
 // factor is n^3/3 = 3.4 MFLOP), operations for row 16 at m = 128 (2 n^2 m
 // = 11.9 MFLOP per env). The TPU kernels put 128 envs on the lanes and ran
@@ -51,6 +55,16 @@ __global__ void __launch_bounds__(kThreads)
   chol_subst_block(S, v, n);
   tri_store(S, L + (size_t)e * n * n, n);
   for (int i = t; i < n; i += blockDim.x) x[(size_t)e * n + i] = v[i];
+}
+
+__global__ void __launch_bounds__(kThreads)
+    chol_kernel(const float* __restrict__ A, float* __restrict__ L, int n) {
+  extern __shared__ float sm[];
+  const int e = blockIdx.x;
+  tri_load(A + (size_t)e * n * n, sm, n);
+  __syncthreads();
+  chol_factor(sm, n);
+  tri_store(sm, L + (size_t)e * n * n, n);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -120,6 +134,17 @@ FB_API int chol_solve_f32(const float* A, const float* b, float* L, float* x,
   if (rc) return rc;
   chol_solve_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(A, b, L, x,
                                                                  n);
+  return (int)cudaGetLastError();
+}
+
+FB_API int chol_f32(const float* A, float* L, int B, int n, void* stream) {
+  if (B < 1 || n < 1 || n > 2 * kThreads) return -1;
+  const size_t smem = sizeof(float) * tri_size(n);
+  const int rc = set_smem(chol_kernel, smem);
+  if (rc) return rc;
+  // Below one warp's worth of rows a column (n = 24), one warp a block.
+  const int threads = n <= 32 ? 32 : kThreads;
+  chol_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(A, L, n);
   return (int)cudaGetLastError();
 }
 

@@ -1,10 +1,11 @@
-// Kernels 8 and 9: the Newton block and the whole Newton solve.
+// Kernels 8, 9 and 10: the Newton block, the whole Newton solve and the
+// Newton reuse iterations.
 //
 // Replace flybody_tpu/ops/newton_fused.py::_block_fn (:461, the Pallas call
-// at :485; make_newton_block_pe) and the whole-solve mode of
-// _block_full_fn (:1038, the call at :1067; make_newton_solve_pe).
-// Semantics: newton_block_ref and newton_solve_ref in
-// flybody_tpu_torch/ops/newton_fused.py.
+// at :485; make_newton_block_pe), the whole-solve mode of _block_full_fn
+// (:1038, the call at :1067; make_newton_solve_pe) and _fused_fn (:232, the
+// call at :258; make_reuse_pe). Semantics: newton_block_ref,
+// newton_solve_ref and reuse_ref in flybody_tpu_torch/ops/newton_fused.py.
 //
 //   newton_block: one refactor block from a packed Hessian Hp assembled
 //     outside: arrow factor of Hp, Z = A^-1 U for the 3*SB Woodbury rows,
@@ -16,16 +17,23 @@
 //     Hessian M + J^T W J + limit diagonal and the Woodbury rows of the
 //     selected cross-limb slots, the same block body, then the constraint
 //     forces f_l, f_c and qfrc = S f_l + J^T f_c.
-// One template holds both; the whole-solve prologue and epilogue are the
-// only difference.
+//   newton_reuse: n iterations with a factor kept from a fresh arrow step
+//     on an unpacked M (solver.py:862-868): the packed factor F, the
+//     Woodbury operands Z = A^-1 U^T and U, and the capacitance factor LC
+//     come in; the mass matrix M is dense (nv, nv) or packed.
+// One template holds the three; the prologues (and the whole solve's
+// epilogue) are the only difference, and they share one iteration body.
 //
 // What bounds them: bytes. Per env the block kernel reads Hp, M (14.6 KB
 // each), J (3K x nv: 83 KB at K = 64), U (10 KB at SB = 8) and the state
-// (~131 KB in all) for ~0.3 MFLOP. Design: one block of 128 threads per
-// env. The packed matrices, U, Z, the capacitance factor, the carried
+// (~131 KB in all) for ~0.3 MFLOP; the reuse kernel reads F (14.6 KB), a
+// dense M (46.7 KB), J (41.5 KB at K = 32), Z and U (20.7 KB at SB = 8) and
+// LC (~124 KB in all). Design: one block of 128 threads per env. The packed matrices, U, Z, the capacitance factor, the carried
 // state and the line search's planes live in shared memory; J is read
 // from global memory (coalesced over dofs for J^T f, one warp per row for
-// J dx), so the block kernel fits three blocks on an SM at K = 64. The
+// J dx), so the block kernel fits three blocks on an SM at K = 64; the
+// reuse kernel keeps F, Z, U and the inverse of LC in shared memory and
+// reads a dense M from global memory (L2), a row per warp. The
 // whole-solve kernel stages J and J W (31 KB each at K = 24), as its
 // Hessian assembly reads them ~1,250 times, and reads M from L2, so two
 // of its blocks fit on an SM. The TPU kernel kept envs on
@@ -40,6 +48,7 @@
 namespace {
 
 constexpr int kThreads = 128;
+enum Mode { kBlock = 0, kWhole = 1, kReuse = 2 };
 constexpr int kRows = 4;  // rows of J dx a warp takes at once
 
 struct LimTables {
@@ -49,10 +58,12 @@ struct LimTables {
 };
 
 struct NewtonArgs {
-  const float* Hp;          // block: (B, msize) packed Hessian
-  const float* M;           // (B, msize) packed mass matrix
+  const float* Hp;          // block: (B, msize) packed Hessian; reuse: F
+  const float* M;           // (B, msize) packed, or reuse: (B, nv, nv)
   const float* J;           // (B, 3K, nv) contact rows
-  const float* U;           // block: (B, SB3, nv) Woodbury rows
+  const float* U;           // block, reuse: (B, SB3, nv) Woodbury rows
+  const float* Zg;          // reuse: (B, nv, SB3) Z = A^-1 U^T
+  const float* LC;          // reuse: (B, SB3, SB3) capacitance factor
   const int* bsel;          // whole: (B, SB) selected cross-limb slots
   const float* x;           // block: x; whole: a_free (B, nv)
   const float* msm;         // block: M (x - a_free); whole: warmstart
@@ -67,6 +78,7 @@ struct NewtonArgs {
   LimTables lim;
   ArrowPart p;
   int K, SB3, L, ls_iters, n_iters;
+  int dense_m;  // reuse: M is dense (nv, nv)
 };
 
 // Shared-memory offsets (in floats), the same on host and device.
@@ -81,7 +93,9 @@ struct Layout {
 };
 
 __host__ __device__ inline Layout newton_layout(int K, int SB3, int L, int nv,
-                                                int msize, bool whole) {
+                                                int msize, int mode,
+                                                bool dense_m) {
+  const bool whole = mode == kWhole;
   Layout o;
   int n = 0;
   auto take = [&n](int c) {
@@ -90,7 +104,8 @@ __host__ __device__ inline Layout newton_layout(int K, int SB3, int L, int nv,
     return at;
   };
   o.A = take(msize);
-  o.Mm = whole ? 0 : take(msize);  // the whole solve reads M from L2
+  // The whole solve reads M from L2, the reuse iterations a dense M.
+  o.Mm = whole || dense_m ? 0 : take(msize);
   o.Ut = take(SB3 * nv);
   o.Z = take(SB3 * nv);
   o.C = take(SB3 * SB3);
@@ -214,13 +229,30 @@ __device__ __forceinline__ float lim_scatter(const int* dlim, const float* f,
   return s;
 }
 
-template <bool kWhole>
+// y = M x for a dense (nv, nv) M in global memory: a warp a row, the lanes
+// over its columns.
+__device__ __forceinline__ void dense_matvec(const float* __restrict__ M,
+                                             const float* x, float* y,
+                                             int nv) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  for (int i = warp; i < nv; i += nw) {
+    float s = 0.f;
+    for (int j = lane; j < nv; j += 32) s += M[(size_t)i * nv + j] * x[j];
+    s = warp_sum(s);
+    if (lane == 0) y[i] = s;
+  }
+}
+
+template <int kMode>
 __global__ void __launch_bounds__(kThreads) newton_kernel(NewtonArgs a) {
+  constexpr bool kWholeSolve = kMode == kWhole;
   extern __shared__ float sm[];
   const ArrowPart& p = a.p;
   const int nv = p.nv, K = a.K, L = a.L, SB3 = a.SB3, R3 = 3 * K;
   const int msize = (p.nl + 1) * (p.dm + p.nr) * p.dm;
-  const Layout o = newton_layout(K, SB3, L, nv, msize, kWhole);
+  const bool dense_m = kMode == kReuse && a.dense_m;
+  const Layout o = newton_layout(K, SB3, L, nv, msize, kMode, dense_m);
   const int e = blockIdx.x, t = threadIdx.x, nt = blockDim.x;
   const int lane = t & 31, warp = t >> 5, nw = nt >> 5;
 
@@ -250,7 +282,7 @@ __global__ void __launch_bounds__(kThreads) newton_kernel(NewtonArgs a) {
     al[i] = lp[i];
     Dl[i] = lp[L + i];
   }
-  const int ncp = kWhole ? 5 : 4;
+  const int ncp = kWholeSolve ? 5 : 4;
   const float* cp = a.con_params + (size_t)e * ncp * K;
   for (int k = t; k < K; k += nt) {
     mu[k] = cp[k];
@@ -260,10 +292,11 @@ __global__ void __launch_bounds__(kThreads) newton_kernel(NewtonArgs a) {
   }
   // M for the products M dx: a shared copy in the block kernel; the whole
   // solve reads it from global memory (L2), which keeps its shared memory
-  // under half an SM's so that two of its blocks fit.
-  const float* Me = a.M + (size_t)e * msize;
+  // under half an SM's so that two of its blocks fit; so do the reuse
+  // iterations a dense M (dense_matvec).
+  const float* Me = a.M + (size_t)e * (dense_m ? nv * nv : msize);
   const float* Mm = Me;
-  if constexpr (!kWhole) {
+  if (!kWholeSolve && !dense_m) {
     float* Ms = sm + o.Mm;
     for (int i = t; i < msize; i += nt) Ms[i] = Me[i];
     Mm = Ms;
@@ -271,11 +304,20 @@ __global__ void __launch_bounds__(kThreads) newton_kernel(NewtonArgs a) {
   const float* Je = a.J + (size_t)e * R3 * nv;
   const float* Jp = Je;
 
-  if constexpr (!kWhole) {
-    const float* He = a.Hp + (size_t)e * msize;
+  if constexpr (!kWholeSolve) {
+    const float* He = a.Hp + (size_t)e * msize;  // Hp, or reuse: F
     for (int i = t; i < msize; i += nt) A[i] = He[i];
     const float* Ue = a.U + (size_t)e * SB3 * nv;
     for (int i = t; i < SB3 * nv; i += nt) Ut[i] = Ue[i];
+    if constexpr (kMode == kReuse) {
+      const float* Ze = a.Zg + (size_t)e * nv * SB3;
+      for (int i = t; i < SB3 * nv; i += nt) {
+        const int v = i / SB3, r = i - v * SB3;
+        Z[r * nv + v] = Ze[i];
+      }
+      const float* Ce = a.LC + (size_t)e * SB3 * SB3;
+      for (int i = t; i < SB3 * SB3; i += nt) C[i] = Ce[i];
+    }
     for (int v = t; v < nv; v += nt) {
       x[v] = a.x[(size_t)e * nv + v];
       msm[v] = a.msm[(size_t)e * nv + v];
@@ -434,31 +476,34 @@ __global__ void __launch_bounds__(kThreads) newton_kernel(NewtonArgs a) {
     __syncthreads();
   }
 
-  // ---- Factor, Z = A^-1 U, capacitance I + U Z, its Cholesky and inverse.
-  arrow_factor(A, p);
-  for (int i = t; i < SB3 * nv; i += nt) Z[i] = Ut[i];
-  __syncthreads();
-  arrow_solve(A, Z, SB3, nv, p);
-  for (int q = t; q < SB3 * SB3; q += nt) {
-    const int i = q / SB3, j = q - i * SB3;
-    if (j <= i) {
-      float s = 0.f;
-      for (int v = 0; v < nv; ++v) s += Ut[i * nv + v] * Z[j * nv + v];
-      C[q] = i == j ? (1.f + s) + 1e-10f : s;
-    }
-  }
-  __syncthreads();
-  for (int k = 0; k < SB3; ++k) {
-    const float inv = rsqrtf(fmaxf(C[k * SB3 + k], 1e-30f));
+  // ---- Factor, Z = A^-1 U, capacitance I + U Z and its Cholesky (the
+  // reuse iterations take all three as given), then its inverse.
+  if constexpr (kMode != kReuse) {
+    arrow_factor(A, p);
+    for (int i = t; i < SB3 * nv; i += nt) Z[i] = Ut[i];
     __syncthreads();
-    for (int i = k + t; i < SB3; i += nt) C[i * SB3 + k] *= inv;
-    __syncthreads();
-    const int m = SB3 - k - 1;
-    for (int q = t; q < m * m; q += nt) {
-      const int i = k + 1 + q / m, j = k + 1 + q % m;
-      if (j <= i) C[i * SB3 + j] -= C[i * SB3 + k] * C[j * SB3 + k];
+    arrow_solve(A, Z, SB3, nv, p);
+    for (int q = t; q < SB3 * SB3; q += nt) {
+      const int i = q / SB3, j = q - i * SB3;
+      if (j <= i) {
+        float s = 0.f;
+        for (int v = 0; v < nv; ++v) s += Ut[i * nv + v] * Z[j * nv + v];
+        C[q] = i == j ? (1.f + s) + 1e-10f : s;
+      }
     }
     __syncthreads();
+    for (int k = 0; k < SB3; ++k) {
+      const float inv = rsqrtf(fmaxf(C[k * SB3 + k], 1e-30f));
+      __syncthreads();
+      for (int i = k + t; i < SB3; i += nt) C[i * SB3 + k] *= inv;
+      __syncthreads();
+      const int m = SB3 - k - 1;
+      for (int q = t; q < m * m; q += nt) {
+        const int i = k + 1 + q / m, j = k + 1 + q % m;
+        if (j <= i) C[i * SB3 + j] -= C[i * SB3 + k] * C[j * SB3 + k];
+      }
+      __syncthreads();
+    }
   }
   for (int c = t; c < SB3; c += nt) {  // Ci = LC^-1 (lower), column c
     for (int i = c; i < SB3; ++i) {
@@ -521,7 +566,10 @@ __global__ void __launch_bounds__(kThreads) newton_kernel(NewtonArgs a) {
       dx[v] = -(g[v] - s);
     }
     __syncthreads();
-    arrow_matvec(Mm, dx, mdx, p);
+    if (dense_m)
+      dense_matvec(Me, dx, mdx, nv);
+    else
+      arrow_matvec(Mm, dx, mdx, p);
     for (int r0 = kRows * warp; r0 < R3; r0 += kRows * nw) {
       // kRows rows a warp at once, so their loads are in flight together.
       const int nu = min(kRows, R3 - r0);
@@ -565,7 +613,7 @@ __global__ void __launch_bounds__(kThreads) newton_kernel(NewtonArgs a) {
   }
 
   // ---- Outputs.
-  if constexpr (!kWhole) {
+  if constexpr (!kWholeSolve) {
     for (int v = t; v < nv; v += nt) {
       a.o0[(size_t)e * nv + v] = x[v];
       a.o1[(size_t)e * nv + v] = msm[v];
@@ -594,19 +642,21 @@ __global__ void __launch_bounds__(kThreads) newton_kernel(NewtonArgs a) {
   }
 }
 
-template <bool kWhole>
+template <int kMode>
 int launch(const NewtonArgs& a, int B, void* stream) {
   if (a.p.nl > 16 || a.p.nl < 1 || a.SB3 < 1 || B < 1) return -1;
   const int msize = (a.p.nl + 1) * (a.p.dm + a.p.nr) * a.p.dm;
-  const Layout o = newton_layout(a.K, a.SB3, a.L, a.p.nv, msize, kWhole);
+  const Layout o = newton_layout(a.K, a.SB3, a.L, a.p.nv, msize, kMode,
+                                 kMode == kReuse && a.dense_m);
   const size_t smem = sizeof(float) * (size_t)o.total;
+  if (smem > 232448) return -1;  // Hopper's shared memory per block
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        newton_kernel<kWhole>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        newton_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  newton_kernel<kWhole><<<B, kThreads, smem, (cudaStream_t)stream>>>(a);
+  newton_kernel<kMode><<<B, kThreads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -629,7 +679,7 @@ FB_API int newton_block_f32(const float* Hp, const float* M, const float* J,
   a.lim = LimTables{lim_dof, lim_sign, dof_lim};
   a.p = *part;
   a.K = K, a.SB3 = SB3, a.L = L, a.ls_iters = ls_iters, a.n_iters = n_iters;
-  return launch<false>(a, B, stream);
+  return launch<kBlock>(a, B, stream);
 }
 
 FB_API int newton_solve_f32(const float* Mp, const float* J, const int* bsel,
@@ -649,5 +699,28 @@ FB_API int newton_solve_f32(const float* Mp, const float* J, const int* bsel,
   a.lim = LimTables{lim_dof, lim_sign, dof_lim};
   a.p = *part;
   a.K = K, a.SB3 = 3 * SB, a.L = L, a.ls_iters = ls_iters, a.n_iters = n_iters;
-  return launch<true>(a, B, stream);
+  return launch<kWhole>(a, B, stream);
+}
+
+// Kernel 10: M dense (B, nv, nv) when dense_m, else packed (B, msize).
+FB_API int newton_reuse_f32(const float* F, const float* M, const float* J,
+                            const float* Z, const float* U, const float* LC,
+                            const float* x, const float* msm,
+                            const float* jar_l, const float* jar_c,
+                            const float* lim_params, const float* con_params,
+                            float* x_o, float* msm_o, float* jl_o, float* jc_o,
+                            int B, int K, int SB3, int L, int dense_m,
+                            const int* lim_dof, const float* lim_sign,
+                            const int* dof_lim, int ls_iters, int n_iters,
+                            const ArrowPart* part, void* stream) {
+  NewtonArgs a{};
+  a.Hp = F, a.M = M, a.J = J, a.U = U, a.Zg = Z, a.LC = LC, a.bsel = nullptr;
+  a.x = x, a.msm = msm, a.jar_l = jar_l, a.jar_c = jar_c;
+  a.lim_params = lim_params, a.con_params = con_params;
+  a.o0 = x_o, a.o1 = msm_o, a.o2 = jl_o, a.o3 = jc_o;
+  a.lim = LimTables{lim_dof, lim_sign, dof_lim};
+  a.p = *part;
+  a.K = K, a.SB3 = SB3, a.L = L, a.ls_iters = ls_iters, a.n_iters = n_iters;
+  a.dense_m = dense_m;
+  return launch<kReuse>(a, B, stream);
 }

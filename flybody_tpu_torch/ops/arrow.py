@@ -15,8 +15,15 @@ and the packed factor F has the same shape:
     F[i, dm:, :]  = LB_i = B_i L_i^-T
     F[nl, :nr, :nr] = L_R (lower Cholesky of R - sum_i LB_i LB_i^T).
 
-`factor_solve` is kernel K3 (csrc/arrow.cu) on CUDA tensors and the plain
-PyTorch version (`factor_solve_ref`) on CPU tensors.
+The matrix comes packed (B, nl+1, dm+nr, dm) or dense (B, nv, nv), as the
+JAX package's kernels take it (`_a_spec`); a dense one is read as its
+`factor_ref` reads it (`pack_dense`). On CUDA tensors (float32) the
+wrappers launch csrc/arrow.cu, on CPU tensors they run the plain PyTorch
+versions:
+  * `factor_solve` (kernel K3; `factor_solve_ref`): the factor fused with
+    the solve of m right-hand sides;
+  * `factor` (row 18; `factor_ref` / `factor_ref_p`): the factor alone;
+  * `solve` (row 19; `solve_ref`): the substitution with a factor.
 """
 
 from __future__ import annotations
@@ -181,6 +188,13 @@ def add_diag_packed(part: Part, Mp, diag):
     return Mp + add
 
 
+def matvec(part: Part | None, M, x):
+    """y = M x for M dense (B, nv, nv) or packed; x (B, nv)."""
+    if M.dim() == 3:
+        return torch.einsum('bij,bj->bi', M, x)
+    return matvec_packed(part, M, x)
+
+
 def matvec_packed(part: Part, Mp, x):
     """y = M x for packed symmetric M; x (B, nv) or (B, nv, m)."""
     nl, dm, nr = len(part.ds), part.dmax, part.nr
@@ -201,20 +215,39 @@ def matvec_packed(part: Part, Mp, x):
     return out[..., 0] if vec else out
 
 
+def pack_dense(part: Part, A):
+    """Dense (B, nv, nv) -> packed (B, nl+1, dm+nr, dm) as the JAX
+    package's factor_ref reads it (`_pack` and jnp.linalg.cholesky's
+    symmetrized input): limb blocks and the root block (A + A^T) / 2, the
+    borders from the root dofs' rows A[:, :nr, limb], identity padding."""
+    nl, dm = len(part.ds), part.dmax
+    Mp = pack_sym_ref(part, 0.5 * (A + A.transpose(1, 2)))
+    Mp[:, :nl, dm:] = pack_sym_ref(part, A)[:, :nl, dm:]
+    return Mp
+
+
 def factor_ref_p(part: Part, Mp):
-    """Packed symmetric (B, nl+1, dm+nr, dm) -> packed arrow factor."""
+    """Packed symmetric (B, nl+1, dm+nr, dm) -> packed arrow factor. A
+    block that is not positive definite gives an unusable factor (as the
+    JAX reference's NaN and the kernels' clamped pivots do) and raises
+    nothing."""
     nl, dm, nr = len(part.ds), part.dmax, part.nr
     D = Mp[:, :nl, :dm, :]
     Bl = Mp[:, :nl, dm:dm + nr, :]
     R = Mp[:, nl, :nr, :nr]
-    L = torch.linalg.cholesky(D)
+    L = torch.linalg.cholesky_ex(D).L
     LB = torch.linalg.solve_triangular(
         L, Bl.transpose(-1, -2), upper=False).transpose(-1, -2)
     S = R - torch.einsum('biak,bick->bac', LB, LB)
-    LR = torch.linalg.cholesky(S)
+    LR = torch.linalg.cholesky_ex(S).L
     root = Mp.new_zeros((Mp.shape[0], 1, dm + nr, dm))
     root[:, 0, :nr, :nr] = LR
     return torch.cat([torch.cat([L, LB], dim=2), root], dim=1)
+
+
+def factor_ref(part: Part, A):
+    """Dense (B, nv, nv) -> packed arrow factor (the JAX factor_ref)."""
+    return factor_ref_p(part, pack_dense(part, A))
 
 
 def solve_ref(part: Part, F, b):
@@ -238,20 +271,23 @@ def solve_ref(part: Part, F, b):
     return out[..., 0] if vec else out
 
 
-def factor_solve_ref(part: Part, Mp, b):
-    """Plain version of K3: (F, x) with F the packed factor of Mp."""
-    F = factor_ref_p(part, Mp)
+def _factor_any_ref(part: Part, A):
+    return factor_ref(part, A) if A.dim() == 3 else factor_ref_p(part, A)
+
+
+def factor_solve_ref(part: Part, A, b):
+    """Plain version of K3: (F, x) with F the packed factor of A (dense or
+    packed) and x = A^-1 b."""
+    F = _factor_any_ref(part, A)
     return F, solve_ref(part, F, b)
 
 
 # ---------------------------------------------------------------------------
-# Kernel K3: fused factor + solve of a packed arrow matrix, one vector rhs.
+# Kernels: K3 (factor + solve), row 18 (factor), row 19 (substitution).
 
-launches = 0
-
-
-class _Limbs(ctypes.Structure):
-    _fields_ = [('lo', ctypes.c_int * 16), ('d', ctypes.c_int * 16)]
+launches = 0  # K3
+factor_launches = 0  # row 18
+solve_launches = 0  # row 19
 
 
 class CPart(ctypes.Structure):
@@ -272,28 +308,86 @@ def c_part(part: Part) -> CPart:
     return cp
 
 
-def factor_solve(part: Part, Mp, b):
-    """Packed factor F of Mp (B, nl+1, dm+nr, dm) and x = Mp^-1 b, b (B, nv).
+_P, _I = ctypes.c_void_p, ctypes.c_int
 
-    CUDA tensors (float32) launch K3; CPU tensors take factor_solve_ref."""
-    if Mp.device.type == 'cpu' and b.device.type == 'cpu':
-        return factor_solve_ref(part, Mp, b)
+
+def _check_matrix(part: Part, A):
+    """A dense (B, nv, nv) or packed (B, nl+1, dm+nr, dm) float32 CUDA
+    matrix; returns (B, dense)."""
+    Bn = A.shape[0]
+    dense = A.dim() == 3
+    shape = ((Bn, part.nv, part.nv) if dense else
+             (Bn, len(part.ds) + 1, part.dmax + part.nr, part.dmax))
+    _cuda.check(A, shape, 'A')
+    return Bn, dense
+
+
+def _check_rhs(part: Part, b, Bn):
+    """b (B, nv) or (B, nv, m); returns m."""
+    m = 1 if b.dim() == 2 else b.shape[-1]
+    _cuda.check(b, (Bn, part.nv) if b.dim() == 2 else (Bn, part.nv, m), 'b')
+    return m
+
+
+def _packed_like(part: Part, A):
+    return A.new_empty((A.shape[0], len(part.ds) + 1, part.dmax + part.nr,
+                        part.dmax))
+
+
+def factor_solve(part: Part, A, b):
+    """Kernel K3: the packed factor F of A (dense (B, nv, nv) or packed
+    (B, nl+1, dm+nr, dm)) and x = A^-1 b, b (B, nv) or (B, nv, m).
+
+    CUDA tensors (float32) launch the kernel; CPU tensors take
+    factor_solve_ref."""
+    if A.device.type == 'cpu' and b.device.type == 'cpu':
+        return factor_solve_ref(part, A, b)
     global launches
-    nl, dm, nr = len(part.ds), part.dmax, part.nr
-    Bn = Mp.shape[0]
-    _cuda.check(Mp, (Bn, nl + 1, dm + nr, dm), 'Mp')
-    _cuda.check(b, (Bn, part.nv), 'b')
-    F = torch.empty_like(Mp)
+    Bn, dense = _check_matrix(part, A)
+    m = _check_rhs(part, b, Bn)
+    F = _packed_like(part, A)
     x = torch.empty_like(b)
-    limbs = _Limbs()
-    for i, (lo, d) in enumerate(zip(part.los, part.ds)):
-        limbs.lo[i], limbs.d[i] = lo, d
     fn = _cuda.function('arrow', 'arrow_factor_solve_f32', [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.POINTER(_Limbs), ctypes.c_void_p])
-    rc = fn(Mp.data_ptr(), b.data_ptr(), F.data_ptr(), x.data_ptr(), Bn,
-            nl, dm, nr, part.nv, ctypes.byref(limbs), _cuda.stream())
+        _P, _P, _P, _P, _I, _I, _I, ctypes.POINTER(CPart), _P])
+    rc = fn(A.data_ptr(), b.data_ptr(), F.data_ptr(), x.data_ptr(), Bn,
+            int(dense), m, ctypes.byref(c_part(part)), _cuda.stream())
     _cuda.raise_on(rc, 'arrow_factor_solve_f32')
     launches += 1
     return F, x
+
+
+def factor(part: Part, A):
+    """Row 18: the packed factor of A (dense or packed); CPU tensors take
+    factor_ref / factor_ref_p."""
+    if A.device.type == 'cpu':
+        return _factor_any_ref(part, A)
+    global factor_launches
+    Bn, dense = _check_matrix(part, A)
+    F = _packed_like(part, A)
+    fn = _cuda.function('arrow', 'arrow_factor_f32', [
+        _P, _P, _I, _I, ctypes.POINTER(CPart), _P])
+    rc = fn(A.data_ptr(), F.data_ptr(), Bn, int(dense),
+            ctypes.byref(c_part(part)), _cuda.stream())
+    _cuda.raise_on(rc, 'arrow_factor_f32')
+    factor_launches += 1
+    return F
+
+
+def solve(part: Part, F, b):
+    """Row 19: x = A^-1 b from the packed factor F, b (B, nv) or (B, nv,
+    m); CPU tensors take solve_ref."""
+    if F.device.type == 'cpu' and b.device.type == 'cpu':
+        return solve_ref(part, F, b)
+    global solve_launches
+    Bn = F.shape[0]
+    _cuda.check(F, (Bn, len(part.ds) + 1, part.dmax + part.nr, part.dmax),
+                'F')
+    m = _check_rhs(part, b, Bn)
+    x = torch.empty_like(b)
+    fn = _cuda.function('arrow', 'arrow_solve_f32', [
+        _P, _P, _P, _I, _I, ctypes.POINTER(CPart), _P])
+    rc = fn(F.data_ptr(), b.data_ptr(), x.data_ptr(), Bn, m,
+            ctypes.byref(c_part(part)), _cuda.stream())
+    _cuda.raise_on(rc, 'arrow_solve_f32')
+    solve_launches += 1
+    return x

@@ -1,8 +1,11 @@
-"""Dense batched Cholesky factor and substitutions: rows 15, 16 and 17.
+"""Dense batched Cholesky factor and substitutions: rows 14, 15, 16 and 17.
 
 Counterpart of flybody_tpu/ops/cholesky.py, used by the dense path (scenes
-without an arrow partition, such as several flies):
+without an arrow partition, such as several flies) and by the arrow Newton
+step on an unpacked mass matrix (the Woodbury capacitance):
 
+  * `chol(A)` (row 14, the TPU's `_chol_pallas`): the lower factor L of A
+    (zeros above the diagonal);
   * `chol_solve(A, b)` (row 17, the TPU's `_chol_solve_pallas`): the
     lower factor L of A (zeros above the diagonal) and x with A x = b;
   * `cho_solve(L, b)` (row 15, `_solve_pallas`): x with L L^T x = b;
@@ -26,6 +29,7 @@ import torch
 
 from flybody_tpu_torch.ops import _cuda
 
+chol_launches = 0  # row 14
 chol_solve_launches = 0  # row 17
 cho_solve_launches = 0  # row 15
 cho_solve_multi_launches = 0  # row 16
@@ -89,6 +93,20 @@ def _check_square(A, what):
         raise ValueError(f'{what}: expected (B, n, n), got {tuple(A.shape)}')
     _cuda.check(A, A.shape, what)
     return A.shape[0], A.shape[1]
+
+
+def chol(A):
+    """Row 14 on CUDA tensors, `chol_ref` on CPU tensors."""
+    if A.device.type == 'cpu':
+        return chol_ref(A)
+    global chol_launches
+    Bn, n = _check_square(A, 'A')
+    L = torch.empty_like(A)
+    fn = _cuda.function('cholesky', 'chol_f32', [_P, _P, _I, _I, _P])
+    rc = fn(A.data_ptr(), L.data_ptr(), Bn, n, _cuda.stream())
+    _cuda.raise_on(rc, 'chol_f32')
+    chol_launches += 1
+    return L
 
 
 def chol_solve(A, b):

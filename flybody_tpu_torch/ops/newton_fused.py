@@ -1,4 +1,4 @@
-"""The Newton solve on the packed block-arrow Hessian: kernels 8 and 9.
+"""The Newton solve on the block-arrow Hessian: kernels 8, 9 and 10.
 
 Counterpart of flybody_tpu/ops/newton_fused.py. The carried Newton state
 is (x, msm = M (x - a_free), jar_l, jar_c); along an accepted step all
@@ -14,6 +14,11 @@ Woodbury correction H = A + U^T U:
     iterations <= refactor period: warmstart pick, init, float32 Hessian
     and Woodbury assembly, the block, final forces and qfrc. Plain version
     `newton_solve_ref` (`_ref_solve_full`).
+  * `reuse` (kernel 10, csrc/newton.cu; the TPU's `_fused_fn`,
+    make_reuse_pe): n iterations with a factor kept from a fresh arrow step
+    on an unpacked (dense) M: the packed factor F, the Woodbury operands Z
+    and U and the capacitance factor LC come in; M is dense or packed.
+    Plain version `reuse_ref` (`_ref_step_n`).
 
 CUDA tensors launch the kernels (float32, contiguous; anything else
 raises); CPU tensors take the plain versions. The cone machinery and the
@@ -34,6 +39,7 @@ from flybody_tpu_torch.ops import linesearch as _ls
 
 launches = 0  # newton_block kernel launches
 solve_launches = 0  # newton_solve kernel launches
+reuse_launches = 0  # newton reuse kernel launches
 
 
 # ------------------------------------------------------ cone machinery
@@ -169,7 +175,7 @@ def newton_step(part, lim_dof, lim_sign, ls_iters, F, M, conJ, Z, U, LC,
                 st, lim_params, con_params):
     """One Newton iteration on a fixed factor (the JAX `_ref_step`).
     U (B, 3SB, nv) Woodbury rows, Z = A^-1 U^T (B, nv, 3SB), LC the lower
-    Cholesky of I + U Z."""
+    Cholesky of I + U Z; M packed or dense."""
     x, msm, jar_l, jar_c = st
     sign = x.new_tensor(lim_sign)
     actl, Dl = lim_params[:, 0], lim_params[:, 1]
@@ -182,7 +188,7 @@ def newton_step(part, lim_dof, lim_sign, ls_iters, F, M, conJ, Z, U, LC,
     w = torch.cholesky_solve(torch.einsum('bsv,bv->bs', U, t)[..., None],
                              LC)[..., 0]
     dx = -(t - torch.einsum('bvs,bs->bv', Z, w))
-    mdx = _ar.matvec_packed(part, M, dx)
+    mdx = _ar.matvec(part, M, dx)
     jv_c = jv(conJ, dx)
     jv_l = dx[:, lim_dof] * sign
     sm0 = torch.sum(msm * dx, -1)
@@ -216,11 +222,25 @@ def newton_block_ref(part, lim_dof, lim_sign, Hp, M, conJ, U, x, msm,
     return st
 
 
+def reuse_ref(part, lim_dof, lim_sign, F, M, conJ, Z, U, LC, x, msm, jar_l,
+              jar_c, lim_params, con_params, ls_iters: int, n_iters: int):
+    """Plain version of kernel 10: n_iters chained Newton steps on the
+    packed factor F with the Woodbury operands Z (B, nv, 3SB), U (B, 3SB,
+    nv) and the capacitance factor LC (B, 3SB, 3SB); M dense (B, nv, nv)
+    or packed. Returns (x, msm, jar_l, jar_c)."""
+    st = (x, msm, jar_l, jar_c)
+    for _ in range(n_iters):
+        st = newton_step(part, lim_dof, lim_sign, ls_iters, F, M, conJ, Z,
+                         U, LC, st, lim_params, con_params)
+    return st
+
+
 def primal_cost(part, lim_dof, lim_sign, Mp, conJ, a_free, lim_aref,
                 con_aref, lim_params, con_params, x):
-    """0.5 (x - a_free)^T M (x - a_free) + the constraint cost, per env."""
+    """0.5 (x - a_free)^T M (x - a_free) + the constraint cost, per env;
+    M packed or dense."""
     dx = x - a_free
-    cost = 0.5 * torch.sum(dx * _ar.matvec_packed(part, Mp, dx), -1)
+    cost = 0.5 * torch.sum(dx * _ar.matvec(part, Mp, dx), -1)
     jl = x[:, lim_dof] * x.new_tensor(lim_sign) - lim_aref
     actl, Dl = lim_params[:, 0], lim_params[:, 1]
     cost = cost + 0.5 * torch.sum(Dl * actl * (jl < 0) * jl ** 2, -1)
@@ -365,4 +385,44 @@ def newton_solve(part, lim_dof, lim_sign, Mp, conJ, bsel, a_free, ws,
             _cuda.stream())
     _cuda.raise_on(rc, 'newton_solve_f32')
     solve_launches += 1
+    return outs
+
+
+def reuse(part, lim_dof, lim_sign, F, M, conJ, Z, U, LC, x, msm, jar_l, jar_c,
+          lim_params, con_params, ls_iters: int, n_iters: int):
+    """Kernel 10 on CUDA tensors, `reuse_ref` on CPU tensors (same
+    arguments and results)."""
+    if F.device.type == 'cpu':
+        return reuse_ref(part, lim_dof, lim_sign, F, M, conJ, Z, U, LC, x,
+                         msm, jar_l, jar_c, lim_params, con_params, ls_iters,
+                         n_iters)
+    global reuse_launches
+    nl, dm, nr, nv = len(part.ds), part.dmax, part.nr, part.nv
+    Bn, K = conJ.shape[:2]
+    SB3, L = U.shape[1], len(lim_dof)
+    pk = (Bn, nl + 1, dm + nr, dm)
+    dense = M.dim() == 3
+    for t, shape, name in ((F, pk, 'F'),
+                           (M, (Bn, nv, nv) if dense else pk, 'M'),
+                           (conJ, (Bn, K, 3, nv), 'conJ'),
+                           (Z, (Bn, nv, SB3), 'Z'), (U, (Bn, SB3, nv), 'U'),
+                           (LC, (Bn, SB3, SB3), 'LC'), (x, (Bn, nv), 'x'),
+                           (msm, (Bn, nv), 'msm'), (jar_l, (Bn, L), 'jar_l'),
+                           (jar_c, (Bn, K, 3), 'jar_c'),
+                           (lim_params, (Bn, 2, L), 'lim_params'),
+                           (con_params, (Bn, 4, K), 'con_params')):
+        _cuda.check(t, shape, name)
+    ldof, lsign, dlim = lim_tables(lim_dof, lim_sign, nv, F.device)
+    outs = (torch.empty_like(x), torch.empty_like(msm),
+            torch.empty_like(jar_l), torch.empty_like(jar_c))
+    fn = _cuda.function('newton', 'newton_reuse_f32', [_P] * 16 + [
+        _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, ctypes.POINTER(_ar.CPart),
+        _P])
+    rc = fn(*(t.data_ptr() for t in (F, M, conJ, Z, U, LC, x, msm, jar_l,
+                                     jar_c, lim_params, con_params) + outs),
+            Bn, K, SB3, L, int(dense), ldof.data_ptr(), lsign.data_ptr(),
+            dlim.data_ptr(), ls_iters, n_iters,
+            ctypes.byref(_ar.c_part(part)), _cuda.stream())
+    _cuda.raise_on(rc, 'newton_reuse_f32')
+    reuse_launches += 1
     return outs

@@ -2,13 +2,18 @@
 actuation, and the semi-implicit Euler step.
 
 Counterpart of flybody_tpu/physics/smooth.py, batched over a leading env
-dimension. With an arrow partition (the walking fly) M stays packed
-(`crb_packed`): com_vel .. actuation are then the plain version of kernel
-K2 (ops/force_stage.py), and factor_solve_m and euler run the arrow
-factor+solve, kernel K3 (ops/arrow.py). Without one (several flies) M is
-dense (`crb`), and factor_solve_m, solve_m and euler run the dense
-Cholesky kernels, rows 15-17 (ops/cholesky.py). The form is read from
-qM's rank, as the JAX package does.
+dimension. The engine keeps the walking fly's M packed (`crb_packed`):
+com_vel .. actuation are then the plain version of kernel K2
+(ops/force_stage.py). `fwd_smooth` / `step_smooth` form a dense M (`crb`)
+on any model. The factor and solves dispatch as the JAX package's do, on
+the arrow partition and on the rank of qM (of qLD for `solve_m`):
+
+  * qM packed: the arrow kernels on the packed layout (ops/arrow.py: K3
+    fused factor + solve, row 18 factor, row 19 substitution);
+  * qM dense, with an arrow partition (the walking fly's `crb`): the same
+    arrow kernels on the dense matrix; the factor qLD is packed;
+  * qM dense, no partition (several flies): the dense Cholesky kernels
+    (ops/cholesky.py: row 14 factor, 15 and 16 substitutions, 17 fused).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from flybody_tpu_torch.model import spec as _s
 from flybody_tpu_torch.model.spec import FlyModel
 from flybody_tpu_torch.ops import arrow as _ar
 from flybody_tpu_torch.ops import cholesky as _chol
+from flybody_tpu_torch.physics import fluid as _fl
 from flybody_tpu_torch.physics import kinematics as _kin
 from flybody_tpu_torch.physics import math as sm
 from flybody_tpu_torch.physics.state import Data
@@ -119,23 +125,64 @@ def crb_packed(model: FlyModel, data: Data) -> Data:
     return data.replace(qM=Mp)
 
 
+def _with_diag(model: FlyModel, M, diag):
+    """M + diag(diag) for M packed or dense."""
+    if M.dim() == 4:
+        return _ar.add_diag_packed(_ar.build_partition(model.meta), M, diag)
+    return M + torch.diag_embed(diag.expand(M.shape[:2]))
+
+
+def factor_m(model: FlyModel, data: Data, extra_diag=None) -> Data:
+    """qLD: the factor of qM + diag(extra_diag) (extra_diag (nv,) or (B,
+    nv)): the packed arrow factor (row 18) when the model has an arrow
+    partition, qM packed or dense; the dense lower factor (row 14)
+    otherwise."""
+    M = data.qM if extra_diag is None else _with_diag(model, data.qM,
+                                                      extra_diag)
+    part = _ar.build_partition(model.meta)
+    if part is None:
+        return data.replace(qLD=_chol.chol(M.contiguous()))
+    return data.replace(qLD=_ar.factor(part, M.contiguous()))
+
+
 def factor_solve_m(model: FlyModel, data: Data, rhs):
     """Factor of qM fused with the solve qM x = rhs: the arrow kernel K3
-    on a packed qM, row 17 on a dense one."""
-    if data.qM.dim() == 3:
+    (qM packed or dense) with an arrow partition, row 17 without."""
+    part = _ar.build_partition(model.meta)
+    if part is None:
         qLD, x = _chol.chol_solve(data.qM, rhs)
     else:
-        part = _ar.build_partition(model.meta)
         qLD, x = _ar.factor_solve(part, data.qM, rhs)
     return data.replace(qLD=qLD), x
 
 
-def solve_m(data: Data, rhs):
-    """qM x = rhs by the dense factor qLD: rhs (B, nv) by row 15, (B, nv,
-    m) by row 16 (the dense noslip's M^-1 J_t^T)."""
+def solve_m(model: FlyModel, data: Data, rhs):
+    """qM x = rhs by the factor qLD; rhs (B, nv) or (B, nv, m). A packed
+    arrow factor takes row 19; a dense one row 15 (one right-hand side) or
+    row 16 (several: the dense noslip's M^-1 J_t^T)."""
+    if data.qLD.dim() == 4:
+        return _ar.solve(_ar.build_partition(model.meta), data.qLD, rhs)
     if rhs.dim() == 2:
         return _chol.cho_solve(data.qLD, rhs)
     return _chol.cho_solve_multi(data.qLD, rhs)
+
+
+def fwd_smooth(model: FlyModel, data: Data) -> Data:
+    """Everything up to (but excluding) constraints, in the JAX package's
+    order with a dense M (`crb`) on any model: fills qfrc_smooth."""
+    data, _, _ = _kin.fwd_position_smooth(model, data)
+    data = com_vel(model, data)
+    data = tendon_vel(model, data)
+    data = crb(model, data)
+    data = rne(model, data)
+    data = passive(model, data)
+    data = _fl.fluid(model, data)
+    data = actuation(model, data)
+    qfrc_smooth = (data.qfrc_passive + data.qfrc_fluid + data.qfrc_actuator
+                   + xfrc_accumulate(model, data) - data.qfrc_bias)
+    if data.qfrc_applied is not None:
+        qfrc_smooth = qfrc_smooth + data.qfrc_applied
+    return data.replace(qfrc_smooth=qfrc_smooth)
 
 
 def rne(model: FlyModel, data: Data) -> Data:
@@ -307,21 +354,24 @@ def advance_act(model: FlyModel, data: Data, dt):
 
 
 def euler(model: FlyModel, data: Data) -> Data:
-    """Semi-implicit Euler with implicit joint damping (mj_Euler)."""
+    """Semi-implicit Euler with implicit joint damping (mj_Euler): qacc =
+    (qM + dt diag(damping))^-1 qfrc by factor_solve_m's dispatch."""
     dt = model.timestep
     qfrc = data.qfrc_smooth
     if data.qfrc_constraint is not None:
         qfrc = qfrc + data.qfrc_constraint
-    damp = dt * model.dof_damping
-    if data.qM.dim() == 3:
-        qLD, qacc = _chol.chol_solve(data.qM + torch.diag(damp), qfrc)
-    else:
-        part = _ar.build_partition(model.meta)
-        Md = _ar.add_diag_packed(part, data.qM, damp)
-        qLD, qacc = _ar.factor_solve(part, Md, qfrc)
-    data = data.replace(qLD=qLD)
+    Md = _with_diag(model, data.qM, dt * model.dof_damping)
+    damped, qacc = factor_solve_m(model, data.replace(qM=Md), qfrc)
+    data = data.replace(qLD=damped.qLD)
     act = advance_act(model, data, dt)
     qvel = data.qvel + dt * qacc
     qpos = integrate_pos(model, data.qpos, qvel, dt)
     return data.replace(qpos=qpos, qvel=qvel, act=act, qacc=qacc,
                         time=data.time + dt)
+
+
+def step_smooth(model: FlyModel, data: Data) -> Data:
+    """One contact-free physics step: fwd_smooth, then euler."""
+    data = fwd_smooth(model, data)
+    data = data.replace(qfrc_constraint=torch.zeros_like(data.qfrc_smooth))
+    return euler(model, data)

@@ -9,17 +9,26 @@ when every dof hangs from one kinematic root, and otherwise (several
 flies) from the plain multi-tree form with a reference point per dof
 (`contact_rows_multi`), as the JAX package does.
 
-On a packed block-arrow M (the walking fly), `solve` dispatches as the
-JAX package does: iterations <= refactor period runs the whole solve in
-one launch of kernel 9 (`newton_fused.newton_solve`); otherwise each
-refactor block assembles the packed Hessian (bf16-rounded J^T W J
-operands at float32, as the JAX split form) and the Woodbury rows here and
-launches kernel 8 (`newton_fused.newton_block`); `noslip` launches kernel
-11 (`noslip_gs.noslip_fused`). On a dense M (no arrow partition) they run
-the JAX package's dense branches: each fresh Newton step assembles the
-dense Hessian and factors and solves it (row 17, ops/cholesky.py), reuse
-steps substitute with the last factor (row 15), every step's exact line
-search is row 13 (ops/linesearch.py); the noslip solves P = M^-1 J_t^T by
+`solve` dispatches as the JAX package does, on the arrow partition and on
+the rank of qM:
+  * partition, qM packed (the engine's walking fly): iterations <= refactor
+    period runs the whole solve in one launch of kernel 9
+    (`newton_fused.newton_solve`); otherwise each refactor block assembles
+    the packed Hessian (bf16-rounded J^T W J operands at float32, as the
+    JAX split form) and the Woodbury rows here and launches kernel 8
+    (`newton_fused.newton_block`);
+  * partition, qM dense (the walking fly's `smooth.crb`, as
+    tools/profile_engine.py prepares it): `solve_arrow_dense`, the arrow
+    Newton step on the dense Hessian with cross-limb contact rows carried
+    by Woodbury (K3 with 1 + 3 SB right-hand sides, row 14 on the
+    capacitance, row 15, row 13), and the reuse iterations of each
+    refactor block in one launch of kernel 10 (`newton_fused.reuse`);
+  * no partition (several flies): `solve_dense`, each fresh Newton step
+    assembles the dense Hessian and factors and solves it (row 17,
+    ops/cholesky.py), reuse steps substitute with the last factor (row
+    15), every step's exact line search is row 13 (ops/linesearch.py).
+`noslip` dispatches on the factor's rank: a packed arrow factor launches
+kernel 11 (`noslip_gs.noslip_fused`), a dense one solves P = M^-1 J_t^T by
 row 16 and sweeps by row 12 (noslip_gs.gs).
 """
 
@@ -72,6 +81,24 @@ class EfcRows:
     con_body2: torch.Tensor
     con_self: torch.Tensor
     con_break: torch.Tensor
+
+    def index(self, idx) -> 'EfcRows':
+        """The rows of envs `idx` (the static limit tables stay)."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name)[idx]
+            for f in dataclasses.fields(self)
+            if torch.is_tensor(getattr(self, f.name))})
+
+    def to(self, device=None, dtype=None) -> 'EfcRows':
+        """On `device`, floating fields in `dtype` (None: as they are)."""
+        kw = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if torch.is_tensor(v):
+                kw[f.name] = v.to(device=device, dtype=(
+                    dtype if dtype is not None and v.is_floating_point()
+                    else None))
+        return dataclasses.replace(self, **kw)
 
 
 @functools.lru_cache(maxsize=8)
@@ -238,31 +265,31 @@ def solve(model: FlyModel, data: Data, efc: EfcRows, a_free,
           refactor_period: int, sb_break: int):
     """Newton solve for qacc; returns (qacc, qfrc_constraint, f_l, f_c).
 
-    Each block of `refactor_period` iterations assembles the packed
-    Hessian, factors it (block-arrow) and carries up to `sb_break`
-    cross-limb contact slots by a rank-3*SB Woodbury correction;
-    iterations inside a block reuse the factor. The starting point is
-    whichever of (warmstart, a_free) has the lower primal cost. A dense
-    qM takes the dense branch (`solve_dense`)."""
+    Each block of `refactor_period` iterations assembles the Hessian,
+    factors it (block-arrow) and carries up to `sb_break` cross-limb
+    contact slots by a rank-3*SB Woodbury correction; iterations inside a
+    block reuse the factor. The starting point is whichever of (warmstart,
+    a_free) has the lower primal cost. A model without an arrow partition
+    takes the dense branch (`solve_dense`), a dense qM with one
+    `solve_arrow_dense`."""
     M = data.qM
-    if M.dim() == 3:
+    part = _ar.build_partition(model.meta)
+    if part is None:
         return solve_dense(M, efc, a_free, iterations, ls_iterations,
                            warmstart, refactor_period)
-    part = _ar.build_partition(model.meta)
     ops = operands(efc, sb_break)
+    if M.dim() == 3:
+        return solve_arrow_dense(part, M, efc, ops, a_free, iterations,
+                                 ls_iterations, warmstart, refactor_period)
     if iterations <= max(1, refactor_period):
         return _nf.newton_solve(*solve_args(part, M, efc, ops, a_free,
                                            warmstart),
                                 ls_iterations, iterations)
 
     st = start_state(part, M, efc, ops, a_free, warmstart)
-    p = max(1, refactor_period)
-    done = 0
-    while done < iterations:
-        n = min(p, iterations - done)
+    for n in _blocks(iterations, refactor_period):
         st = _nf.newton_block(*block_args(part, M, efc, ops, st),
                               ls_iterations, n)
-        done += n
 
     x, _, jar_l, jar_c = st
     f_l, f_c = _forces(efc, jar_l, jar_c)
@@ -270,10 +297,6 @@ def solve(model: FlyModel, data: Data, efc: EfcRows, a_free,
 
 
 # ------------------------------------------------------------ dense path
-
-
-def _mv(M, x):
-    return torch.einsum('bij,bj->bi', M, x)
 
 
 def _forces(efc: EfcRows, jar_l, jar_c):
@@ -299,21 +322,23 @@ def primal_cost_dense(M, efc: EfcRows, a_free, x):
     jl = x[:, efc.lim_dof] * x.new_tensor(efc.lim_sign) - efc.lim_aref
     res = cone_residual(_nf.jv(efc.con_J, x) - efc.con_aref, efc.con_mu,
                         efc.con_frictional, efc.con_active)
-    return (0.5 * torch.sum(dx * _mv(M, dx), -1)
+    return (0.5 * torch.sum(dx * _ar.matvec(None, M, dx), -1)
             + 0.5 * torch.sum(efc.lim_D * efc.lim_active * (jl < 0) * jl ** 2,
                               -1)
             + 0.5 * torch.sum(efc.con_D[..., None] * res ** 2, (-2, -1)))
 
 
-def hessian_dense(M, efc: EfcRows, jar_l, jar_c):
+def hessian_dense(M, efc: EfcRows, jar_l, jar_c, active=None):
     """Newton Hessian M + J^T (D H) J + the limit diagonal at the residuals
-    (B, nv, nv). At float32 the J^T (H J) operands are rounded to bfloat16
-    and multiplied in float32, as the JAX package's MXU form
-    (solver.py:717-723)."""
+    (B, nv, nv), over the contact slots `active` (None: efc.con_active; the
+    arrow branch leaves the cross-limb slots out). At float32 the J^T (H J)
+    operands are rounded to bfloat16 and multiplied in float32, as the JAX
+    package's MXU form (solver.py:717-723)."""
     Bn, K, _, nv = efc.con_J.shape
     hd = efc.lim_D * efc.lim_active * (jar_l < 0)
     Hc = cone_hessian(jar_c, efc.con_mu, efc.con_frictional,
-                      efc.con_active) * efc.con_D[..., None, None]
+                      efc.con_active if active is None else active
+                      ) * efc.con_D[..., None, None]
     J2 = efc.con_J.reshape(Bn, 3 * K, nv)
     JH = torch.einsum('bkrs,bksv->bkrv', Hc, efc.con_J).reshape(Bn, 3 * K,
                                                                  nv)
@@ -326,6 +351,52 @@ def hessian_dense(M, efc: EfcRows, jar_l, jar_c):
             + torch.diag_embed(_nf.lim_scatter(nv, efc.lim_dof, hd)))
 
 
+def dense_start(M, efc: EfcRows, a_free, warmstart):
+    """The carried Newton state (x, M (x - a_free), jar_l, jar_c) on a
+    dense M, at the one of (warmstart, a_free) with the lower primal
+    cost."""
+    x = a_free
+    if warmstart is not None:
+        x = torch.where((primal_cost_dense(M, efc, a_free, warmstart)
+                         < primal_cost_dense(M, efc, a_free, a_free))[:, None],
+                        warmstart, a_free)
+    return (x, _ar.matvec(None, M, x - a_free),
+            x[:, efc.lim_dof] * x.new_tensor(efc.lim_sign) - efc.lim_aref,
+            _nf.jv(efc.con_J, x) - efc.con_aref)
+
+
+def grad_dense(efc: EfcRows, st):
+    """The cost's gradient at the carried state."""
+    f_l, f_c = _forces(efc, st[2], st[3])
+    return st[1] - _jt_forces(efc, f_l, f_c)
+
+
+def ls_and_update(M, efc: EfcRows, st, dx, ls_iterations: int):
+    """The exact line search along dx (row 13) and the carried state's
+    linear update, M dense."""
+    x, msm, jar_l, jar_c = st
+    mdx = _ar.matvec(None, M, dx)
+    jv_l = dx[:, efc.lim_dof] * dx.new_tensor(efc.lim_sign)
+    jv_c = _nf.jv(efc.con_J, dx)
+    lim = torch.stack([jar_l, jv_l, efc.lim_active, efc.lim_D], 1)
+    con = torch.cat([jar_c.transpose(1, 2), jv_c.transpose(1, 2),
+                     torch.stack([efc.con_mu, efc.con_frictional,
+                                  efc.con_active, efc.con_D], 1)], 1)
+    sc = torch.stack([torch.sum(msm * dx, -1), torch.sum(dx * mdx, -1)], 1)
+    alpha = _ls.line_search(lim.contiguous(), con.contiguous(),
+                            sc.contiguous(), 6, ls_iterations)
+    a = alpha[:, None]
+    return (x + a * dx, msm + a * mdx, jar_l + a * jv_l,
+            jar_c + alpha[:, None, None] * jv_c)
+
+
+def _blocks(iterations: int, refactor_period: int):
+    """The iteration count of each refactor block: one fresh step and
+    n - 1 reuse steps, the tail block truncated."""
+    p = max(1, refactor_period)
+    return [min(p, iterations - i) for i in range(0, iterations, p)]
+
+
 def solve_dense(M, efc: EfcRows, a_free, iterations: int, ls_iterations: int,
                 warmstart, refactor_period: int):
     """The dense Newton solve (solver.py's dense branch): the start is the
@@ -335,55 +406,72 @@ def solve_dense(M, efc: EfcRows, a_free, iterations: int, ls_iterations: int,
     row 15), each followed by the exact line search (row 13) and the
     carried state's linear update. Returns (qacc, qfrc_constraint, f_l,
     f_c)."""
-    sign = a_free.new_tensor(efc.lim_sign)
-    x = a_free
-    if warmstart is not None:
-        x = torch.where((primal_cost_dense(M, efc, a_free, warmstart)
-                         < primal_cost_dense(M, efc, a_free, a_free))[:, None],
-                        warmstart, a_free)
-    st = (x, _mv(M, x - a_free), x[:, efc.lim_dof] * sign - efc.lim_aref,
-          _nf.jv(efc.con_J, x) - efc.con_aref)
+    st = dense_start(M, efc, a_free, warmstart)
     eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
-
-    def grad(st):
-        f_l, f_c = _forces(efc, st[2], st[3])
-        return st[1] - _jt_forces(efc, f_l, f_c)
-
-    def ls_and_update(st, dx):
-        x, msm, jar_l, jar_c = st
-        mdx = _mv(M, dx)
-        jv_l = dx[:, efc.lim_dof] * sign
-        jv_c = _nf.jv(efc.con_J, dx)
-        lim = torch.stack([jar_l, jv_l, efc.lim_active, efc.lim_D], 1)
-        con = torch.cat([jar_c.transpose(1, 2), jv_c.transpose(1, 2),
-                         torch.stack([efc.con_mu, efc.con_frictional,
-                                      efc.con_active, efc.con_D], 1)], 1)
-        sc = torch.stack([torch.sum(msm * dx, -1), torch.sum(dx * mdx, -1)],
-                         1)
-        alpha = _ls.line_search(lim.contiguous(), con.contiguous(),
-                                sc.contiguous(), 6, ls_iterations)
-        a = alpha[:, None]
-        return (x + a * dx, msm + a * mdx, jar_l + a * jv_l,
-                jar_c + alpha[:, None, None] * jv_c)
-
-    p = max(1, refactor_period)
-    done = 0
-    while done < iterations:
-        n = min(p, iterations - done)
+    for n in _blocks(iterations, refactor_period):
         H = hessian_dense(M, efc, st[2], st[3]) + 1e-12 * eye
-        L, sol = _chol.chol_solve(H.contiguous(), grad(st).contiguous())
-        st = ls_and_update(st, -sol)
+        L, sol = _chol.chol_solve(H.contiguous(),
+                                  grad_dense(efc, st).contiguous())
+        st = ls_and_update(M, efc, st, -sol, ls_iterations)
         for _ in range(n - 1):
-            st = ls_and_update(st, -_chol.cho_solve(L, grad(st).contiguous()))
-        done += n
+            st = ls_and_update(M, efc, st, -_chol.cho_solve(
+                L, grad_dense(efc, st).contiguous()), ls_iterations)
 
     x, _, jar_l, jar_c = st
     f_l, f_c = _forces(efc, jar_l, jar_c)
     return x, _jt_forces(efc, f_l, f_c), f_l, f_c
 
 
-def noslip_dense(data: Data, efc: EfcRows, qacc, f_c, iterations: int,
-                 max_contacts: int | None):
+def fresh_step_arrow(part, M, efc: EfcRows, ops: Operands, st,
+                     ls_iterations: int):
+    """The arrow Newton step on a dense M (solver.py:835-860): the dense
+    Hessian over the arrow-compatible slots (ops.hess_active) + 1e-12 I
+    is factored block-arrow and solved for the gradient and the Woodbury
+    rows U of the selected cross-limb slots in one launch (K3, 1 + 3 SB
+    right-hand sides): t = A^-1 g, Z = A^-1 U^T; the capacitance C = I +
+    U Z is factored (row 14, with 1e-10 I), w = C^-1 U t (row 15), dx =
+    -(t - Z w), then the line search (row 13). Returns the new state and
+    the block's factor (F, Z, U, LC)."""
+    nv, SB3 = M.shape[-1], 3 * ops.bsel.shape[1]
+    eye = torch.eye(nv, dtype=M.dtype, device=M.device)
+    eye_sb = torch.eye(SB3, dtype=M.dtype, device=M.device)
+    H = hessian_dense(M, efc, st[2], st[3], ops.hess_active) + 1e-12 * eye
+    U = _nf.woodbury_rows(ops.conJ, ops.bsel, st[3], efc.con_mu,
+                          efc.con_frictional, efc.con_D, ops.brk)
+    rhs = torch.cat([grad_dense(efc, st)[..., None], U.transpose(1, 2)], -1)
+    F, sol = _ar.factor_solve(part, H.contiguous(), rhs.contiguous())
+    t, Z = sol[..., 0], sol[..., 1:].contiguous()
+    LC = _chol.chol((eye_sb + U @ Z + 1e-10 * eye_sb).contiguous())
+    w = _chol.cho_solve(LC, torch.einsum('bsv,bv->bs', U, t).contiguous())
+    dx = -(t - torch.einsum('bvs,bs->bv', Z, w))
+    return ls_and_update(M, efc, st, dx, ls_iterations), (F, Z, U, LC)
+
+
+def solve_arrow_dense(part, M, efc: EfcRows, ops: Operands, a_free,
+                      iterations: int, ls_iterations: int, warmstart,
+                      refactor_period: int):
+    """The arrow Newton solve on a dense M (solver.py:933-958): from the
+    warmstart choice, blocks of one fresh arrow step (`fresh_step_arrow`)
+    and refactor_period - 1 reuse iterations with its factor in one launch
+    of kernel 10. Cross-limb slots beyond the Woodbury budget stay in the
+    gradient and the cost but leave the Hessian. Returns (qacc,
+    qfrc_constraint, f_l, f_c)."""
+    st = dense_start(M, efc, a_free, warmstart)
+    for n in _blocks(iterations, refactor_period):
+        st, (F, Z, U, LC) = fresh_step_arrow(part, M, efc, ops, st,
+                                             ls_iterations)
+        if n > 1:
+            st = _nf.reuse(part, efc.lim_dof, efc.lim_sign, F, M, ops.conJ,
+                           Z, U, LC, *(s.contiguous() for s in st),
+                           ops.lim_params, ops.con_params, ls_iterations,
+                           n - 1)
+    x, _, jar_l, jar_c = st
+    f_l, f_c = _forces(efc, jar_l, jar_c)
+    return x, _jt_forces(efc, f_l, f_c), f_l, f_c
+
+
+def noslip_dense(model: FlyModel, data: Data, efc: EfcRows, qacc, f_c,
+                 iterations: int, max_contacts: int | None):
     """The dense noslip (solver.py's dense branch) on the swept prefix:
     P = M^-1 J_t^T by the dense factor data.qLD (smooth.solve_m: row 16),
     the clamped 2x2 inverses, then the sweeps (row 12). Returns (x, ft
@@ -391,7 +479,7 @@ def noslip_dense(data: Data, efc: EfcRows, qacc, f_c, iterations: int,
     Bn, Kall, _, nv = efc.con_J.shape
     K = Kall if max_contacts is None else min(max_contacts, Kall)
     Jt = efc.con_J[:, :K, 1:, :].contiguous()  # (B, K, 2, nv)
-    P = _sm.solve_m(data, Jt.reshape(Bn, 2 * K, nv).transpose(
+    P = _sm.solve_m(model, data, Jt.reshape(Bn, 2 * K, nv).transpose(
         1, 2).contiguous())  # (B, nv, 2K)
     Pt = P.reshape(Bn, nv, K, 2).permute(0, 2, 3, 1).contiguous()
     use = (efc.con_active[:, :K] * efc.con_frictional[:, :K] > 0).to(
@@ -427,8 +515,8 @@ def noslip(model: FlyModel, data: Data, efc: EfcRows, qacc, f_c,
     friction circle. Returns (qacc, f_c, the change of qfrc_constraint).
     A dense factor takes the dense branch (`noslip_dense`)."""
     if data.qLD.dim() == 3:
-        x, ft, Jt, ft0 = noslip_dense(data, efc, qacc, f_c, iterations,
-                                      max_contacts)
+        x, ft, Jt, ft0 = noslip_dense(model, data, efc, qacc, f_c,
+                                      iterations, max_contacts)
     else:
         part = _ar.build_partition(model.meta)
         args = noslip_operands(data.qLD, efc, qacc, f_c, max_contacts)

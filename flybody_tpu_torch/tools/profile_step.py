@@ -59,7 +59,7 @@ HAND_KERNELS = {
     'mpr_kernel': ('collision',),
     'force_stage_kernel': ('force',),
     'efc_kernel': ('constraint_rows',),
-    'arrow_factor_solve_kernel': ('factor_solve', 'euler'),
+    'arrow_kernel': ('factor_solve', 'euler'),
     'newton_kernel': ('newton',),
     'noslip_kernel': ('noslip',),
     'sens_stage_kernel': ('sensors',),

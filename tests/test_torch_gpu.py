@@ -28,22 +28,29 @@ def env():
 
 @pytest.mark.gpu
 def test_kernels_match_plain_versions_on_the_card(env):
-    """The fifteen kernels (K1-K4, the narrowphase, the merged MPR, the
+    """The nineteen kernels (K1-K4, the narrowphase, the merged MPR, the
     contact rows, the Newton block, the whole Newton solve, the fused
-    noslip; and on the two-fly scene's dense path the noslip sweeps, the
-    line search and the three dense Cholesky kernels) against their plain
-    versions (chip_smoke.py's kernel phase, which raises on a
-    disagreement) at its batches and seed: the MPR, Newton, line-search
-    and factor+solve kernels' limits are set on the distribution over
-    those batches."""
+    noslip; on the two-fly scene's dense path the noslip sweeps, the line
+    search and the three dense Cholesky kernels; on the walking model's
+    unpacked M the dense factor (row 14), the arrow factor and
+    substitution (rows 18, 19) and the Newton reuse kernel (row 10))
+    against their plain versions (chip_smoke.py's kernel phases, which
+    raise on a disagreement) at its batches and seed: the MPR, Newton,
+    line-search and factor kernels' limits are set on the distribution
+    over those batches."""
     sys.path.insert(0, REPO)
     import chip_smoke
+    from flybody_tpu_torch.tools import profile_engine
     kernels = chip_smoke.kernel_phase(env, chip_smoke.BATCH, chip_smoke.SEED,
                                       {})
     kernels += chip_smoke.dense_kernels(chip_smoke.TWO_FLY_BATCH,
                                         chip_smoke.SEED, {})
+    args = profile_engine.parser().parse_args(
+        ['--batch', str(chip_smoke.UNPACKED_BATCH)])
+    kernels += chip_smoke.unpacked_kernels(
+        env.model, args, chip_smoke.UNPACKED_BATCH, chip_smoke.SEED, {})
     assert sorted(k['name'] for k in kernels) == sorted(chip_smoke.SOURCES)
-    assert len(chip_smoke.SOURCES) == 15
+    assert len(chip_smoke.SOURCES) == 19
 
 
 @pytest.mark.gpu
@@ -92,6 +99,57 @@ def test_newton_block_refuses_what_its_kernel_does_not_take(env):
     with pytest.raises(ValueError, match='contiguous'):
         nf.newton_block(*args(U=torch.zeros(B, nv, SB3,
                                             device=dev).transpose(1, 2)))
+
+
+@pytest.mark.gpu
+def test_unpacked_wrappers_refuse_what_their_kernels_do_not_take(env):
+    """The arrow factor and substitution (rows 18, 19; K3's dense form),
+    the dense factor (row 14) and the reuse kernel (row 10) raise on a
+    float64 or a non-contiguous CUDA operand instead of running their
+    plain versions."""
+    from flybody_tpu_torch.ops import arrow, cholesky
+    from flybody_tpu_torch.ops import newton_fused as nf
+    from flybody_tpu_torch.physics import solver
+    part = arrow.build_partition(env.model.meta)
+    lim_dof, lim_sign, _ = solver.limit_tables(env.model.meta)
+    B, K, SB3, L, nv = 2, 4, 6, len(lim_dof), part.nv
+    dev = torch.device('cuda')
+    A = torch.eye(nv, device=dev).expand(B, nv, nv).contiguous()
+    b = torch.ones(B, nv, device=dev)
+    F = arrow.factor(part, A)
+    arrow.solve(part, F, b[..., None].expand(B, nv, 3).contiguous())
+    arrow.factor_solve(part, A, b)
+    with pytest.raises(TypeError, match='float32'):
+        arrow.factor(part, A.double())
+    with pytest.raises(ValueError, match='contiguous'):
+        arrow.solve(part, F, b[..., None].expand(B, nv, 3))
+    with pytest.raises(TypeError, match='float32'):
+        arrow.factor_solve(part, A, b.double())
+    cholesky.chol(A[:, :24, :24].contiguous())
+    with pytest.raises(ValueError, match='contiguous'):
+        cholesky.chol(A[:, :24, :24])
+
+    def args(**over):
+        a = dict(F=F, M=A, conJ=torch.zeros(B, K, 3, nv, device=dev),
+                 Z=torch.zeros(B, nv, SB3, device=dev),
+                 U=torch.zeros(B, SB3, nv, device=dev),
+                 LC=torch.eye(SB3, device=dev).expand(B, SB3, SB3)
+                 .contiguous(),
+                 x=torch.zeros(B, nv, device=dev),
+                 msm=torch.zeros(B, nv, device=dev),
+                 jar_l=torch.zeros(B, L, device=dev),
+                 jar_c=torch.zeros(B, K, 3, device=dev),
+                 lim_params=torch.zeros(B, 2, L, device=dev),
+                 con_params=torch.ones(B, 4, K, device=dev))
+        a.update(over)
+        return (part, lim_dof, lim_sign) + tuple(a.values()) + (8, 1)
+
+    nf.reuse(*args())  # the well-formed call launches
+    with pytest.raises(TypeError, match='float32'):
+        nf.reuse(*args(M=A.double()))
+    with pytest.raises(ValueError, match='contiguous'):
+        nf.reuse(*args(Z=torch.zeros(B, SB3, nv, device=dev).transpose(1,
+                                                                        2)))
 
 
 @pytest.mark.gpu
