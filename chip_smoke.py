@@ -3,15 +3,19 @@
 
     python3 chip_smoke.py            # from the repository root
 
-Three paths are driven, each the counterpart of the JAX package's default
+These paths are driven, each the counterpart of the JAX package's default
 configuration (no kill switch in its dispatch gate,
-flybody_tpu/ops/dispatch.py), so every TPU kernel that the JAX package's
-step launches on them runs here as a hand-written CUDA kernel:
-walk_imitation's batched step at both solver presets (one fly, the
-block-arrow path), and engine.step on the two-fly scene at both presets
-(model/assets/two_fly.npz: no arrow partition, so the dense path); and
-tools/profile_engine.py's stage chain, the walking model with a dense mass
-matrix (the arrow path on an unpacked M).
+flybody_tpu/ops/dispatch.py) or of one named switch, so every TPU kernel
+that the JAX package launches on them runs here as a hand-written CUDA
+kernel: walk_imitation's batched step at both solver presets (one fly, the
+block-arrow path) and at `default_full` (the JAX package with
+FLYBODY_NEWTON_BLOCK_FULL=1: the Hessian assembled in the Newton kernel);
+engine.step on the two-fly scene at both presets
+(model/assets/two_fly.npz: no arrow partition, so the dense path); the
+collision tools tools/profile_collide.py and tools/profile_micro.py (the
+dense collide, the per-type-pair MPR); and tools/profile_engine.py's stage
+chain, the walking model with a dense mass matrix (the arrow path on an
+unpacked M).
 
 Phases (any failure exits non-zero):
   1. device: require CUDA; print the card's name and power limit;
@@ -32,10 +36,18 @@ Phases (any failure exits non-zero):
      wrong controls) on M, a Newton Hessian and the damped Euler matrix,
      the substitutions (rows 15, 16), the noslip sweeps (row 12) and the
      line search (row 13, per search beside one refinement step fewer);
-  4. main path, at each preset (default, bench): walk_imitation(
-     functional=True) reset + 5 control steps at batch 8192; state
-     finite; every kernel's launch count equal to the expected count;
-     env-steps/s;
+     and the last slice's (dense_collision_kernels, block_full_check): row
+     5 on the dense collide's 1,213 slots (capsule-capsule included), row
+     20 on the seven MPR groups' candidates per near pair beside two wrong
+     controls that must fail (mpr_gate), row 7 on the dense make_efc's
+     2,048 candidates (K 64), and row 9's block-full mode on the default
+     forward pass through newton_checks beside three wrong controls that
+     must fail (a bf16-rounded Hessian, one iteration more, one fewer);
+  4. main path, at each preset (default, default_full, bench):
+     walk_imitation(functional=True) reset + 5 control steps at batch
+     8192; state finite; every kernel's launch count equal to the
+     expected count (default_full: 100 block-full launches a control step,
+     no block launch); env-steps/s, default_full's beside default's;
   5. CPU check, at each preset: 64 envs of the reset state stepped once on
      the CPU (plain versions) against the card's step, per env (cpu_phase;
      read, not held, at the bench preset), and one substep's forward pass
@@ -49,9 +61,13 @@ Phases (any failure exits non-zero):
      (held at the default preset: the card no further from the float64
      answer than the CPU's float32, since float32 does not resolve this
      substep to 1e-3 in every env; read at the bench one).
-  7. unpacked: tools/profile_engine.py's stage chain on the walking model
-     with a dense mass matrix at batch 8192 (unpacked_phase): one pass
-     with exact launch counts (rows 18 and 19 once, K3 five times: four
+  7. tools (tools_phase): one profile_collide pass (the seven groups'
+     per-pair MPR launches, the FULL collide's rows 5 and 6) and one
+     profile_micro chain at batch 8192, every launch counted exactly and
+     every output finite, then both tables;
+  8. unpacked: tools/profile_engine.py's stage chain on the walking model
+     with a dense mass matrix and the dense collide at batch 8192
+     (unpacked_phase): one pass with exact launch counts (rows 18 and 19 once, K3 five times: four
      fresh arrow Newton steps with 1 + 3 SB right-hand sides and euler;
      rows 14, 15, 13 and the reuse kernel, row 10, four times; row 11 and
      K4 once); then on a flailing state's operands the new kernels against
@@ -103,6 +119,8 @@ TPU_REFS = {  # the TPU kernel each port replaces
     'arrow_factor': 'flybody_tpu/ops/arrow.py:524',
     'arrow_solve': 'flybody_tpu/ops/arrow.py:554',
     'newton_reuse': 'flybody_tpu/ops/newton_fused.py:232',
+    'newton_block_full': 'flybody_tpu/ops/newton_fused.py:1038',
+    'mpr_pair': 'flybody_tpu/ops/mpr_kernel.py:334',
 }
 SOURCES = {
     'pos_stage': 'flybody_tpu_torch/csrc/pos_stage.cu',
@@ -124,10 +142,13 @@ SOURCES = {
     'arrow_factor': 'flybody_tpu_torch/csrc/arrow.cu',
     'arrow_solve': 'flybody_tpu_torch/csrc/arrow.cu',
     'newton_reuse': 'flybody_tpu_torch/csrc/newton.cu',
+    'newton_block_full': 'flybody_tpu_torch/csrc/newton.cu',
+    'mpr_pair': 'flybody_tpu_torch/csrc/mpr.cu',
 }
 DENSE = ('noslip_gs', 'line_search', 'cho_solve', 'cho_solve_multi',
          'chol_solve')
 UNPACKED = ('chol', 'arrow_factor', 'arrow_solve', 'newton_reuse')
+LAST = ('newton_block_full', 'mpr_pair')
 PRESETS = ('default', 'bench')
 # Launches of each kernel on the main path: reset (pos_stage once), then
 # per control step (10 substeps).
@@ -136,13 +157,17 @@ PER_STEP = {
                 'force_stage': 10, 'efc_contacts': 10,
                 'arrow_factor_solve': 20, 'sens_stage': 10,
                 'newton_block': 100, 'newton_solve': 0, 'noslip_fused': 10,
-                **{n: 0 for n in DENSE + UNPACKED}},
+                **{n: 0 for n in DENSE + UNPACKED + LAST}},
     'bench': {'pos_stage': 11, 'narrowphase': 10, 'mpr_merged': 10,
               'force_stage': 10, 'efc_contacts': 10,
               'arrow_factor_solve': 20, 'sens_stage': 10,
               'newton_block': 0, 'newton_solve': 10, 'noslip_fused': 10,
-              **{n: 0 for n in DENSE + UNPACKED}},
+              **{n: 0 for n in DENSE + UNPACKED + LAST}},
 }
+# default_full: the default preset with kernel 9's block-full mode in place
+# of the split form (the Hessian assembled in the kernel).
+PER_STEP['default_full'] = dict(PER_STEP['default'], newton_block=0,
+                                newton_block_full=100)
 # The two-fly scene (model/assets/two_fly.npz: two flies, no arrow
 # partition, so the dense path): batch, substeps of its main-path phase,
 # envs re-run on the CPU, and launches of each kernel per substep (the
@@ -179,7 +204,8 @@ NEWTON_ENV_SHARE = 0.98
 F64_SHARE_SLACK = 0.005
 COST_REL_TOL = {'newton_block': (1e-5, 1e-2),  # (median env, batch mean)
                 'newton_solve': (2e-3, 8e-3),
-                'newton_reuse': (1e-5, 1e-2)}  # row 8's
+                'newton_reuse': (1e-5, 1e-2),  # row 8's
+                'newton_block_full': (1e-5, 1e-2)}
 NOSLIP_REL_TOL = 1e-3  # per-index rel. error of the noslip kernel
 NARROW_REL_TOL = 1e-5  # per-slot rel. error of the narrowphase kernel
 EFC_REL_TOL = 1e-5  # per-field rel. error of the contact-row kernel
@@ -393,6 +419,7 @@ def kernel_phase(env, batch, seed, report):
 
     data_in = state.data.replace(qpos=qpos, qvel=qvel, act=act, ctrl=ctrl)
     collision_kernels(model, data_in, entry, report)
+    dense_collision_kernels(model, data_in, entry, report)
     solver_kernels(model, data_in, entry, report)
     report['kernel_checks'] = kernels
     return kernels
@@ -409,9 +436,11 @@ def arrow_flops(part, nrhs: int, factor: bool) -> float:
     return fl
 
 
-def newton_flops(part, K, L, SB3, n_iters, ls_iters, whole: bool) -> float:
-    """Operations of one env's Newton block (whole: with the Hessian and
-    Woodbury assembly and the closing forces)."""
+def newton_flops(part, K, L, SB3, n_iters, ls_iters, whole: bool,
+                 assemble: bool | None = None) -> float:
+    """Operations of one env's Newton block (assemble, by default as
+    whole: with the Hessian and Woodbury assembly; whole: also the
+    warmstart pick and the closing forces)."""
     nv, R3 = part.nv, 3 * K
     msize = (len(part.ds) + 1) * (part.dmax + part.nr) * part.dmax
     ls_eval = 8 * L + 60 * K
@@ -420,11 +449,12 @@ def newton_flops(part, K, L, SB3, n_iters, ls_iters, whole: bool) -> float:
           + (6 + 2 * ls_iters + 1) * ls_eval)
     fl = (arrow_flops(part, SB3, True) + SB3 * SB3 * nv + SB3 ** 3 / 2
           + n_iters * it)
-    if whole:
+    if whole if assemble is None else assemble:
         live = (sum(d * (d + 1) / 2 + part.nr * d for d in part.ds)
                 + part.nr * (part.nr + 1) / 2)
-        fl += (4 * R3 * nv + 2 * msize + 6 * R3 * nv + 2 * live * R3
-               + 2 * SB3 * nv + 2 * R3 * nv + 4 * ls_eval)
+        fl += 6 * R3 * nv + 2 * live * R3 + 2 * SB3 * nv
+    if whole:
+        fl += 4 * R3 * nv + 2 * msize + 2 * R3 * nv + 4 * ls_eval
     return fl
 
 
@@ -479,16 +509,21 @@ def f64(args):
                  else a for a in args)
 
 
-def bf16_hessian_solve_ref(*args):
-    """newton_solve_ref with the split form's bf16-rounded J^T W J: a
-    control, what a whole-solve kernel that rounded like row 8 would give."""
+def bf16_hessian(plain):
+    """`plain`, a plain version that assembles its Hessian in float32
+    (newton_solve_ref, newton_block_full_ref), with the split form's
+    bf16-rounded J^T W J: a control, what a kernel that rounded like row 8
+    would give."""
     from flybody_tpu_torch.ops import newton_fused as nf
-    orig = nf.assemble_hessian
-    nf.assemble_hessian = lambda *a, bf16: orig(*a, bf16=True)
-    try:
-        return nf.newton_solve_ref(*args)
-    finally:
-        nf.assemble_hessian = orig
+
+    def run(*args):
+        orig = nf.assemble_hessian
+        nf.assemble_hessian = lambda *a, bf16: orig(*a, bf16=True)
+        try:
+            return plain(*args)
+        finally:
+            nf.assemble_hessian = orig
+    return run
 
 
 def newton_checks(name, kernel, plain, args, ls, n_it, controls, stats):
@@ -537,7 +572,7 @@ def newton_checks(name, kernel, plain, args, ls, n_it, controls, stats):
 # and csrc/mpr.cu (each multiply, add, divide and square root one; the
 # comparisons and selects not counted).
 NARROW_FLOPS = {(0, 2): 17, (0, 3): 46, (0, 4): 67, (0, 5): 140,
-                (2, 2): 23, (2, 3): 39}  # per pair, by type key
+                (2, 2): 23, (2, 3): 39, (3, 3): 88}  # per pair, by type key
 SUPPORT_FLOPS = {2: 6, 3: 40, 5: 42}  # sphere, capsule, cylinder
 ELLIPSOID_SUPPORT_FLOPS = 51  # any other type code
 
@@ -550,10 +585,20 @@ def mpr_flops(prm, polish: int) -> float:
     witness."""
     t = prm[..., 8:10].round().long().flatten().tolist()
     sup = sum(SUPPORT_FLOPS.get(c, ELLIPSOID_SUPPORT_FLOPS) for c in t)
-    n = prm[..., 0].numel()
+    return _mpr_ops(prm[..., 0].numel(), sup, polish)
+
+
+def _mpr_ops(n: int, sup: float, polish: int) -> float:
+    """mpr_flops of n pairs whose geom supports take `sup` in all."""
     evals = 3 + 10 + 24 + polish + 1
     return evals * (sup + 21 * n) + n * (246 + 10 * 57 + 24 * 79
                                          + polish * 29)
+
+
+def mpr_pair_flops(key, polish: int, n: int) -> float:
+    """mpr_flops of n pairs of type pair `key`."""
+    sup = sum(SUPPORT_FLOPS.get(c, ELLIPSOID_SUPPORT_FLOPS) for c in key)
+    return _mpr_ops(n, n * sup, polish)
 
 
 def efc_flops(K, nv, C) -> float:
@@ -668,46 +713,168 @@ def collision_kernels(model, data_in, entry, report):
 
         # Row 7 on the preset's candidates (the kernels' collide).
         con = collision.collide(model, d, cfg['mpr_top_p'], cfg['cc_top_p'])
-        cand = solver.contact_candidates(model, con)
-        K = cfg['ncon_max']
-        out = ef.contact_rows(model, d, *cand, K)
-        ref = ef.contact_rows_ref(model, d, *cand, K)
-        outs, refs = [out[0]] + out[1], [ref[0]] + ref[1]
-        err, worst = 0.0, 0.0
-        for i, (o, r) in enumerate(zip(outs, refs)):
-            if i - 1 in (14, 15, 18):  # body1, body2, slot id: exactly
-                if not torch.equal(o, r):
-                    raise AssertionError(f'efc_contacts [{preset}]: row '
-                                         f'{i - 1} differs')
-                continue
-            e = (o - r).abs().max().item()
-            err = max(err, e)
-            worst = max(worst, e / max(r.abs().max().item(), 1e-6))
-        log(f'  efc_contacts[{preset}]: max abs {err:.3e}, worst field rel '
-            f'{worst:.3e}; slot and body ids equal')
-        if not worst <= EFC_REL_TOL:
-            raise AssertionError(f'efc_contacts [{preset}] disagrees: '
-                                 f'{worst:.3e}')
-        ms = cuda_ms(lambda: ef.contact_rows(model, d, *cand, K), 20)
-        pms = cuda_ms(lambda: ef.contact_rows_ref(model, d, *cand, K), 5)
-        # Bytes the kernel reads: each candidate's score operands (dist,
-        # includemargin), the whole row of the K selected ones (7 + 14 + 1
-        # floats), qvel, cdof, the subtree CoM, the body-mask and limb
-        # tables; it writes con_J and the 19 rows.
-        C = cand[0].shape[1]
-        byts = (batch * (2 * C + 22 * K) * 4 + nbytes([d.qvel, d.cdof])
-                + batch * 12 + nbytes([model.body_dof_mask])
-                + 4 * meta.nbody + nbytes(outs))
-        fl = batch * efc_flops(K, meta.nv, C)
-        report[f'efc_{preset}'] = dict(candidates=C, slots=K, ms=ms,
-                                       plain_ms=pms, bytes=byts, flops=fl,
-                                       max_abs_err=err, rel_err=worst)
-        if preset == 'default':
-            entry('efc_contacts', err, ms, pms, byts, fl)
-        log(f'efc_contacts ({preset}, C {C}, K {K}): {ms:.3f} ms kernel, '
-            f'{pms:.3f} ms plain, bound '
-            f'{max(byts / HBM_BYTES_PER_S, fl / FP32_FLOPS) * 1e3:.4f} ms; '
-            f'active contacts per env {out[1][1].sum(1).mean().item():.2f}')
+        efc_check(model, d, solver.contact_candidates(model, con),
+                  cfg['ncon_max'], preset, entry if preset == 'default'
+                  else None, report)
+
+
+def efc_check(model, d, cand, K, tag, entry, report):
+    """Row 7 against its plain version on the candidates `cand`: the slot
+    and body ids exactly, every other field within EFC_REL_TOL of its
+    largest value; timed. `entry`: the kernels' JSON entry to fill, or
+    None."""
+    import torch
+    from flybody_tpu_torch.ops import efc_stage as ef
+    batch, meta = d.qpos.shape[0], model.meta
+    out = ef.contact_rows(model, d, *cand, K)
+    ref = ef.contact_rows_ref(model, d, *cand, K)
+    outs, refs = [out[0]] + out[1], [ref[0]] + ref[1]
+    err, worst = 0.0, 0.0
+    for i, (o, r) in enumerate(zip(outs, refs)):
+        if i - 1 in (14, 15, 18):  # body1, body2, slot id: exactly
+            if not torch.equal(o, r):
+                raise AssertionError(f'efc_contacts [{tag}]: row {i - 1} '
+                                     f'differs')
+            continue
+        e = (o - r).abs().max().item()
+        err = max(err, e)
+        worst = max(worst, e / max(r.abs().max().item(), 1e-6))
+    log(f'  efc_contacts[{tag}]: max abs {err:.3e}, worst field rel '
+        f'{worst:.3e}; slot and body ids equal')
+    if not worst <= EFC_REL_TOL:
+        raise AssertionError(f'efc_contacts [{tag}] disagrees: {worst:.3e}')
+    ms = cuda_ms(lambda: ef.contact_rows(model, d, *cand, K), 20)
+    pms = cuda_ms(lambda: ef.contact_rows_ref(model, d, *cand, K), 5)
+    # Bytes the kernel reads: each candidate's score operands (dist,
+    # includemargin), the whole row of the K selected ones (7 + 14 + 1
+    # floats), qvel, cdof, the subtree CoM, the body-mask and limb tables;
+    # it writes con_J and the 19 rows.
+    C = cand[0].shape[1]
+    byts = (batch * (2 * C + 22 * K) * 4 + nbytes([d.qvel, d.cdof])
+            + batch * 12 + nbytes([model.body_dof_mask])
+            + 4 * meta.nbody + nbytes(outs))
+    fl = batch * efc_flops(K, meta.nv, C)
+    report[f'efc_{tag}'] = dict(candidates=C, slots=K, ms=ms, plain_ms=pms,
+                                bytes=byts, flops=fl, max_abs_err=err,
+                                rel_err=worst)
+    if entry is not None:
+        entry('efc_contacts', err, ms, pms, byts, fl)
+    log(f'efc_contacts ({tag}, C {C}, K {K}): {ms:.3f} ms kernel, '
+        f'{pms:.3f} ms plain, bound '
+        f'{max(byts / HBM_BYTES_PER_S, fl / FP32_FLOPS) * 1e3:.4f} ms; '
+        f'active contacts per env {out[1][1].sum(1).mean().item():.2f}')
+
+
+def mpr_gate(rd, name) -> bool:
+    """Whether a run's MPR readings (mpr_pair_stats against the plain
+    version; near misses against float64 beside the plain version's) pass
+    the gate of rows 6 and 20."""
+    r, m64 = rd[name], rd['near_misses_against_float64']
+    return (r['class_share'] >= MPR_CLASS_SHARE
+            and r['near_share'] >= MPR_SHARE
+            and m64[name] <= MPR_F64_RATIO * m64['plain'] + 4)
+
+
+def dense_collision_kernels(model, data_in, entry, report):
+    """The dense collide's kernels on the geometry of the forward pass of
+    collision_kernels: row 5 on every analytic group, capsule-capsule
+    included (per slot, NARROW_REL_TOL); row 20 on the candidates the JAX
+    tools give each of the seven MPR groups (a group's top MPR_TOP_P by
+    bounding sphere, or all its pairs), per near pair beside two wrong
+    controls that must fail the gate (mpr_gate); row 7 on the dense
+    make_efc's candidates (the two-stage tile prefilter: C 2,048, K 64),
+    the slot and body ids exactly."""
+    import torch
+    from flybody_tpu_torch.model import spec
+    from flybody_tpu_torch.ops import mpr_kernel as mk
+    from flybody_tpu_torch.ops import narrowphase as nk
+    from flybody_tpu_torch.physics import collision, kinematics, solver
+
+    batch, meta = data_in.qpos.shape[0], model.meta
+    d, _, _ = kinematics.fwd_position_smooth(model, data_in)
+
+    # Row 5 with the capsule-capsule segment.
+    segs = collision.analytic_segments(meta, False)
+    nargs = (segs, d.geom_xpos, d.geom_xmat, model.geom_size)
+    out = nk.narrowphase(*nargs)
+    err, rel = compare('narrowphase[dense]', out, nk.narrowphase_ref(*nargs),
+                       ('dist', 'pos', 'normal'))
+    if not rel <= NARROW_REL_TOL:
+        raise AssertionError(f'narrowphase (dense) disagrees: rel {rel:.3e}')
+    ms = cuda_ms(lambda: nk.narrowphase(*nargs), 20)
+    pms = cuda_ms(lambda: nk.narrowphase_ref(*nargs), 5)
+    geoms = sorted({g for _, g1, g2, _ in segs for g in g1 + g2})
+    fl = batch * sum(NARROW_FLOPS[key] * len(g1) for key, g1, _, _ in segs)
+    byts = (batch * len(geoms) * 12 * 4 + len(geoms) * 3 * 4
+            + 16 * sum(len(g1) for _, g1, _, _ in segs) + nbytes(out))
+    bound = max(byts / HBM_BYTES_PER_S, fl / FP32_FLOPS) * 1e3
+    report['narrowphase_dense'] = dict(
+        pairs=sum(len(g1) for _, g1, _, _ in segs), slots=out[0].shape[1],
+        ms=ms, plain_ms=pms, bound_ms=bound, max_abs_err=err, rel_err=rel)
+    log(f'narrowphase (dense, {out[0].shape[1]} slots): {ms:.3f} ms kernel, '
+        f'{pms:.3f} ms plain, bound {bound:.4f} ms')
+
+    # Row 20 on each MPR group's candidates.
+    tb = collision.pair_tables(meta)
+    gcat = collision._geom_cat(d)
+    groups = []
+    for key in mk.PAIRS:
+        g1, g2, _ = tb['groups'][key]
+        pg = (collision.topp_geo(model, d, g1, g2, gcat)[1]
+              if len(g1) > collision.MPR_TOP_P
+              else collision.gather_group(model, gcat, g1, g2))
+        groups.append((key, 0 if spec.GEOM_CYLINDER in key else 8,
+                       tuple(t.contiguous() for t in pg)))
+
+    def run(fn):
+        outs = [fn(key, pol, pg) for key, pol, pg in groups]
+        return tuple(torch.cat([o[i] for o in outs], 1) for i in range(2))
+
+    ref = run(lambda k, pol, pg: mk.mpr_pair_ref(*k, pol, *pg))
+    runs = {
+        'kernel': run(lambda k, pol, pg: mk.mpr_pair(*k, pol, *pg)),
+        'plain': ref,
+        'control one refinement iteration fewer': run(
+            lambda k, pol, pg: mk.mpr_pair_ref(
+                *k, pol, *pg, refine_iters=mk._mpr.REFINE_ITERS - 1)),
+        'control polish off': run(
+            lambda k, pol, pg: mk.mpr_pair_ref(*k, 0, *pg))}
+    f64 = run(lambda k, pol, pg: mk.mpr_pair_ref(
+        *k, pol, *(t.double() for t in pg)))
+    rd = {name: mpr_pair_stats(o, ref) for name, o in runs.items()
+          if name != 'plain'}
+    rd['near_misses_against_float64'] = {
+        name: mpr_pair_stats(o, f64)['near_misses']
+        for name, o in runs.items()}
+    rd['candidates'] = {str(k): pg[0].shape[1] for k, _, pg in groups}
+    log('  mpr_pair readings (the seven groups together): '
+        + json.dumps(rd))
+    report['mpr_pair_readings'] = rd
+    if not mpr_gate(rd, 'kernel'):
+        raise AssertionError(f'mpr_pair disagrees: {rd}')
+    for name in runs:
+        if name.startswith('control') and mpr_gate(rd, name):
+            raise AssertionError(f'mpr_pair: the {name} passes the gate: '
+                                 f'{rd}')
+    ms = sum(cuda_ms(lambda: mk.mpr_pair(*k, pol, *pg), 20)
+             for k, pol, pg in groups)
+    pms = sum(cuda_ms(lambda: mk.mpr_pair_ref(*k, pol, *pg), 3)
+              for k, pol, pg in groups)
+    fl = sum(mpr_pair_flops(k, pol, pg[0].shape[0] * pg[0].shape[1])
+             for k, pol, pg in groups)
+    byts = sum(nbytes(pg) + batch * pg[0].shape[1] * 7 * 4
+               for _, _, pg in groups)
+    err = rd['kernel']['near_dist_err_q50_q99_max'][2]
+    entry('mpr_pair', err, ms, pms, byts, fl)
+    n_c = sum(pg[0].shape[1] for _, _, pg in groups)
+    log(f'mpr_pair (the seven groups, {n_c} candidates an env): '
+        f'{ms:.3f} ms kernels, {pms:.3f} ms plain, '
+        f'bound {max(byts / HBM_BYTES_PER_S, fl / FP32_FLOPS) * 1e3:.4f} ms')
+
+    # Row 7 on the dense make_efc's candidates.
+    con = collision.collide(model, d, compact=False)
+    cand = solver.contact_candidates(model, con, 64)
+    efc_check(model, d, cand, 64, 'dense', None, report)
 
 
 def solver_kernels(model, data_in, entry, report):
@@ -766,6 +933,8 @@ def solver_kernels(model, data_in, entry, report):
                   batch * newton_flops(part, K, L, SB3, 1, ls, False))
             log(f'newton_block: {ms:.3f} ms kernel, {pms:.3f} ms plain '
                 f'(K {K}, 3SB {SB3}, ls {ls}, 1 iteration)')
+            block_full_check(part, d, efc, ops, st, stats, ls, entry,
+                             report)
         else:  # row 9, the whole solve
             it = cfg['solver_iterations']
             args = solver.solve_args(part, d.qM, efc, ops, a_free, d.qacc)
@@ -775,7 +944,8 @@ def solver_kernels(model, data_in, entry, report):
                                   o[3][..., 0])
             controls = {
                 'bf16-rounded Hessian':
-                    lambda ls_, n: bf16_hessian_solve_ref(*args, ls_, n),
+                    lambda ls_, n: bf16_hessian(nf.newton_solve_ref)(
+                        *args, ls_, n),
                 'one iteration fewer':
                     lambda ls_, n: nf.newton_solve(*args, ls_, n - 1)}
             o30, r30, out, rd = newton_checks(
@@ -818,6 +988,43 @@ def solver_kernels(model, data_in, entry, report):
             f'{max(byts / HBM_BYTES_PER_S, fl / FP32_FLOPS) * 1e3:.4f} ms')
 
 
+def block_full_check(part, d, efc, ops, st, stats, ls, entry, report):
+    """Row 9's block-full mode on the default preset's forward pass, from
+    the block's start state st, through newton_checks beside three wrong
+    controls that must fail its gate: the bf16-rounded Hessian of the
+    split form, one iteration more and one fewer."""
+    from flybody_tpu_torch.ops import newton_fused as nf
+    from flybody_tpu_torch.physics import solver
+    args = solver.block_full_args(part, d.qM, efc, ops, st)
+    controls = {
+        'bf16-rounded Hessian':
+            lambda ls_, n: bf16_hessian(nf.newton_block_full_ref)(
+                *args, ls_, n),
+        'one iteration more':
+            lambda ls_, n: nf.newton_block_full(*args, ls_, n + 1),
+        'one iteration fewer':
+            lambda ls_, n: nf.newton_block_full(*args, ls_, n - 1)}
+    o30, r30, out, rd = newton_checks(
+        'newton_block_full', nf.newton_block_full, nf.newton_block_full_ref,
+        args, ls, 1, controls, stats)
+    report['newton_readings_default_full'] = rd
+    for c in controls:
+        if not newton_gate_fails('newton_block_full', rd[f'control {c}']):
+            raise AssertionError(f'newton_block_full: the control {c!r} '
+                                 f'passes the gate: {rd}')
+    err, _ = compare('newton_block_full[ls 30]', o30, r30,
+                     ('x', 'msm', 'jar_l', 'jar_c'))
+    ms = cuda_ms(lambda: nf.newton_block_full(*args, ls, 1), 10)
+    pms = cuda_ms(lambda: nf.newton_block_full_ref(*args, ls, 1), 3)
+    K, SB, L = args[4].shape[1], args[5].shape[1], len(efc.lim_dof)
+    batch = args[4].shape[0]
+    entry('newton_block_full', err, ms, pms, nbytes(args[3:]) + nbytes(out),
+          batch * newton_flops(part, K, L, 3 * SB, 1, ls, False,
+                               assemble=True))
+    log(f'newton_block_full: {ms:.3f} ms kernel, {pms:.3f} ms plain '
+        f'(K {K}, SB {SB}, ls {ls}, 1 iteration)')
+
+
 def unpack(part, Mp):
     """Dense symmetric (B, nv, nv) from the packed arrow layout."""
     import torch
@@ -855,7 +1062,9 @@ def counters():
             'chol': (cholesky, 'chol_launches'),
             'arrow_factor': (arrow, 'factor_launches'),
             'arrow_solve': (arrow, 'solve_launches'),
-            'newton_reuse': (newton_fused, 'reuse_launches')}
+            'newton_reuse': (newton_fused, 'reuse_launches'),
+            'newton_block_full': (newton_fused, 'block_full_launches'),
+            'mpr_pair': (mpr_kernel, 'pair_launches')}
 
 
 def main_path_phase(preset, batch, steps, cpu_envs, seed, report):
@@ -2034,6 +2243,103 @@ def unpacked_phase(batch, seed, report):
     return entries, launches
 
 
+# The collision tools' phase (tools_phase): batch, timed calls a line, and
+# the launches of one profile_collide pass (the seven MPR groups' per-pair
+# MPR, then the FULL collide: row 5 once, the merged MPR once) and of one
+# profile_micro chain as it is built: the position stage; the collide
+# groups; the dense collide; make_efc (row 7) for the operands and for its
+# line; factor_m (row 18) and solve_m (row 19) for the operands and for
+# their lines; the dense factor (row 14) for the operands, for its line and
+# for the capacitance of each of the eight fresh arrow steps of `solve
+# 8x6`; its substitution (row 15) for its line and those eight; K3 (1 + 3 SB
+# right-hand sides) and the line search (row 13) eight times; noslip (row
+# 11) once.
+TOOLS_BATCH = 8192
+TOOLS_ITERS = 3
+COLLIDE_PER_PASS = {'mpr_pair': 7, 'narrowphase': 1, 'mpr_merged': 1}
+MICRO_PER_CHAIN = {'pos_stage': 1, 'mpr_pair': 7, 'narrowphase': 1,
+                   'mpr_merged': 1, 'efc_contacts': 2, 'arrow_factor': 2,
+                   'arrow_solve': 2, 'chol': 10, 'cho_solve': 9,
+                   'arrow_factor_solve': 8, 'line_search': 8,
+                   'noslip_fused': 1}
+
+
+def all_finite(obj) -> bool:
+    """Whether every floating tensor in obj (tensors, tuples, lists,
+    dicts, dataclasses) is finite."""
+    import dataclasses
+    import torch
+    if torch.is_tensor(obj):
+        return not obj.is_floating_point() or bool(torch.isfinite(obj).all())
+    if isinstance(obj, (tuple, list)):
+        return all(all_finite(o) for o in obj)
+    if isinstance(obj, dict):
+        return all(all_finite(o) for o in obj.values())
+    if dataclasses.is_dataclass(obj):
+        return all(all_finite(getattr(obj, f.name))
+                   for f in dataclasses.fields(obj))
+    return True
+
+
+def counted(what, expect, fn, total):
+    """fn() with every launch counter set to 0 before it and read after:
+    the counts must be `expect` (0 where it names none) and every output
+    finite; the counts are added to `total`. Returns fn's outputs."""
+    import torch
+    torch.cuda.synchronize()
+    for m, attr in counters().values():
+        setattr(m, attr, 0)
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {n: getattr(m, attr) for n, (m, attr) in counters().items()}
+    exp = {n: expect.get(n, 0) for n in launches}
+    log(f'{what}: launches {launches} (expected {exp})')
+    if launches != exp:
+        raise AssertionError(f'{what}: launch counts {launches} != {exp}')
+    if not all_finite(out):
+        raise AssertionError(f'{what}: non-finite outputs')
+    for n, c in launches.items():
+        total[n] += c
+    return out
+
+
+def tools_phase(batch, seed, report):
+    """tools/profile_collide.py and tools/profile_micro.py on the card at
+    batch `batch`: one profile_collide pass (COLLIDE_PER_PASS) and one
+    profile_micro chain (MICRO_PER_CHAIN) with every launch counted and
+    every output finite, then both tables (TOOLS_ITERS timed calls a
+    line). Returns the launches."""
+    import torch
+    from flybody_tpu_torch.tools import profile_collide as pc
+    from flybody_tpu_torch.tools import profile_engine as pe
+    from flybody_tpu_torch.tools import profile_micro as pm
+    flags = ['--batch', str(batch), '--iters', str(TOOLS_ITERS), '--seed',
+             str(seed)]
+    total = {n: 0 for n in counters()}
+    args = pc.parser().parse_args(flags)
+    model, d = pc.setup(args)
+    counted('profile_collide pass', COLLIDE_PER_PASS,
+            lambda: pc.collide_pass(model, d), total)
+    margs = pm.parser().parse_args(flags)
+    margs.task = 'walk_imitation'
+    _, d0 = pe.setup(margs)
+    counted('profile_micro chain', MICRO_PER_CHAIN,
+            lambda: pm.chain(model, d0), total)
+    torch.cuda.empty_cache()
+    name = torch.cuda.get_device_name(0)
+    r = pc.results(model, d, args)
+    log(pc.table(r, batch, f'gpu ({name})'))
+    del d
+    rm = pm.main(flags)
+    report['tools'] = dict(batch=batch, iters=TOOLS_ITERS,
+                           profile_collide_ms={k: v * 1e3
+                                               for k, v in r.items()},
+                           profile_micro_ms={k: v * 1e3
+                                             for k, v in rm.items()},
+                           launches=total)
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2076,6 +2382,18 @@ def main() -> int:
         for n, c in launches.items():
             total[n] += c
         seconds[f'main_path_{preset}'] = time.perf_counter() - t0
+        if preset == 'default':
+            # The default step again with kernel 9's block-full mode.
+            t0 = time.perf_counter()
+            launches = main_path_phase('default_full', BATCH, STEPS,
+                                       CPU_ENVS, SEED, report)[-1]
+            for n, c in launches.items():
+                total[n] += c
+            log('main path: default_full {:.1f} env-steps/s beside default '
+                '{:.1f}'.format(*(report[f'main_path_{p}']['env_steps_per_s']
+                                  for p in ('default_full', 'default'))))
+            torch.cuda.empty_cache()
+            seconds['main_path_default_full'] = time.perf_counter() - t0
         t0 = time.perf_counter()
         cpu_phase(preset, state0, action, first, CPU_ENVS, report)
         substep_phase(preset, model, data1, report)
@@ -2090,6 +2408,11 @@ def main() -> int:
             total[n] += c
         torch.cuda.empty_cache()
         seconds[f'two_fly_{preset}'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for n, c in tools_phase(TOOLS_BATCH, SEED, report).items():
+        total[n] += c
+    torch.cuda.empty_cache()
+    seconds['tools'] = time.perf_counter() - t0
     t0 = time.perf_counter()
     entries, launches = unpacked_phase(UNPACKED_BATCH, SEED, report)
     kernels += entries

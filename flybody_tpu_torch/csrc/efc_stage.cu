@@ -13,7 +13,9 @@
 // What bounds it: bytes. Per env it reads two floats of each of the C
 // candidates (dist, includemargin) and the whole row (22 floats) of the K
 // selected ones, cdof and qvel, and writes con_J (K x 3 x nv) and 19 rows
-// of K: at C = 430, K = 64, nv = 108 about 100 KB, 83 KB of it con_J. Design: one
+// of K: at C = 430, K = 64, nv = 108 about 100 KB, 83 KB of it con_J. The
+// dense make_efc hands it C = 2,048 candidates: the keys then take 16 KB of
+// shared memory, 30 KB in all, under the 48 KB default. Design: one
 // block of 128 threads per env. Selection is by rank: each candidate's
 // score becomes a 64-bit key (order-preserving bits of the float, NaN
 // largest, then the index), so keys are distinct and a candidate's rank is

@@ -4,12 +4,14 @@
 // call at :278). Semantics: narrowphase_ref in
 // flybody_tpu_torch/ops/narrowphase.py, the per-type row formulas
 // (plane-sphere, plane-capsule (2 rows), plane-ellipsoid, plane-cylinder
-// (3 rows), sphere-sphere, sphere-capsule) in canonical pair-major slot
-// order: a pair's rows land at slots first .. first + k - 1.
+// (3 rows), sphere-sphere, sphere-capsule, capsule-capsule) in canonical
+// pair-major slot order: a pair's rows land at slots first .. first + k - 1.
 //
 // What bounds it: bytes. Per env it reads the poses of the geoms its
 // pairs name (12 floats each) and writes 7 floats per slot; the walking
-// model's 115 pairs (174 slots) read 7.7 KB and write 4.9 KB. Design: one
+// model's 115 pairs (174 slots) of the compact collide read 7.7 KB and
+// write 4.9 KB; the dense collide's 1,154 pairs (1,213 slots, the
+// capsule-capsule group's 1,039 pairs among them) write 34 KB. Design: one
 // thread per (env, pair), pairs of one env on neighbouring threads. The
 // pair table [type, geom1, geom2, first slot] is a small int array read
 // through the read-only cache; each thread gathers its two geoms' pose
@@ -29,6 +31,7 @@ enum PairType {
   kPlaneCylinder = 3,
   kSphereSphere = 4,
   kSphereCapsule = 5,
+  kCapsuleCapsule = 6,
 };
 
 constexpr float kEps = 1e-15f;
@@ -113,6 +116,37 @@ __device__ __forceinline__ void plane_cylinder_rows(V3 p1, const M3& m1,
   }
 }
 
+// Capsule-capsule: the closest points of the two axis segments p +- h a
+// (the clamped line-line parameters, refined once from each side), a
+// perpendicular nudge where the segments cross, then the sphere-sphere row
+// of the two closest points.
+__device__ __forceinline__ Row capsule_capsule_row(V3 p1, const M3& m1, V3 s1,
+                                                   V3 p2, const M3& m2,
+                                                   V3 s2) {
+  const V3 a1 = col(m1, 2), a2 = col(m2, 2);
+  const float h1 = s1.y, h2 = s2.y;
+  const V3 rv = p1 - p2;
+  const float aa = dot(a1, a1), ee = dot(a2, a2), ff = dot(a2, rv);
+  const float cd = dot(a1, rv), bb = dot(a1, a2);
+  const float denom = aa * ee - bb * bb;
+  float s = denom > 1e-14f ? (bb * ff - cd * ee) / fmaxf(denom, kEps) : 0.f;
+  s = fminf(fmaxf(s, -h1), h1);
+  float t = (bb * s + ff) / fmaxf(ee, kEps);
+  const float t_cl = fminf(fmaxf(t, -h2), h2);
+  s = fminf(fmaxf((bb * t_cl - cd) / fmaxf(aa, kEps), -h1), h1);
+  t = fminf(fmaxf((bb * s + ff) / fmaxf(ee, kEps), -h2), h2);
+  const V3 q1 = p1 + a1 * s;
+  V3 q2 = p2 + a2 * t;
+  if (norm(q2 - q1) < 1e-12f) {
+    V3 fb = cross(a1, a2);
+    const float fbn = norm(fb);
+    fb = fbn > 1e-12f ? fb * (1.0f / fmaxf(fbn, kEps))
+                      : cross(a1, v3(1.f, 0.f, 0.f));
+    q2 = q2 + fb * 1e-12f;
+  }
+  return sphere_sphere_row(q1, s1.x, q2, s2.x);
+}
+
 __global__ void __launch_bounds__(kThreads)
     narrowphase_kernel(const float* __restrict__ xpos,
                        const float* __restrict__ xmat,
@@ -154,13 +188,16 @@ __global__ void __launch_bounds__(kThreads)
     case kSphereSphere:
       rows[0] = sphere_sphere_row(p1, s1.x, p2, s2.x);
       break;
-    default: {  // kSphereCapsule
+    case kSphereCapsule: {
       const V3 a = col(m2, 2);
       const float h = s2.y;
       const float tt = fminf(fmaxf(dot(p1 - p2, a), -h), h);
       rows[0] = sphere_sphere_row(p1, s1.x, p2 + a * tt, s2.x);
       break;
     }
+    default:  // kCapsuleCapsule
+      rows[0] = capsule_capsule_row(p1, m1, s1, p2, m2, s2);
+      break;
   }
   for (int r = 0; r < k; ++r) {
     const size_t s = (size_t)e * S + pr.w + r;

@@ -1,11 +1,13 @@
-// Kernels 8, 9 and 10: the Newton block, the whole Newton solve and the
-// Newton reuse iterations.
+// Kernels 8, 9 and 10: the Newton block, the whole Newton solve, the
+// block-full Newton block and the Newton reuse iterations.
 //
 // Replace flybody_tpu/ops/newton_fused.py::_block_fn (:461, the Pallas call
-// at :485; make_newton_block_pe), the whole-solve mode of _block_full_fn
-// (:1038, the call at :1067; make_newton_solve_pe) and _fused_fn (:232, the
-// call at :258; make_reuse_pe). Semantics: newton_block_ref,
-// newton_solve_ref and reuse_ref in flybody_tpu_torch/ops/newton_fused.py.
+// at :485; make_newton_block_pe), both modes of _block_full_fn (:1038, the
+// call at :1067): the whole solve (make_newton_solve_pe) and one refactor
+// block with the Hessian assembled in the kernel (make_newton_block_full_pe),
+// and _fused_fn (:232, the call at :258; make_reuse_pe). Semantics:
+// newton_block_ref, newton_solve_ref, newton_block_full_ref and reuse_ref in
+// flybody_tpu_torch/ops/newton_fused.py.
 //
 //   newton_block: one refactor block from a packed Hessian Hp assembled
 //     outside: arrow factor of Hp, Z = A^-1 U for the 3*SB Woodbury rows,
@@ -17,11 +19,15 @@
 //     Hessian M + J^T W J + limit diagonal and the Woodbury rows of the
 //     selected cross-limb slots, the same block body, then the constraint
 //     forces f_l, f_c and qfrc = S f_l + J^T f_c.
+//   newton_block_full: one refactor block from the carried state (x,
+//     M (x - a_free), jar_l, jar_c): the whole solve's float32 Hessian and
+//     Woodbury assembly at that state, then the block body; the state goes
+//     back out (no forces).
 //   newton_reuse: n iterations with a factor kept from a fresh arrow step
 //     on an unpacked M (solver.py:862-868): the packed factor F, the
 //     Woodbury operands Z = A^-1 U^T and U, and the capacitance factor LC
 //     come in; the mass matrix M is dense (nv, nv) or packed.
-// One template holds the three; the prologues (and the whole solve's
+// One template holds the four; the prologues (and the whole solve's
 // epilogue) are the only difference, and they share one iteration body.
 //
 // What bounds them: bytes. Per env the block kernel reads Hp, M (14.6 KB
@@ -36,7 +42,9 @@
 // reads a dense M from global memory (L2), a row per warp. The
 // whole-solve kernel stages J and J W (31 KB each at K = 24), as its
 // Hessian assembly reads them ~1,250 times, and reads M from L2, so two
-// of its blocks fit on an SM. The TPU kernel kept envs on
+// of its blocks fit on an SM. The block-full kernel stages the same at the
+// default preset's K = 64 (83 KB each): 215 KB in all, under the 227 KB a
+// block may take, so one block an SM. The TPU kernel kept envs on
 // 128 lanes and inverted the capacitance factor once so every iteration's
 // two triangular solves became products; this kernel does the same with
 // one thread per column. The line search is one warp's work
@@ -48,7 +56,7 @@
 namespace {
 
 constexpr int kThreads = 128;
-enum Mode { kBlock = 0, kWhole = 1, kReuse = 2 };
+enum Mode { kBlock = 0, kWhole = 1, kReuse = 2, kBlockFull = 3 };
 constexpr int kRows = 4;  // rows of J dx a warp takes at once
 
 struct LimTables {
@@ -64,7 +72,7 @@ struct NewtonArgs {
   const float* U;           // block, reuse: (B, SB3, nv) Woodbury rows
   const float* Zg;          // reuse: (B, nv, SB3) Z = A^-1 U^T
   const float* LC;          // reuse: (B, SB3, SB3) capacitance factor
-  const int* bsel;          // whole: (B, SB) selected cross-limb slots
+  const int* bsel;          // whole, full: (B, SB) cross-limb slots
   const float* x;           // block: x; whole: a_free (B, nv)
   const float* msm;         // block: M (x - a_free); whole: warmstart
   const float* jar_l;       // block: jar_l; whole: limit aref (B, L)
@@ -88,7 +96,8 @@ struct Layout {
   int jl, vl, al, Dl, fl;
   int pl;  // 10 planes of K: N, y1, y2, v0, v1, v2, mu, fric, act, D
   int fc, red, ldof, lsign, dlim;
-  int J, JH, W, G, aw, arl, arc, hact;  // whole solve only
+  int J, JH, W, G, hact;  // whole solve and block full only
+  int aw, arl, arc;       // whole solve only
   int total;
 };
 
@@ -96,6 +105,7 @@ __host__ __device__ inline Layout newton_layout(int K, int SB3, int L, int nv,
                                                 int msize, int mode,
                                                 bool dense_m) {
   const bool whole = mode == kWhole;
+  const bool assemble = whole || mode == kBlockFull;
   Layout o;
   int n = 0;
   auto take = [&n](int c) {
@@ -104,8 +114,8 @@ __host__ __device__ inline Layout newton_layout(int K, int SB3, int L, int nv,
     return at;
   };
   o.A = take(msize);
-  // The whole solve reads M from L2, the reuse iterations a dense M.
-  o.Mm = whole || dense_m ? 0 : take(msize);
+  // The assembling modes read M from L2, the reuse iterations a dense M.
+  o.Mm = assemble || dense_m ? 0 : take(msize);
   o.Ut = take(SB3 * nv);
   o.Z = take(SB3 * nv);
   o.C = take(SB3 * SB3);
@@ -129,15 +139,17 @@ __host__ __device__ inline Layout newton_layout(int K, int SB3, int L, int nv,
   o.lsign = take(L);
   o.dlim = take(2 * nv);
   o.J = o.JH = o.W = o.G = o.aw = o.arl = o.arc = o.hact = 0;
-  if (whole) {
+  if (assemble) {
     o.J = take(3 * K * nv);
     o.JH = take(3 * K * nv);
     o.W = take(6 * K);
     o.G = take(2 * SB3);  // 6 per selected slot
+    o.hact = take(K);
+  }
+  if (whole) {
     o.aw = take(2 * nv);
     o.arl = take(L);
     o.arc = take(3 * K);
-    o.hact = take(K);
   }
   o.total = n;
   return o;
@@ -247,6 +259,7 @@ __device__ __forceinline__ void dense_matvec(const float* __restrict__ M,
 template <int kMode>
 __global__ void __launch_bounds__(kThreads) newton_kernel(NewtonArgs a) {
   constexpr bool kWholeSolve = kMode == kWhole;
+  constexpr bool kAssemble = kWholeSolve || kMode == kBlockFull;
   extern __shared__ float sm[];
   const ArrowPart& p = a.p;
   const int nv = p.nv, K = a.K, L = a.L, SB3 = a.SB3, R3 = 3 * K;
@@ -282,7 +295,7 @@ __global__ void __launch_bounds__(kThreads) newton_kernel(NewtonArgs a) {
     al[i] = lp[i];
     Dl[i] = lp[L + i];
   }
-  const int ncp = kWholeSolve ? 5 : 4;
+  const int ncp = kAssemble ? 5 : 4;
   const float* cp = a.con_params + (size_t)e * ncp * K;
   for (int k = t; k < K; k += nt) {
     mu[k] = cp[k];
@@ -290,13 +303,13 @@ __global__ void __launch_bounds__(kThreads) newton_kernel(NewtonArgs a) {
     act[k] = cp[2 * K + k];
     D[k] = cp[3 * K + k];
   }
-  // M for the products M dx: a shared copy in the block kernel; the whole
-  // solve reads it from global memory (L2), which keeps its shared memory
-  // under half an SM's so that two of its blocks fit; so do the reuse
-  // iterations a dense M (dense_matvec).
+  // M for the products M dx: a shared copy in the block kernel; the
+  // assembling modes read it from global memory (L2), which keeps the whole
+  // solve's shared memory under half an SM's so that two of its blocks fit;
+  // so do the reuse iterations a dense M (dense_matvec).
   const float* Me = a.M + (size_t)e * (dense_m ? nv * nv : msize);
   const float* Mm = Me;
-  if (!kWholeSolve && !dense_m) {
+  if (!kAssemble && !dense_m) {
     float* Ms = sm + o.Mm;
     for (int i = t; i < msize; i += nt) Ms[i] = Me[i];
     Mm = Ms;
@@ -304,7 +317,7 @@ __global__ void __launch_bounds__(kThreads) newton_kernel(NewtonArgs a) {
   const float* Je = a.J + (size_t)e * R3 * nv;
   const float* Jp = Je;
 
-  if constexpr (!kWholeSolve) {
+  if constexpr (!kAssemble) {
     const float* He = a.Hp + (size_t)e * msize;  // Hp, or reuse: F
     for (int i = t; i < msize; i += nt) A[i] = He[i];
     const float* Ue = a.U + (size_t)e * SB3 * nv;
@@ -327,76 +340,88 @@ __global__ void __launch_bounds__(kThreads) newton_kernel(NewtonArgs a) {
     __syncthreads();
   } else {
     float *Js = sm + o.J, *JH = sm + o.JH, *W = sm + o.W, *G = sm + o.G;
-    float *af = sm + o.aw, *ws = sm + o.aw + nv, *arl = sm + o.arl;
-    float *arc = sm + o.arc, *hact = sm + o.hact;
+    float* hact = sm + o.hact;
     for (int i = t; i < R3 * nv; i += nt) Js[i] = Je[i];
     for (int i = t; i < msize; i += nt) A[i] = Me[i];
-    for (int v = t; v < nv; v += nt) {
-      af[v] = a.x[(size_t)e * nv + v];
-      ws[v] = a.msm[(size_t)e * nv + v];
-    }
-    for (int i = t; i < L; i += nt) arl[i] = a.jar_l[(size_t)e * L + i];
-    for (int q = t; q < R3; q += nt) arc[q] = a.jar_c[(size_t)e * R3 + q];
     for (int k = t; k < K; k += nt) hact[k] = cp[4 * K + k];
-    __syncthreads();
     Jp = Js;
+    if constexpr (kWholeSolve) {
+      float *af = sm + o.aw, *ws = sm + o.aw + nv, *arl = sm + o.arl;
+      float* arc = sm + o.arc;
+      for (int v = t; v < nv; v += nt) {
+        af[v] = a.x[(size_t)e * nv + v];
+        ws[v] = a.msm[(size_t)e * nv + v];
+      }
+      for (int i = t; i < L; i += nt) arl[i] = a.jar_l[(size_t)e * L + i];
+      for (int q = t; q < R3; q += nt) arc[q] = a.jar_c[(size_t)e * R3 + q];
+      __syncthreads();
 
-    // Candidate jars: warmstart into (jl, N, Y1, Y2), a_free into
-    // (vl, V0, V1, V2); dx = ws - a_free.
-    for (int i = t; i < L; i += nt) {
-      jl[i] = ws[ldof[i]] * lsign[i] - arl[i];
-      vl[i] = af[ldof[i]] * lsign[i] - arl[i];
-    }
-    for (int r = warp; r < R3; r += nw) {
-      float sw = 0.f, sa = 0.f;
-      for (int v = lane; v < nv; v += 32) {
-        sw += Js[r * nv + v] * ws[v];
-        sa += Js[r * nv + v] * af[v];
+      // Candidate jars: warmstart into (jl, N, Y1, Y2), a_free into
+      // (vl, V0, V1, V2); dx = ws - a_free.
+      for (int i = t; i < L; i += nt) {
+        jl[i] = ws[ldof[i]] * lsign[i] - arl[i];
+        vl[i] = af[ldof[i]] * lsign[i] - arl[i];
       }
-      sw = warp_sum(sw);
-      sa = warp_sum(sa);
-      if (lane == 0) {
-        const int k = r / 3, c = r % 3;
-        pl[c * K + k] = sw - arc[r];
-        pl[(3 + c) * K + k] = sa - arc[r];
+      for (int r = warp; r < R3; r += nw) {
+        float sw = 0.f, sa = 0.f;
+        for (int v = lane; v < nv; v += 32) {
+          sw += Js[r * nv + v] * ws[v];
+          sa += Js[r * nv + v] * af[v];
+        }
+        sw = warp_sum(sw);
+        sa = warp_sum(sa);
+        if (lane == 0) {
+          const int k = r / 3, c = r % 3;
+          pl[c * K + k] = sw - arc[r];
+          pl[(3 + c) * K + k] = sa - arc[r];
+        }
       }
-    }
-    for (int v = t; v < nv; v += nt) dx[v] = ws[v] - af[v];
-    __syncthreads();
-    arrow_matvec(Mm, dx, mdx, p);
-    __syncthreads();
-    if (warp == 0) {  // primal costs of both candidates
-      float sq = 0.f, lw = 0.f, la = 0.f, cw = 0.f, ca = 0.f;
-      for (int v = lane; v < nv; v += 32) sq += dx[v] * mdx[v];
-      for (int i = lane; i < L; i += 32) {
-        const float w1 = jl[i], w2 = vl[i];
-        lw += Dl[i] * al[i] * (w1 < 0.f ? w1 * w1 : 0.f);
-        la += Dl[i] * al[i] * (w2 < 0.f ? w2 * w2 : 0.f);
+      for (int v = t; v < nv; v += nt) dx[v] = ws[v] - af[v];
+      __syncthreads();
+      arrow_matvec(Mm, dx, mdx, p);
+      __syncthreads();
+      if (warp == 0) {  // primal costs of both candidates
+        float sq = 0.f, lw = 0.f, la = 0.f, cw = 0.f, ca = 0.f;
+        for (int v = lane; v < nv; v += 32) sq += dx[v] * mdx[v];
+        for (int i = lane; i < L; i += 32) {
+          const float w1 = jl[i], w2 = vl[i];
+          lw += Dl[i] * al[i] * (w1 < 0.f ? w1 * w1 : 0.f);
+          la += Dl[i] * al[i] * (w2 < 0.f ? w2 * w2 : 0.f);
+        }
+        for (int k = lane; k < K; k += 32) {
+          float r[3];
+          cone_residual3(N[k], Y1[k], Y2[k], mu[k], fric[k], r);
+          cw += D[k] * act[k] * (r[0] * r[0] + r[1] * r[1] + r[2] * r[2]);
+          cone_residual3(V0[k], V1[k], V2[k], mu[k], fric[k], r);
+          ca += D[k] * act[k] * (r[0] * r[0] + r[1] * r[1] + r[2] * r[2]);
+        }
+        sq = warp_sum(sq), lw = warp_sum(lw), la = warp_sum(la);
+        cw = warp_sum(cw), ca = warp_sum(ca);
+        const float c_ws = 0.5f * sq + 0.5f * lw + 0.5f * cw;
+        const float c_af = 0.5f * la + 0.5f * ca;
+        if (lane == 0) red[0] = c_ws < c_af ? 1.f : 0.f;
       }
-      for (int k = lane; k < K; k += 32) {
-        float r[3];
-        cone_residual3(N[k], Y1[k], Y2[k], mu[k], fric[k], r);
-        cw += D[k] * act[k] * (r[0] * r[0] + r[1] * r[1] + r[2] * r[2]);
-        cone_residual3(V0[k], V1[k], V2[k], mu[k], fric[k], r);
-        ca += D[k] * act[k] * (r[0] * r[0] + r[1] * r[1] + r[2] * r[2]);
+      __syncthreads();
+      const bool use_ws = red[0] > 0.5f;
+      for (int v = t; v < nv; v += nt) {
+        x[v] = use_ws ? ws[v] : af[v];
+        msm[v] = use_ws ? mdx[v] : 0.f;
       }
-      sq = warp_sum(sq), lw = warp_sum(lw), la = warp_sum(la);
-      cw = warp_sum(cw), ca = warp_sum(ca);
-      const float c_ws = 0.5f * sq + 0.5f * lw + 0.5f * cw;
-      const float c_af = 0.5f * la + 0.5f * ca;
-      if (lane == 0) red[0] = c_ws < c_af ? 1.f : 0.f;
+      if (!use_ws) {
+        for (int i = t; i < L; i += nt) jl[i] = vl[i];
+        for (int q = t; q < R3; q += nt) pl[q] = pl[R3 + q];
+      }
+      __syncthreads();
+    } else {  // block full: the carried state
+      for (int v = t; v < nv; v += nt) {
+        x[v] = a.x[(size_t)e * nv + v];
+        msm[v] = a.msm[(size_t)e * nv + v];
+      }
+      for (int i = t; i < L; i += nt) jl[i] = a.jar_l[(size_t)e * L + i];
+      for (int q = t; q < R3; q += nt)
+        pl[(q % 3) * K + q / 3] = a.jar_c[(size_t)e * R3 + q];
+      __syncthreads();
     }
-    __syncthreads();
-    const bool use_ws = red[0] > 0.5f;
-    for (int v = t; v < nv; v += nt) {
-      x[v] = use_ws ? ws[v] : af[v];
-      msm[v] = use_ws ? mdx[v] : 0.f;
-    }
-    if (!use_ws) {
-      for (int i = t; i < L; i += nt) jl[i] = vl[i];
-      for (int q = t; q < R3; q += nt) pl[q] = pl[R3 + q];
-    }
-    __syncthreads();
 
     // Hessian: W_k = D_k * cone Hessian (hess-active rows), J W, the limit
     // diagonal (in g) and the lower packed entries of M + J^T W J + diag.
@@ -680,6 +705,24 @@ FB_API int newton_block_f32(const float* Hp, const float* M, const float* J,
   a.p = *part;
   a.K = K, a.SB3 = SB3, a.L = L, a.ls_iters = ls_iters, a.n_iters = n_iters;
   return launch<kBlock>(a, B, stream);
+}
+
+FB_API int newton_block_full_f32(
+    const float* Mp, const float* J, const int* bsel, const float* x,
+    const float* msm, const float* jar_l, const float* jar_c,
+    const float* lim_params, const float* con_params5, float* x_o,
+    float* msm_o, float* jl_o, float* jc_o, int B, int K, int SB, int L,
+    const int* lim_dof, const float* lim_sign, const int* dof_lim,
+    int ls_iters, int n_iters, const ArrowPart* part, void* stream) {
+  NewtonArgs a{};
+  a.Hp = nullptr, a.M = Mp, a.J = J, a.U = nullptr, a.bsel = bsel;
+  a.x = x, a.msm = msm, a.jar_l = jar_l, a.jar_c = jar_c;
+  a.lim_params = lim_params, a.con_params = con_params5;
+  a.o0 = x_o, a.o1 = msm_o, a.o2 = jl_o, a.o3 = jc_o;
+  a.lim = LimTables{lim_dof, lim_sign, dof_lim};
+  a.p = *part;
+  a.K = K, a.SB3 = 3 * SB, a.L = L, a.ls_iters = ls_iters, a.n_iters = n_iters;
+  return launch<kBlockFull>(a, B, stream);
 }
 
 FB_API int newton_solve_f32(const float* Mp, const float* J, const int* bsel,

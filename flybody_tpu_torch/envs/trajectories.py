@@ -12,6 +12,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from flybody_tpu_torch.utils import device as _device
+
 
 def _np_quat_mul(a, b):
     aw, ax, ay, az = a
@@ -76,9 +78,11 @@ class TrajectoryStore:
         return self.qpos.shape[0]
 
 
-def store_from_arrays(qpos_list, qvel_list, extras=None, device='cpu',
+def store_from_arrays(qpos_list, qvel_list, extras=None, device=None,
                       dtype=torch.float64) -> TrajectoryStore:
-    """Pads trajectories with their final frame into one store."""
+    """Pads trajectories with their final frame into one store, on CUDA
+    unless `device` says otherwise."""
+    device = _device.resolve(device)
     n = len(qpos_list)
     tmax = max(q.shape[0] for q in qpos_list)
     qpos = np.zeros((n, tmax, qpos_list[0].shape[1]))
@@ -103,9 +107,10 @@ def store_from_arrays(qpos_list, qvel_list, extras=None, device='cpu',
                            **kw)
 
 
-def inference_walking_store(device='cpu',
+def inference_walking_store(device=None,
                             dtype=torch.float64) -> TrajectoryStore:
-    """Synthetic straight walk at 2 cm/s, 300 control steps."""
+    """Synthetic straight walk at 2 cm/s, 300 control steps, on CUDA
+    unless `device` says otherwise."""
     qpos, qvel = constant_speed_trajectory(
         n_steps=300, speed=2, init_pos=(0, 0, 0.1278), control_timestep=2e-3)
     return store_from_arrays([qpos], [qvel], device=device, dtype=dtype)

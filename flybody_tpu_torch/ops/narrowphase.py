@@ -1,17 +1,18 @@
 """The analytic narrowphase: kernel 5.
 
 Counterpart of flybody_tpu/ops/narrowphase.py (`_np_pallas`, row 5 of
-PERF.md's kernel table). Every analytic pair type of the compact collide
-but capsule-capsule (which runs on its broadphase-selected pairs in
-physics/collision.py), one segment of pairs per type key, in canonical
-pair-major slot order: slot = slot_lo + pair * k + row.
+PERF.md's kernel table). Every analytic pair type, one segment of pairs
+per type key, in canonical pair-major slot order: slot = slot_lo + pair *
+k + row. The compact collide hands it every analytic group but
+capsule-capsule (which runs on its broadphase-selected pairs in
+physics/collision.py), the dense collide all of them.
 
 `narrowphase(segs, geom_xpos, geom_xmat, size_table)` launches
 csrc/narrowphase.cu on CUDA tensors (float32, contiguous; anything else
 raises) and runs the plain version `narrowphase_ref` on CPU tensors.
 `segs` is the static segment table: a tuple of (type key, geom1 ids,
 geom2 ids, rows per pair), the ids as tuples, in slot order
-(collision.dense_segments). The component algebra and the per-type row
+(collision.analytic_segments). The component algebra and the per-type row
 formulas below are the JAX package's, written once over tuples of
 tensors; the capsule-capsule block of collision.py uses them too.
 """
@@ -203,16 +204,9 @@ def _rows(key, c1, c2, s1, s2):
     return [(d, torch.stack(p, -1), torch.stack(n, -1)) for d, p, n in rows]
 
 
-# The type keys the kernel takes, in the order of its type codes
-# (csrc/narrowphase.cu: enum PairType).
-KERNEL_KEYS = (
-    (_s.GEOM_PLANE, _s.GEOM_SPHERE),
-    (_s.GEOM_PLANE, _s.GEOM_CAPSULE),
-    (_s.GEOM_PLANE, _s.GEOM_ELLIPSOID),
-    (_s.GEOM_PLANE, _s.GEOM_CYLINDER),
-    (_s.GEOM_SPHERE, _s.GEOM_SPHERE),
-    (_s.GEOM_SPHERE, _s.GEOM_CAPSULE),
-)
+# The type keys in the order of the kernel's type codes
+# (csrc/narrowphase.cu: enum PairType): every analytic key.
+KERNEL_KEYS = tuple(_ROW_FNS)
 
 
 def n_slots(segs) -> int:

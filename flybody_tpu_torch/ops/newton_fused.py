@@ -14,6 +14,11 @@ Woodbury correction H = A + U^T U:
     iterations <= refactor period: warmstart pick, init, float32 Hessian
     and Woodbury assembly, the block, final forces and qfrc. Plain version
     `newton_solve_ref` (`_ref_solve_full`).
+  * `newton_block_full` (kernel 9 in its block-full mode, csrc/newton.cu;
+    the TPU's `_block_full_fn(whole_solve=False)`,
+    make_newton_block_full_pe): one block from the carried state with the
+    whole solve's float32 Hessian and Woodbury assembly in the kernel.
+    Plain version `newton_block_full_ref` (`_ref_block_full`).
   * `reuse` (kernel 10, csrc/newton.cu; the TPU's `_fused_fn`,
     make_reuse_pe): n iterations with a factor kept from a fresh arrow step
     on an unpacked (dense) M: the packed factor F, the Woodbury operands Z
@@ -39,6 +44,7 @@ from flybody_tpu_torch.ops import linesearch as _ls
 
 launches = 0  # newton_block kernel launches
 solve_launches = 0  # newton_solve kernel launches
+block_full_launches = 0  # newton_block_full kernel launches
 reuse_launches = 0  # newton reuse kernel launches
 
 
@@ -249,17 +255,38 @@ def primal_cost(part, lim_dof, lim_sign, Mp, conJ, a_free, lim_aref,
     return cost + 0.5 * torch.sum(Dc[..., None] * res ** 2, (-2, -1))
 
 
+def newton_block_full_ref(part, lim_dof, lim_sign, Mp, conJ, bsel, x, msm,
+                          jar_l, jar_c, lim_params, con_params5,
+                          ls_iters: int, n_iters: int):
+    """Plain version of kernel 9's block-full mode (the JAX
+    `_ref_block_full`): at the carried state, the packed Hessian M +
+    J^T W J + the limit diagonal + 1e-12 in float32 without bf16 rounding,
+    W the cone Hessians of the hess-active slots; the Woodbury rows of the
+    selected cross-limb slots bsel (B, SB) at their active-and-breaking
+    mask; then `newton_block_ref`. con_params5 (B, 5, K) [mu | frictional
+    | active | D | hess_active]. Returns (x, msm, jar_l, jar_c)."""
+    actl, Dl = lim_params[:, 0], lim_params[:, 1]
+    mu, fric, actc, Dc, hact = con_params5.unbind(1)
+    Wc = cone_hessian(jar_c, mu, fric, hact) * Dc[..., None, None]
+    Hp = assemble_hessian(part, Mp, conJ, lim_dof, Dl * actl * (jar_l < 0),
+                          Wc, bf16=False)
+    U = woodbury_rows(conJ, bsel.long(), jar_c, mu, fric, Dc, actc - hact)
+    return newton_block_ref(part, lim_dof, lim_sign, Hp, Mp, conJ, U, x, msm,
+                            jar_l, jar_c, lim_params, con_params5[:, :4],
+                            ls_iters, n_iters)
+
+
 def newton_solve_ref(part, lim_dof, lim_sign, Mp, conJ, bsel, a_free, ws,
                      lim_aref, con_aref, lim_params, con_params5,
                      ls_iters: int, n_iters: int):
     """Plain version of kernel 9 (whole solve): the start point is the one
-    of (ws, a_free) with the lower primal cost; the Hessian is assembled in
-    float32 without bf16 rounding (the JAX `_ref_block_full`). bsel (B, SB)
+    of (ws, a_free) with the lower primal cost, then the block-full block
+    (`newton_block_full_ref`, the JAX `_ref_solve_full`). bsel (B, SB)
     selected cross-limb slots; con_params5 (B, 5, K) [mu | frictional |
     active | D | hess_active]. Returns (qacc, qfrc, f_l, f_c)."""
     sign = a_free.new_tensor(lim_sign)
     actl, Dl = lim_params[:, 0], lim_params[:, 1]
-    mu, fric, actc, Dc, hact = con_params5.unbind(1)
+    mu, fric, actc, Dc, _ = con_params5.unbind(1)
     args = (part, lim_dof, lim_sign, Mp, conJ, a_free, lim_aref, con_aref,
             lim_params, con_params5)
     use_ws = primal_cost(*args, ws) < primal_cost(*args, a_free)
@@ -267,13 +294,9 @@ def newton_solve_ref(part, lim_dof, lim_sign, Mp, conJ, bsel, a_free, ws,
     msm0 = _ar.matvec_packed(part, Mp, x0 - a_free)
     jl0 = x0[:, lim_dof] * sign - lim_aref
     jc0 = jv(conJ, x0) - con_aref
-    Wc = cone_hessian(jc0, mu, fric, hact) * Dc[..., None, None]
-    Hp = assemble_hessian(part, Mp, conJ, lim_dof, Dl * actl * (jl0 < 0),
-                          Wc, bf16=False)
-    U = woodbury_rows(conJ, bsel.long(), jc0, mu, fric, Dc, actc - hact)
-    x, _, jar_l, jar_c = newton_block_ref(
-        part, lim_dof, lim_sign, Hp, Mp, conJ, U, x0, msm0, jl0, jc0,
-        lim_params, con_params5[:, :4], ls_iters, n_iters)
+    x, _, jar_l, jar_c = newton_block_full_ref(
+        part, lim_dof, lim_sign, Mp, conJ, bsel, x0, msm0, jl0, jc0,
+        lim_params, con_params5, ls_iters, n_iters)
     f_l = -Dl * jar_l * (actl * (jar_l < 0))
     f_c = -Dc[..., None] * cone_residual(jar_c, mu, fric, actc)
     qfrc = lim_scatter(part.nv, lim_dof, f_l * sign) + jtf(conJ, f_c)
@@ -385,6 +408,44 @@ def newton_solve(part, lim_dof, lim_sign, Mp, conJ, bsel, a_free, ws,
             _cuda.stream())
     _cuda.raise_on(rc, 'newton_solve_f32')
     solve_launches += 1
+    return outs
+
+
+def newton_block_full(part, lim_dof, lim_sign, Mp, conJ, bsel, x, msm,
+                      jar_l, jar_c, lim_params, con_params5, ls_iters: int,
+                      n_iters: int):
+    """Kernel 9's block-full mode on CUDA tensors, `newton_block_full_ref`
+    on CPU tensors (same arguments and results). bsel: int32 on the
+    card."""
+    if Mp.device.type == 'cpu':
+        return newton_block_full_ref(part, lim_dof, lim_sign, Mp, conJ, bsel,
+                                     x, msm, jar_l, jar_c, lim_params,
+                                     con_params5, ls_iters, n_iters)
+    global block_full_launches
+    nl, dm, nr, nv = len(part.ds), part.dmax, part.nr, part.nv
+    Bn, K = conJ.shape[:2]
+    SB, L = bsel.shape[1], len(lim_dof)
+    for t, shape, name in ((Mp, (Bn, nl + 1, dm + nr, dm), 'Mp'),
+                           (conJ, (Bn, K, 3, nv), 'conJ'),
+                           (x, (Bn, nv), 'x'), (msm, (Bn, nv), 'msm'),
+                           (jar_l, (Bn, L), 'jar_l'),
+                           (jar_c, (Bn, K, 3), 'jar_c'),
+                           (lim_params, (Bn, 2, L), 'lim_params'),
+                           (con_params5, (Bn, 5, K), 'con_params5')):
+        _cuda.check(t, shape, name)
+    _cuda.check(bsel, (Bn, SB), 'bsel', dtype=torch.int32)
+    ldof, lsign, dlim = lim_tables(lim_dof, lim_sign, nv, Mp.device)
+    outs = (torch.empty_like(x), torch.empty_like(msm),
+            torch.empty_like(jar_l), torch.empty_like(jar_c))
+    fn = _cuda.function('newton', 'newton_block_full_f32', [_P] * 13 + [
+        _I, _I, _I, _I, _P, _P, _P, _I, _I, ctypes.POINTER(_ar.CPart), _P])
+    rc = fn(*(t.data_ptr() for t in (Mp, conJ, bsel, x, msm, jar_l, jar_c,
+                                     lim_params, con_params5) + outs),
+            Bn, K, SB, L, ldof.data_ptr(), lsign.data_ptr(), dlim.data_ptr(),
+            ls_iters, n_iters, ctypes.byref(_ar.c_part(part)),
+            _cuda.stream())
+    _cuda.raise_on(rc, 'newton_block_full_f32')
+    block_full_launches += 1
     return outs
 
 

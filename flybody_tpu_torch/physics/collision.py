@@ -1,19 +1,32 @@
-"""Collision detection, compact path.
+"""Collision detection.
 
-Counterpart of flybody_tpu/physics/collision.py `collide(compact=True)`:
-static pair tables with MuJoCo's filters, the analytic narrowphase for
-the plane/sphere groups on all their pairs (kernel 5,
-ops/narrowphase.py), a bounding-sphere broadphase + exact segment-segment
-narrowphase on the closest capsule-capsule pairs (plain, as in JAX), and
-one merged broadphase + type-dispatching MPR on the closest mixed-type
-pairs (kernel 6, ops/mpr_kernel.py). Every selection is a stable sort, so
-ties keep the lower index first as jax.lax.top_k does.
+Counterpart of flybody_tpu/physics/collision.py: static pair tables with
+MuJoCo's filters and two forms of `collide`.
+
+  * compact (`compact=True`, the engine's path; JAX `collide(compact=
+    True)`): the analytic narrowphase for the plane/sphere groups on all
+    their pairs (kernel 5, ops/narrowphase.py), a bounding-sphere
+    broadphase + exact segment-segment narrowphase on the closest
+    capsule-capsule pairs (plain, as in JAX), and one merged broadphase +
+    type-dispatching MPR on the closest mixed-type pairs (kernel 6,
+    ops/mpr_kernel.py), the last two as CompactBlocks;
+  * dense (`compact=False`, the JAX package's default, which its tools
+    call): every slot in slot order: kernel 5 on every analytic group,
+    capsule-capsule included, and kernel 6 on the merged broadphase's
+    closest MPR pairs, scattered back (uncovered slots: dist 1e10, normal
+    (0, 0, 1)).
+
+The per-group narrowphase of the JAX tools (`gather_group`, `handler`,
+`mpr_topp`) runs an MPR group through the per-type-pair MPR (kernel 20).
+Every selection is a stable sort, so ties keep the lower index first as
+jax.lax.top_k does.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -51,6 +64,11 @@ _MPR_PAIRS = {
     (_s.GEOM_CYLINDER, _s.GEOM_CYLINDER),
 }
 _CC_KEY = (_s.GEOM_CAPSULE, _s.GEOM_CAPSULE)
+# Broadphase widths of the JAX package (collision.py:556, :620): a group's
+# top-P through its own narrowphase (mpr_topp), and the merged MPR's top-P
+# in the dense collide.
+MPR_TOP_P = 64
+MPR_MERGED_TOP_P = 128
 
 
 def _pair_rows(key) -> int:
@@ -183,32 +201,44 @@ def efc_slot_table(model: FlyModel):
     return model.const('efc_slot_table', lambda: efc_slot_table_np(model))
 
 
-def _dense(key) -> bool:
-    """Analytic groups that the compact collide evaluates on all pairs."""
-    return key in _np.ANALYTIC_KEYS and key != _CC_KEY
+def _analytic(key, exclude_cc: bool) -> bool:
+    """Analytic groups that row 5 evaluates on all pairs: every one in the
+    dense collide, all but capsule-capsule in the compact one."""
+    return key in _np.ANALYTIC_KEYS and not (exclude_cc and key == _CC_KEY)
 
 
 @functools.lru_cache(maxsize=8)
-def dense_segments(meta: _s.Meta) -> tuple:
-    """The narrowphase's segment table: (key, geom1 ids, geom2 ids, rows
-    per pair) of each dense analytic group, in slot order."""
+def analytic_segments(meta: _s.Meta, exclude_cc: bool) -> tuple:
+    """Row 5's segment table: (key, geom1 ids, geom2 ids, rows per pair) of
+    each analytic group in slot order (JAX `_analytic_tables`,
+    collision.py:863); `exclude_cc` leaves capsule-capsule out."""
     tb = pair_tables(meta)
     return tuple((key, tuple(int(g) for g in g1), tuple(int(g) for g in g2),
                   k) for key, (g1, g2, k) in tb['groups'].items()
-                 if _dense(key))
+                 if _analytic(key, exclude_cc))
+
+
+def dense_segments(meta: _s.Meta) -> tuple:
+    """The compact collide's segment table (no capsule-capsule)."""
+    return analytic_segments(meta, True)
 
 
 @functools.lru_cache(maxsize=8)
-def dense_slot_ids(meta: _s.Meta) -> np.ndarray:
-    """Global slot ids of the dense analytic slots, in slot order."""
+def analytic_slot_ids(meta: _s.Meta, exclude_cc: bool) -> np.ndarray:
+    """Global slot ids of analytic_segments' rows, in slot order."""
     tb = pair_tables(meta)
     ids, slot_lo = [], 0
     for key, (g1, g2, k) in tb['groups'].items():
         n = len(g1) * k
-        if _dense(key):
+        if _analytic(key, exclude_cc):
             ids.append(slot_lo + np.arange(n, dtype=np.int64))
         slot_lo += n
     return np.concatenate(ids)
+
+
+def dense_slot_ids(meta: _s.Meta) -> np.ndarray:
+    """Global slot ids of the compact collide's dense analytic slots."""
+    return analytic_slot_ids(meta, True)
 
 
 @functools.lru_cache(maxsize=8)
@@ -247,10 +277,11 @@ class CompactBlock:
 
 @dataclasses.dataclass
 class Contact:
-    """Dense analytic slots (dense_slot_ids order) plus the compact
-    capsule-capsule and MPR blocks."""
+    """Compact: the dense analytic slots (dense_slot_ids order) plus the
+    capsule-capsule and MPR blocks. Dense: every slot in slot order, and
+    no blocks."""
 
-    dist: torch.Tensor  # (B, S_dense)
+    dist: torch.Tensor  # (B, S_dense) or (B, S)
     pos: torch.Tensor
     normal: torch.Tensor
     blocks: tuple = ()
@@ -318,16 +349,127 @@ def _mpr_merged(model: FlyModel, data: Data, gcat, top_p: int
                         params=sel[..., 11:25])
 
 
-def collide(model: FlyModel, data: Data, mpr_top_p: int,
-            cc_top_p: int) -> Contact:
-    """Candidate contacts: dense plane/sphere slots + compact blocks. The
-    capsule-capsule and merged-MPR blocks keep the `cc_top_p` and
-    `mpr_top_p` broadphase candidates with the smallest bounding-sphere
-    distance."""
+def collide(model: FlyModel, data: Data,
+            mpr_top_p: int = MPR_MERGED_TOP_P, cc_top_p: int | None = None,
+            compact: bool = True) -> Contact:
+    """Candidate contacts. Compact (the engine's path): the dense
+    plane/sphere slots + the capsule-capsule and merged-MPR blocks of the
+    `cc_top_p` and `mpr_top_p` broadphase candidates with the smallest
+    bounding-sphere distance. Dense (`compact=False`; JAX collision.py:
+    891-972): all slots, row 5 on every analytic group and the merged MPR
+    on its `mpr_top_p` closest pairs, scattered to their slots (an MPR
+    pair has one slot, _pair_rows, so no row is repeated)."""
     gcat = _geom_cat(data)
-    dist, pos, normal = _np.narrowphase(dense_segments(model.meta),
-                                        data.geom_xpos, data.geom_xmat,
-                                        model.geom_size)
-    blocks = (_cc_compact(model, data, gcat, cc_top_p),
-              _mpr_merged(model, data, gcat, mpr_top_p))
-    return Contact(dist=dist, pos=pos, normal=normal, blocks=blocks)
+    if compact:
+        if cc_top_p is None:
+            raise ValueError('the compact collide takes cc_top_p')
+        dist, pos, normal = _np.narrowphase(dense_segments(model.meta),
+                                            data.geom_xpos, data.geom_xmat,
+                                            model.geom_size)
+        blocks = (_cc_compact(model, data, gcat, cc_top_p),
+                  _mpr_merged(model, data, gcat, mpr_top_p))
+        return Contact(dist=dist, pos=pos, normal=normal, blocks=blocks)
+    meta = model.meta
+    B, S = data.geom_xpos.shape[0], pair_tables(meta)['nslot']
+    dist = data.geom_xpos.new_full((B, S), 1e10)
+    pos = data.geom_xpos.new_zeros((B, S, 3))
+    normal = torch.zeros_like(pos)
+    normal[..., 2] = 1.0
+    aid = torch.as_tensor(analytic_slot_ids(meta, False),
+                          device=dist.device)
+    dist[:, aid], pos[:, aid], normal[:, aid] = _np.narrowphase(
+        analytic_segments(meta, False), data.geom_xpos, data.geom_xmat,
+        model.geom_size)
+    blk = _mpr_merged(model, data, gcat, mpr_top_p)
+    sid = torch.round(blk.idx).long()
+    dist.scatter_(1, sid, blk.dist)
+    sid3 = sid[..., None].expand(-1, -1, 3)
+    pos.scatter_(1, sid3, blk.pos)
+    normal.scatter_(1, sid3, blk.normal)
+    return Contact(dist=dist, pos=pos, normal=normal)
+
+
+# ------------------------------------------- per-group narrowphase
+
+
+class PairGeo(NamedTuple):
+    """The geometry of P candidate pairs of one type group (batched)."""
+
+    c1: torch.Tensor  # (B, P, 12) [pos | row-major mat] of geom 1
+    c2: torch.Tensor  # (B, P, 12) of geom 2
+    prm: torch.Tensor  # (B, P, 8) [size1 | margin1 | size2 | margin2]
+
+
+def _pair_prm(model: FlyModel, g1, g2):
+    """(P, 8) [size1 | margin1 | size2 | margin2] of the pairs (g1, g2)."""
+    g1, g2 = np.asarray(g1), np.asarray(g2)
+
+    def table():
+        a = model.np_arrays
+        return np.concatenate([
+            a['geom_size'][g1], a['geom_margin'][g1][:, None],
+            a['geom_size'][g2], a['geom_margin'][g2][:, None]], -1)
+    return model.const(('pair_prm', tuple(g1), tuple(g2)), table)
+
+
+def gather_group(model: FlyModel, gcat, g1, g2) -> PairGeo:
+    """Every pair of a group, gathered from the pose table gcat (B, ngeom,
+    12) (JAX `_gather_group`, collision.py:354)."""
+    B = gcat.shape[0]
+    return PairGeo(c1=gcat[:, np.asarray(g1)], c2=gcat[:, np.asarray(g2)],
+                   prm=_pair_prm(model, g1, g2).expand(B, -1, -1).contiguous())
+
+
+def handler(key):
+    """The narrowphase of type group `key` on a PairGeo: (dist (B, P, k),
+    pos (B, P, k, 3), normal (B, P, k, 3)) (JAX `_handler`, collision.py:
+    522-550). An MPR group launches kernel 20 (ops/mpr_kernel.mpr_pair)
+    with 8 polish steps when neither geom is a cylinder, 0 otherwise; an
+    analytic group runs its row formulas (plain, as in JAX)."""
+    if key in _MPR_PAIRS:
+        polish = 0 if _s.GEOM_CYLINDER in key else 8
+
+        def mpr(pg: PairGeo):
+            dist, n, pos = _mprk.mpr_pair(key[0], key[1], polish, pg.c1,
+                                          pg.c2, pg.prm)
+            return dist[..., None], pos[..., None, :], n[..., None, :]
+        return mpr
+
+    def analytic(pg: PairGeo):
+        rows = _rows(key, pg.c1, pg.c2, pg.prm[..., 0:3], pg.prm[..., 4:7])
+        return (torch.stack([r[0] for r in rows], -1),
+                torch.stack([r[1] for r in rows], -2),
+                torch.stack([r[2] for r in rows], -2))
+    return analytic
+
+
+def topp_geo(model: FlyModel, data: Data, g1, g2, gcat=None):
+    """The MPR_TOP_P pairs of (g1, g2) with the smallest bounding-sphere
+    distance: (their indices (B, P), PairGeo)."""
+    if gcat is None:
+        gcat = _geom_cat(data)
+    g1, g2 = np.asarray(g1), np.asarray(g2)
+    idx, c1, c2 = _broadphase(model, data, gcat, dict(g1=g1, g2=g2),
+                              MPR_TOP_P)
+    return idx, PairGeo(c1, c2, _pair_prm(model, g1, g2)[idx])
+
+
+def mpr_topp(model: FlyModel, data: Data, key, g1, g2, gcat=None):
+    """A group's bounding-sphere broadphase and `handler(key)` on its
+    MPR_TOP_P closest pairs (topp_geo), scattered back to all its pairs
+    and repeated over its k rows: (dist (B, n, k), pos (B, n, k, 3),
+    normal (B, n, k, 3)); uncovered pairs get dist 1e10, pos 0 and normal
+    (0, 0, 1) (JAX `_mpr_topp`, collision.py:559-614, with indexed
+    gathers and scatters in place of its one-hot products)."""
+    idx, pg = topp_geo(model, data, g1, g2, gcat)
+    d, p, n = handler(key)(pg)
+    B, n_all, k = idx.shape[0], len(g1), d.shape[-1]
+    d_full = d.new_full((B, n_all), 1e10).scatter_(1, idx, d[..., 0])
+    i3 = idx[..., None].expand(-1, -1, 3)
+    p_full = p.new_zeros((B, n_all, 3)).scatter_(1, i3, p[..., 0, :])
+    n_full = p.new_zeros((B, n_all, 3))
+    n_full[..., 2] = 1.0
+    n_full.scatter_(1, i3, n[..., 0, :])
+    return (d_full[..., None].expand(-1, -1, k),
+            p_full[..., None, :].expand(-1, -1, k, -1),
+            n_full[..., None, :].expand(-1, -1, k, -1))

@@ -62,14 +62,18 @@ def adhesion_moment(model: FlyModel, efc: _sol.EfcRows):
 #     budget of physics/solver.py:778 (FLYBODY_SB_BREAK unset).
 #   bench: the setting of bench.py:39-67 and of train/run.py:165-180
 #     (--bench-solver, the trainer's setting).
+#   default_full: default with each refactor block's Hessian assembled in
+#     the Newton kernel (the JAX package run with
+#     FLYBODY_NEWTON_BLOCK_FULL=1, solver.py:884-891).
 PRESETS = {
     'default': dict(solver_iterations=10, ls_iterations=8, ncon_max=64,
                     refactor_period=1, noslip_contacts=None, mpr_top_p=128,
-                    cc_top_p=128, sb_break=8),
+                    cc_top_p=128, sb_break=8, newton_block_full=False),
     'bench': dict(solver_iterations=8, ls_iterations=6, ncon_max=24,
                   refactor_period=8, noslip_contacts=16, mpr_top_p=32,
-                  cc_top_p=16, sb_break=4),
+                  cc_top_p=16, sb_break=4, newton_block_full=False),
 }
+PRESETS['default_full'] = dict(PRESETS['default'], newton_block_full=True)
 
 
 def fwd(model: FlyModel, data: Data, preset: dict | None = None,
@@ -144,7 +148,7 @@ def fwd_acc(model: FlyModel, data: Data, preset: dict | None = None,
         qacc, qfrc_con, _, f_c = _sol.solve(
             model, data, efc, a_free, p['solver_iterations'],
             p['ls_iterations'], data.qacc, p['refactor_period'],
-            p['sb_break'])
+            p['sb_break'], p['newton_block_full'])
     niter = (meta.noslip_iterations if noslip_iterations is None
              else noslip_iterations)
     if niter > 0:

@@ -16,7 +16,10 @@ the rank of qM:
     (`newton_fused.newton_solve`); otherwise each refactor block assembles
     the packed Hessian (bf16-rounded J^T W J operands at float32, as the
     JAX split form) and the Woodbury rows here and launches kernel 8
-    (`newton_fused.newton_block`);
+    (`newton_fused.newton_block`), or, with `block_full` (the preset key
+    newton_block_full), launches kernel 9's block-full mode, which
+    assembles both in the kernel in float32 (`newton_fused.
+    newton_block_full`);
   * partition, qM dense (the walking fly's `smooth.crb`, as
     tools/profile_engine.py prepares it): `solve_arrow_dense`, the arrow
     Newton step on the dense Hessian with cross-limb contact rows carried
@@ -114,13 +117,48 @@ def limit_tables(meta: _s.Meta):
                                                                   np.int64))
 
 
-def contact_candidates(model: FlyModel, con: _col.Contact):
+TILE = 32  # the dense candidates' prefilter tile (solver.py:271)
+
+
+def contact_candidates(model: FlyModel, con: _col.Contact,
+                       k: int | None = None):
     """The operands of efc_stage.contact_rows: cand_b (B, C, 7) [dist |
     pos | normal], cand_u (B, C, 14) efc_slot_table rows and cand_g (B, C)
-    global slot ids, the dense slots first, then the compact blocks."""
+    global slot ids. A compact Contact gives the dense slots, then the
+    compact blocks. A dense one (no blocks) gives every slot, cut by the
+    JAX package's exact two-stage prefilter when there are more than 16
+    tiles of TILE slots (solver.py:271-316): the T = min(max(TILE, k), nt)
+    tiles with the smallest minimum score (dist - includemargin), in that
+    order, padded slots scored 1e10; the k smallest scores lie in them, and
+    row 7 sees the JAX package's candidates in its order, so ties break
+    the same way. `k`: the selection's size (a dense Contact needs it)."""
     B = con.dist.shape[0]
+    table = _col.efc_slot_table(model)
+    if not con.blocks:
+        if k is None:
+            raise ValueError('a dense Contact needs the selection size k')
+        S = con.dist.shape[1]
+        bcat = torch.cat([con.dist[..., None], con.pos, con.normal], -1)
+        gid = model.const('slot_ids_f', lambda: np.arange(S, dtype=float))
+        if S <= 16 * TILE:
+            return (bcat, table.expand(B, -1, -1).contiguous(),
+                    gid.expand(B, -1).contiguous())
+        pad = (-S) % TILE
+        nt = (S + pad) // TILE
+        T = min(max(TILE, k), nt)
+        pad_b = bcat.new_tensor([1e10, 0, 0, 0, 0, 0, 1]).expand(B, pad, 7)
+        bcat = torch.cat([bcat, pad_b], 1).reshape(B, nt, TILE, 7)
+        table = torch.cat([table, table.new_zeros((pad, 14))]).reshape(
+            nt, TILE, 14)
+        gid = torch.cat([gid, gid.new_zeros(pad)]).reshape(nt, TILE)
+        score = bcat[..., 0] - table[..., 0]
+        tidx = _col.smallest(score.amin(-1), T)  # (B, T)
+        bi = torch.arange(B, device=tidx.device)[:, None]
+        return (bcat[bi, tidx].reshape(B, T * TILE, 7),
+                table[tidx].reshape(B, T * TILE, 14),
+                gid[tidx].reshape(B, T * TILE))
     dsid = _col.dense_slot_ids(model.meta)
-    ucat = _col.efc_slot_table(model)[dsid]
+    ucat = table[dsid]
     cand_b = torch.cat([torch.cat([con.dist[..., None], con.pos, con.normal],
                                   -1)]
                        + [torch.cat([b.dist[..., None], b.pos, b.normal], -1)
@@ -165,7 +203,7 @@ def contact_rows_multi(model: FlyModel, data: Data, cand_b, cand_u, cand_g,
 def make_efc(model: FlyModel, data: Data, con: _col.Contact,
              ncon_max: int) -> EfcRows:
     """Joint-limit rows + the ncon_max contact slots with the smallest
-    dist - includemargin."""
+    dist - includemargin, from a compact or a dense Contact."""
     meta = model.meta
     dt = data.qpos.dtype
     lim_dof, lim_sign, lim_jid = limit_tables(meta)
@@ -181,8 +219,9 @@ def make_efc(model: FlyModel, data: Data, con: _col.Contact,
     R = torch.clamp((1.0 - imp) / imp * model.dof_invweight0[lim_dof],
                     min=1e-12)
 
-    cand_b, cand_u, cand_g = contact_candidates(model, con)
-    k = min(ncon_max, cand_b.shape[1])
+    k = min(ncon_max, con.dist.shape[1]
+            + sum(b.dist.shape[1] for b in con.blocks))
+    cand_b, cand_u, cand_g = contact_candidates(model, con, k)
     rows = (_efc.contact_rows if tree_count(meta) == 1
             else contact_rows_multi)
     con_J, scal = rows(model, data, cand_b, cand_u, cand_g, k)
@@ -223,12 +262,24 @@ def operands(efc: EfcRows, sb_break: int) -> Operands:
                                 efc.con_active, efc.con_D], 1))
 
 
+def con_params5(ops: Operands):
+    """(B, 5, K) [mu | frictional | active | D | hess_active]."""
+    return torch.cat([ops.con_params, ops.hess_active[:, None]], 1)
+
+
 def solve_args(part, M, efc: EfcRows, ops: Operands, a_free, ws):
     """The arguments of newton_fused.newton_solve (kernel 9)."""
     return (part, efc.lim_dof, efc.lim_sign, M, ops.conJ,
             ops.bsel.to(torch.int32), a_free, ws, efc.lim_aref.contiguous(),
-            efc.con_aref.contiguous(), ops.lim_params,
-            torch.cat([ops.con_params, ops.hess_active[:, None]], 1))
+            efc.con_aref.contiguous(), ops.lim_params, con_params5(ops))
+
+
+def block_full_args(part, M, efc: EfcRows, ops: Operands, st):
+    """The arguments of newton_fused.newton_block_full (kernel 9's
+    block-full mode) but for the trip counts."""
+    return (part, efc.lim_dof, efc.lim_sign, M, ops.conJ,
+            ops.bsel.to(torch.int32), *(t.contiguous() for t in st),
+            ops.lim_params, con_params5(ops))
 
 
 def start_state(part, M, efc: EfcRows, ops: Operands, a_free, ws):
@@ -262,16 +313,17 @@ def block_args(part, M, efc: EfcRows, ops: Operands, st):
 
 def solve(model: FlyModel, data: Data, efc: EfcRows, a_free,
           iterations: int, ls_iterations: int, warmstart,
-          refactor_period: int, sb_break: int):
+          refactor_period: int, sb_break: int, block_full: bool = False):
     """Newton solve for qacc; returns (qacc, qfrc_constraint, f_l, f_c).
 
     Each block of `refactor_period` iterations assembles the Hessian,
     factors it (block-arrow) and carries up to `sb_break` cross-limb
     contact slots by a rank-3*SB Woodbury correction; iterations inside a
     block reuse the factor. The starting point is whichever of (warmstart,
-    a_free) has the lower primal cost. A model without an arrow partition
-    takes the dense branch (`solve_dense`), a dense qM with one
-    `solve_arrow_dense`."""
+    a_free) has the lower primal cost. `block_full`: each block of the
+    split form assembles its Hessian in the Newton kernel (packed qM only,
+    as in JAX). A model without an arrow partition takes the dense branch
+    (`solve_dense`), a dense qM with one `solve_arrow_dense`."""
     M = data.qM
     part = _ar.build_partition(model.meta)
     if part is None:
@@ -288,8 +340,13 @@ def solve(model: FlyModel, data: Data, efc: EfcRows, a_free,
 
     st = start_state(part, M, efc, ops, a_free, warmstart)
     for n in _blocks(iterations, refactor_period):
-        st = _nf.newton_block(*block_args(part, M, efc, ops, st),
-                              ls_iterations, n)
+        if block_full:
+            st = _nf.newton_block_full(*block_full_args(part, M, efc, ops,
+                                                        st),
+                                       ls_iterations, n)
+        else:
+            st = _nf.newton_block(*block_args(part, M, efc, ops, st),
+                                  ls_iterations, n)
 
     x, _, jar_l, jar_c = st
     f_l, f_c = _forces(efc, jar_l, jar_c)

@@ -14,14 +14,15 @@ unpacked M: the arrow factor (row 18 of PERF.md's kernel table) and
 substitution (row 19), the Newton solve's fresh arrow steps (K3 with
 1 + 3 SB right-hand sides, row 14 on the capacitance, row 15, row 13) and
 its reuse iterations (row 10), the packed-factor noslip (row 11), the
-sensors (K4) and euler (K3 on the dense damped M). Two departures from
-the JAX tool: collide is the port's compact collide at the default
-preset's widths (top-P 128/128; the JAX chain calls its dense
-`collide(compact=False)`, which the port does not have), and the position
-stage is one kernel (K1), so the JAX tool's `kinematics` and
-`com_pos+cdof` rows are one row here. The last row, `FULL step`, is one
-engine.step (the engine's packed-M path) at a preset built from the flags,
-with the Woodbury budget 8 and top-P 128/128 of the `default` preset.
+sensors (K4) and euler (K3 on the dense damped M). collide is the dense
+`collide(compact=False)` of the JAX chain (row 5 on every analytic group,
+the merged MPR, row 6, at top-P 128, every slot), and make_efc takes its
+contacts (row 7 on the prefilter's candidates). One departure from the JAX
+tool: the position stage is one kernel (K1), so the JAX tool's
+`kinematics` and `com_pos+cdof` rows are one row here. The last row,
+`FULL step`, is one engine.step (the engine's compact path) at a preset
+built from the flags, with the Woodbury budget 8 and top-P 128/128 of the
+`default` preset.
 
 Times: on the card, CUDA events around `--iters` calls after two warm-up
 calls, then a synchronize; on the CPU (--cpu: every kernel's plain
@@ -107,13 +108,12 @@ def prep(model, d, args):
     actuation, the dense M and smooth forces, factor_m and
     a_free = solve_m(qfrc_smooth). Returns (data, efc, a_free)."""
     from flybody_tpu_torch.physics import collision as col
-    from flybody_tpu_torch.physics import engine, fluid as fl
+    from flybody_tpu_torch.physics import fluid as fl
     from flybody_tpu_torch.physics import kinematics as kin
     from flybody_tpu_torch.physics import smooth as sm
     from flybody_tpu_torch.physics import solver
-    p = engine.PRESETS['default']
     d, _, _ = kin.fwd_position_smooth(model, d)
-    con = col.collide(model, d, p['mpr_top_p'], p['cc_top_p'])
+    con = col.collide(model, d, compact=False)
     d = sm.tendon_vel(model, sm.com_vel(model, d))
     efc = solver.make_efc(model, d, con, args.ncon)
     d = sm.actuation(model, d)
@@ -171,7 +171,7 @@ def stages(model, d0, args) -> dict:
     from flybody_tpu_torch.physics import kinematics as kin
     from flybody_tpu_torch.physics import smooth as sm
     from flybody_tpu_torch.physics import solver
-    it, p = args.iters, engine.PRESETS['default']
+    it = args.iters
     few = max(5, it // 5)
     card = d0.qpos.device.type == 'cuda'
 
@@ -179,7 +179,7 @@ def stages(model, d0, args) -> dict:
         return _time(fn, n, card)
 
     d_pos = kin.fwd_position_smooth(model, d0)[0]
-    con = col.collide(model, d_pos, p['mpr_top_p'], p['cc_top_p'])
+    con = col.collide(model, d_pos, compact=False)
     d_vel = sm.tendon_vel(model, sm.com_vel(model, d_pos))
     d_crb = sm.crb(model, d_vel)
     d, efc, a_free = prep(model, d0, args)
@@ -188,8 +188,7 @@ def stages(model, d0, args) -> dict:
     r = {}
     r['position (K1)'] = T(lambda: kin.fwd_position_smooth(model, d0),
                                it)
-    r['collide'] = T(lambda: col.collide(model, d_pos, p['mpr_top_p'],
-                                             p['cc_top_p']), it)
+    r['collide'] = T(lambda: col.collide(model, d_pos, compact=False), it)
     r['com_vel+tendon'] = T(
         lambda: sm.tendon_vel(model, sm.com_vel(model, d_pos)), it)
     r['make_efc'] = T(

@@ -28,12 +28,14 @@ def env():
 
 @pytest.mark.gpu
 def test_kernels_match_plain_versions_on_the_card(env):
-    """The nineteen kernels (K1-K4, the narrowphase, the merged MPR, the
+    """The twenty-one kernels (K1-K4, the narrowphase, the merged MPR, the
     contact rows, the Newton block, the whole Newton solve, the fused
-    noslip; on the two-fly scene's dense path the noslip sweeps, the line
-    search and the three dense Cholesky kernels; on the walking model's
-    unpacked M the dense factor (row 14), the arrow factor and
-    substitution (rows 18, 19) and the Newton reuse kernel (row 10))
+    noslip; the dense collide's narrowphase, the per-type-pair MPR (row
+    20) and the contact rows at C 2,048, and the block-full Newton block
+    (row 9's other mode); on the two-fly scene's dense path the noslip
+    sweeps, the line search and the three dense Cholesky kernels; on the
+    walking model's unpacked M the dense factor (row 14), the arrow factor
+    and substitution (rows 18, 19) and the Newton reuse kernel (row 10))
     against their plain versions (chip_smoke.py's kernel phases, which
     raise on a disagreement) at its batches and seed: the MPR, Newton,
     line-search and factor kernels' limits are set on the distribution
@@ -50,7 +52,7 @@ def test_kernels_match_plain_versions_on_the_card(env):
     kernels += chip_smoke.unpacked_kernels(
         env.model, args, chip_smoke.UNPACKED_BATCH, chip_smoke.SEED, {})
     assert sorted(k['name'] for k in kernels) == sorted(chip_smoke.SOURCES)
-    assert len(chip_smoke.SOURCES) == 19
+    assert len(chip_smoke.SOURCES) == 21
 
 
 @pytest.mark.gpu
@@ -99,6 +101,60 @@ def test_newton_block_refuses_what_its_kernel_does_not_take(env):
     with pytest.raises(ValueError, match='contiguous'):
         nf.newton_block(*args(U=torch.zeros(B, nv, SB3,
                                             device=dev).transpose(1, 2)))
+
+
+@pytest.mark.gpu
+def test_last_slice_wrappers_refuse_what_their_kernels_do_not_take(env):
+    """mpr_pair and newton_block_full raise on a float64 or a
+    non-contiguous CUDA operand instead of running their plain versions,
+    and mpr_pair on a type pair it has no kernel for."""
+    from flybody_tpu_torch.model import spec
+    from flybody_tpu_torch.ops import arrow, mpr_kernel
+    from flybody_tpu_torch.ops import newton_fused as nf
+    from flybody_tpu_torch.physics import solver
+    c = torch.zeros(4, 8, 12, device='cuda')
+    prm = torch.ones(4, 8, 8, device='cuda')
+    for types in mpr_kernel.PAIRS:  # every instantiation launches
+        mpr_kernel.mpr_pair(*types, 8, c, c, prm)
+    with pytest.raises(TypeError, match='float32'):
+        mpr_kernel.mpr_pair(spec.GEOM_SPHERE, spec.GEOM_ELLIPSOID, 8,
+                            c.double(), c, prm)
+    with pytest.raises(ValueError, match='contiguous'):
+        mpr_kernel.mpr_pair(spec.GEOM_SPHERE, spec.GEOM_ELLIPSOID, 8, c, c,
+                            torch.ones(4, 8, 8, device='cuda')
+                            .transpose(1, 2))
+    with pytest.raises(NotImplementedError, match='type pair'):
+        mpr_kernel.mpr_pair(spec.GEOM_SPHERE, spec.GEOM_CAPSULE, 8, c, c,
+                            prm)
+    part = arrow.build_partition(env.model.meta)
+    lim_dof, lim_sign, _ = solver.limit_tables(env.model.meta)
+    B, K, SB, L, nv = 2, 4, 2, len(lim_dof), part.nv
+    dev = torch.device('cuda')
+    Mp = arrow.pack_sym_ref(part, torch.eye(nv, device=dev).expand(B, nv,
+                                                                    nv))
+
+    def args(**over):
+        a = dict(Mp=Mp.contiguous(),
+                 conJ=torch.zeros(B, K, 3, nv, device=dev),
+                 bsel=torch.zeros(B, SB, dtype=torch.int32, device=dev),
+                 x=torch.zeros(B, nv, device=dev),
+                 msm=torch.zeros(B, nv, device=dev),
+                 jar_l=torch.zeros(B, L, device=dev),
+                 jar_c=torch.zeros(B, K, 3, device=dev),
+                 lim_params=torch.zeros(B, 2, L, device=dev),
+                 con_params5=torch.ones(B, 5, K, device=dev))
+        a.update(over)
+        return (part, lim_dof, lim_sign) + tuple(a.values()) + (8, 1)
+
+    nf.newton_block_full(*args())  # the well-formed call launches
+    with pytest.raises(TypeError, match='float32'):
+        nf.newton_block_full(*args(msm=torch.zeros(B, nv, device=dev,
+                                                   dtype=torch.float64)))
+    with pytest.raises(TypeError, match='int32'):
+        nf.newton_block_full(*args(bsel=torch.zeros(B, SB, device=dev)))
+    with pytest.raises(ValueError, match='contiguous'):
+        nf.newton_block_full(*args(jar_c=torch.zeros(B, 3, K, device=dev)
+                                   .transpose(1, 2)))
 
 
 @pytest.mark.gpu

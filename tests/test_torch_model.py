@@ -88,6 +88,26 @@ def test_entry_points_default_to_cuda():
     assert env.model.dtype == torch.float32
 
 
+def test_trajectory_stores_default_to_cuda():
+    """The reference-trajectory stores run on CUDA unless asked for the CPU,
+    like the other entry points."""
+    from flybody_tpu_torch.envs import trajectories as ttraj
+    if torch.cuda.is_available():
+        pytest.skip('a GPU is present; the default device is usable')
+    qpos, qvel = np.zeros((3, 7)), np.zeros((3, 6))
+    with pytest.raises(RuntimeError, match='CUDA'):
+        ttraj.inference_walking_store()
+    with pytest.raises(RuntimeError, match='CUDA'):
+        ttraj.store_from_arrays([qpos], [qvel])
+    store = ttraj.inference_walking_store(device='cpu')
+    assert store.qpos.device.type == 'cpu'
+    assert store.qpos.shape == (1, 300, 7)
+    store = ttraj.store_from_arrays([qpos, qpos[:2]], [qvel, qvel[:2]],
+                                    device='cpu', dtype=torch.float32)
+    assert store.qpos.dtype == torch.float32
+    assert store.lengths.tolist() == [3, 2]
+
+
 def test_kernel_tables_match_the_model():
     """Host tables the kernels walk: dof ancestor chains equal the CRB
     sparsity, and the stage packs build for the walking model."""

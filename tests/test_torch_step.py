@@ -206,14 +206,19 @@ def test_bench_step_reward_discount_type(run_bench):
 def test_preset_table_pins_the_reference_settings():
     """The presets are the settings of envs/base.py:92-96 (with the
     broadphase and Woodbury defaults of physics/collision.py:620/683 and
-    solver.py:778) and of bench.py:39-67 / train/run.py:165-180."""
+    solver.py:778) and of bench.py:39-67 / train/run.py:165-180, both with
+    the split Newton form (FLYBODY_NEWTON_BLOCK_FULL unset, solver.py:
+    884-886); default_full is default with the block-full form."""
     from flybody_tpu_torch.physics.engine import PRESETS
     assert PRESETS['default'] == dict(
         solver_iterations=10, ls_iterations=8, ncon_max=64,
         refactor_period=1, noslip_contacts=None, mpr_top_p=128,
-        cc_top_p=128, sb_break=8)
+        cc_top_p=128, sb_break=8, newton_block_full=False)
     assert PRESETS['bench'] == dict(BENCH_SOLVER, mpr_top_p=32, cc_top_p=16,
-                                    sb_break=4)
+                                    sb_break=4, newton_block_full=False)
+    assert PRESETS['default_full'] == dict(PRESETS['default'],
+                                           newton_block_full=True)
+    assert sorted(PRESETS) == ['bench', 'default', 'default_full']
     import inspect
     from flybody_tpu.envs import base as jbase
     from flybody_tpu.physics import collision as jcol
