@@ -42,7 +42,9 @@ Phases (any failure exits non-zero):
      controls that must fail (mpr_gate), row 7 on the dense make_efc's
      2,048 candidates (K 64), and row 9's block-full mode on the default
      forward pass through newton_checks beside three wrong controls that
-     must fail (a bf16-rounded Hessian, one iteration more, one fewer);
+     must fail (a bf16-rounded Hessian, one iteration more, one fewer).
+     Each Newton mode's registers a thread, shared memory a block, blocks
+     an SM and persistent grid are printed (newton_resources);
   4. main path, at each preset (default, default_full, bench):
      walk_imitation(functional=True) reset + 5 control steps at batch
      8192; state finite; every kernel's launch count equal to the
@@ -526,6 +528,18 @@ def bf16_hessian(plain):
     return run
 
 
+def newton_resources(mode, part, batch, K, SB3, L, report):
+    """Logs and records a Newton mode's registers a thread, shared memory a
+    block, blocks an SM and persistent grid at these widths."""
+    from flybody_tpu_torch.ops import newton_fused as nf
+    info = nf.kernel_info(mode, part, batch, K, SB3, L)
+    report.setdefault('newton_resources', {})[mode] = info
+    log(f'newton {mode} kernel: {info["registers"]} registers a thread, '
+        f'{info["smem_bytes"]} B shared memory a block, '
+        f'{info["blocks_per_sm"]} blocks an SM, grid {info["grid"]} '
+        f'(batch {batch})')
+
+
 def newton_checks(name, kernel, plain, args, ls, n_it, controls, stats):
     """A Newton kernel against its plain version, with the readings of the
     plain version at float64 and of the controls (deliberately wrong
@@ -933,6 +947,7 @@ def solver_kernels(model, data_in, entry, report):
                   batch * newton_flops(part, K, L, SB3, 1, ls, False))
             log(f'newton_block: {ms:.3f} ms kernel, {pms:.3f} ms plain '
                 f'(K {K}, 3SB {SB3}, ls {ls}, 1 iteration)')
+            newton_resources('block', part, batch, K, SB3, L, report)
             block_full_check(part, d, efc, ops, st, stats, ls, entry,
                              report)
         else:  # row 9, the whole solve
@@ -961,6 +976,7 @@ def solver_kernels(model, data_in, entry, report):
                   batch * newton_flops(part, K, L, 3 * SB, it, ls, True))
             log(f'newton_solve: {ms:.3f} ms kernel, {pms:.3f} ms plain '
                 f'(K {K}, SB {SB}, ls {ls}, {it} iterations)')
+            newton_resources('whole', part, batch, K, 3 * SB, L, report)
         report[f'newton_readings_{preset}'] = rd
 
         # Row 11 on the slots the preset sweeps.
@@ -1023,6 +1039,7 @@ def block_full_check(part, d, efc, ops, st, stats, ls, entry, report):
                                assemble=True))
     log(f'newton_block_full: {ms:.3f} ms kernel, {pms:.3f} ms plain '
         f'(K {K}, SB {SB}, ls {ls}, 1 iteration)')
+    newton_resources('block_full', part, batch, K, 3 * SB, L, report)
 
 
 def unpack(part, Mp):
@@ -2151,6 +2168,7 @@ def unpacked_kernels(model, args, batch, seed, report, path=None):
         batch * reuse_flops(part, K, L, SB3, n_it, ls)))
     log(f'newton_reuse: {ms:.3f} ms kernel, {pms:.3f} ms plain (dense M, K '
         f'{K}, 3SB {SB3}, ls {ls}, {n_it} iteration)')
+    newton_resources('reuse', part, batch, K, SB3, L, report)
 
     # solver.solve on the dense M (30 line-search steps) for the first
     # UNPACKED_CPU_ENVS envs on the card and on the CPU at float32 and

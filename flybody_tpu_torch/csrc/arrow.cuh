@@ -153,7 +153,8 @@ __device__ __forceinline__ void arrow_solve(const float* F, float* X, int nrhs,
 }
 
 // y = M x for the packed symmetric M (both triangles stored), one thread
-// per output dof.
+// per output dof (M in shared or global memory: the loops are unrolled so
+// that several of M's loads are in flight ahead of the sum).
 __device__ __forceinline__ void arrow_matvec(const float* M, const float* x,
                                              float* y, const ArrowPart& p) {
   const int dm = p.dm, nr = p.nr, nl = p.nl;
@@ -162,17 +163,23 @@ __device__ __forceinline__ void arrow_matvec(const float* M, const float* x,
     float s = 0.f;
     if (v < nr) {
       const float* R = M + nl * rowlen;
+#pragma unroll 4
       for (int c = 0; c < nr; ++c) s += R[v * dm + c] * x[c];
       for (int l = 0; l < nl; ++l) {
         const float* Bl = M + l * rowlen + (dm + v) * dm;
-        for (int k = 0; k < p.d[l]; ++k) s += Bl[k] * x[p.lo[l] + k];
+        const float* xl = x + p.lo[l];
+#pragma unroll 8
+        for (int k = 0; k < p.d[l]; ++k) s += Bl[k] * xl[k];
       }
     } else {
       int l = 0;
       while (l + 1 < nl && p.lo[l + 1] <= v) ++l;
       const int a = v - p.lo[l];
       const float* D = M + l * rowlen;
-      for (int k = 0; k < p.d[l]; ++k) s += D[a * dm + k] * x[p.lo[l] + k];
+      const float* xl = x + p.lo[l];
+#pragma unroll 8
+      for (int k = 0; k < p.d[l]; ++k) s += D[a * dm + k] * xl[k];
+#pragma unroll 4
       for (int r = 0; r < nr; ++r) s += D[(dm + r) * dm + a] * x[r];
     }
     y[v] = s;

@@ -30,39 +30,84 @@
 // One template holds the four; the prologues (and the whole solve's
 // epilogue) are the only difference, and they share one iteration body.
 //
-// What bounds them: bytes. Per env the block kernel reads Hp, M (14.6 KB
-// each), J (3K x nv: 83 KB at K = 64), U (10 KB at SB = 8) and the state
-// (~131 KB in all) for ~0.3 MFLOP; the reuse kernel reads F (14.6 KB), a
-// dense M (46.7 KB), J (41.5 KB at K = 32), Z and U (20.7 KB at SB = 8) and
-// LC (~124 KB in all). Design: one block of 128 threads per env. The packed matrices, U, Z, the capacitance factor, the carried
-// state and the line search's planes live in shared memory; J is read
-// from global memory (coalesced over dofs for J^T f, one warp per row for
-// J dx), so the block kernel fits three blocks on an SM at K = 64; the
-// reuse kernel keeps F, Z, U and the inverse of LC in shared memory and
-// reads a dense M from global memory (L2), a row per warp. The
-// whole-solve kernel stages J and J W (31 KB each at K = 24), as its
-// Hessian assembly reads them ~1,250 times, and reads M from L2, so two
-// of its blocks fit on an SM. The block-full kernel stages the same at the
-// default preset's K = 64 (83 KB each): 215 KB in all, under the 227 KB a
-// block may take, so one block an SM. The TPU kernel kept envs on
-// 128 lanes and inverted the capacitance factor once so every iteration's
-// two triangular solves became products; this kernel does the same with
-// one thread per column. The line search is one warp's work
-// (linesearch.cuh), with every lane holding the reduced sums.
+// What bounds them on the card: bytes in principle (per env the block
+// kernel reads Hp, M: 14.6 KB each, J: 3K x nv, 83 KB at K = 64, U: 10 KB
+// at SB = 8, and the state, ~131 KB in all, for ~0.3 MFLOP), in practice
+// the latency of each env's dependency chains: the factor, the
+// substitutions, the capacitance Cholesky and its inverse, the line search
+// (tools/profile_newton.py --phases reads them). Design:
+//   * persistent blocks of 128 threads at <= 128 registers, as many as fit
+//     on each SM (shared memory allows three at K 64, four at K 24),
+//     each walking envs e = blockIdx.x, + gridDim.x, ...; each env's
+//     contiguous slabs (Hp or M, U, the state vectors and parameters; the
+//     reuse kernel's F, Z, U, LC) come in by 1-D bulk asynchronous copies
+//     (TMA) on an mbarrier, issued by one thread as soon as the block is
+//     done with its last env, while the other blocks on the SM compute (a
+//     second stage, to overlap within the block, would cost the third
+//     block an SM, and ran slower); J and M (for M dx) are read where they
+//     lie (from L2 after the first touch: a bulk L2 prefetch of the next
+//     env's J made the kernel slower, by evicting);
+//   * a mask of the limbs (and the root) each contact slot's J rows touch
+//     (a nonzero or NaN entry), and from it per-block-row contact lists:
+//     J^T f, J dx and the Hessian assembly skip exact zeros only, each sum
+//     kept in its dense order;
+//   * the assembling modes build the packed Hessian without a J W buffer:
+//     a warp a limb, each lane one row of the limb's tile (its d x d lower
+//     triangle and nr x d root border) in registers, summed over the
+//     listed slots whose W_k is not all zero, W_k J formed per slot at the
+//     tile's columns; a lane a root entry for the root tile; float32, the
+//     same sums in the same order as the dense assembly over every row, so
+//     the Hessian is that assembly's to the bit;
+//   * the arrow factor a warp a limb block (a lane a row, Crout column
+//     steps, each pivot passed by a shuffle), the substitutions a thread a
+//     (limb, right-hand side) with the right-hand side in registers, the
+//     limbs taken longest first; the capacitance Cholesky on one warp;
+//   * the block modes' line search computes its terms over the whole
+//     block and sums them as the one-warp search (the whole solve's) does
+//     (linesearch.cuh).
+// Every sum runs in the order of the dense one-block-an-env form, so the
+// whole solve's arithmetic is that form's bit for bit: its bench
+// trajectories are chaotic, and a rounding change sends other flailing
+// flies to non-finite states within five control steps (PERF.md section
+// 6).
+// Shared memory holds the stage, Z, U, the capacitance factor and its
+// inverse, the Newton planes and the contact lists: 61-64 KB a block at
+// the default preset (K 64), 39 KB at the bench one (K 24).
 
 #include "arrow.cuh"
+#include "bulk.cuh"
 #include "linesearch.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxDm = 16;           // limb block size of the register tiles
+constexpr int kMaxNr = 6;            // root dofs
+constexpr int kMaxSB3 = 32;          // Woodbury rows (a lane each in the
+                                     // capacitance factor)
+constexpr int kRootBit = 31;         // mask bit of the root columns
 enum Mode { kBlock = 0, kWhole = 1, kReuse = 2, kBlockFull = 3 };
-constexpr int kRows = 4;  // rows of J dx a warp takes at once
+// Phase clocks (newton_phase_clock): the phases of PHASE marks below, in
+// this order, as ops/newton_fused.PHASES names them.
+constexpr int kPhases = 15;
+long long* g_clk = nullptr;  // host: where the clock instantiation adds
+int g_clk_stride = 1;        // every stride-th env is recorded
 
 struct LimTables {
   const int* dof;      // (L) dof of each limit row
   const float* sign;   // (L) +1 lower row, -1 upper row
   const int* dof_lim;  // (nv, 2) limit rows of each dof, -1 for none
+};
+
+// Shared-memory offsets in floats: the stage of slabs the bulk copies
+// bring, then the block's working buffers.
+struct Layout {
+  int A, Ut, Zg, LC, x, msm, jl, jc, lp, cp;  // the stage
+  int Z, ldz, Uw, C, Ci, wu, wv, g, dx, mdx, vl, fl, pl, fc, red;
+  int lsw, ldof, lsign, dlim, vbit, lord, mask, list, cnt;
+  int W, wnz, G;  // assembling modes
+  int total;
 };
 
 struct NewtonArgs {
@@ -85,71 +130,66 @@ struct NewtonArgs {
   float* o3;                // block: jar_c; whole: f_c (B, K, 3)
   LimTables lim;
   ArrowPart p;
-  int K, SB3, L, ls_iters, n_iters;
-  int dense_m;  // reuse: M is dense (nv, nv)
+  int B, K, SB3, L, ls_iters, n_iters;
+  int dense_m;     // reuse: M is dense (nv, nv)
+  long long* clk;  // clock instantiation: (ceil(B / stride), kPhases)
+  int clk_stride;
+  Layout o;  // shared-memory layout (host-computed: kernel parameters are
+             // re-read rather than held in registers)
 };
 
-// Shared-memory offsets (in floats), the same on host and device.
-struct Layout {
-  int A, Mm, Ut, Z, C, Ci, wu, wv;
-  int x, msm, g, dx, mdx;
-  int jl, vl, al, Dl, fl;
-  int pl;  // 10 planes of K: N, y1, y2, v0, v1, v2, mu, fric, act, D
-  int fc, red, ldof, lsign, dlim;
-  int J, JH, W, G, hact;  // whole solve and block full only
-  int aw, arl, arc;       // whole solve only
-  int total;
-};
-
-__host__ __device__ inline Layout newton_layout(int K, int SB3, int L, int nv,
-                                                int msize, int mode,
-                                                bool dense_m) {
-  const bool whole = mode == kWhole;
-  const bool assemble = whole || mode == kBlockFull;
+inline Layout newton_layout(int K, int SB3, int L, const ArrowPart& p,
+                            int mode) {
+  const bool assemble = mode == kWhole || mode == kBlockFull;
+  const bool reuse = mode == kReuse;
+  const int nv = p.nv, msize = (p.nl + 1) * (p.dm + p.nr) * p.dm;
   Layout o;
   int n = 0;
   auto take = [&n](int c) {
     const int at = n;
-    n += (c + 3) & ~3;
+    n += (c + 3) & ~3;  // 16-byte aligned for the bulk copies
     return at;
   };
+  take(4);  // the mbarrier
   o.A = take(msize);
-  // The assembling modes read M from L2, the reuse iterations a dense M.
-  o.Mm = assemble || dense_m ? 0 : take(msize);
-  o.Ut = take(SB3 * nv);
-  o.Z = take(SB3 * nv);
-  o.C = take(SB3 * SB3);
+  o.Ut = assemble ? 0 : take(SB3 * nv);
+  o.Zg = reuse ? take(nv * SB3) : 0;
+  o.LC = reuse ? take(SB3 * SB3) : 0;
+  o.x = take(nv);
+  o.msm = take(nv);
+  o.jl = take(L);
+  o.jc = take(3 * K);
+  o.lp = take(2 * L);
+  o.cp = take((assemble ? 5 : 4) * K);
+  o.ldz = nv | 1;  // odd: the (limb, rhs) substitution threads miss banks
+  o.Z = reuse ? 0 : take(SB3 * o.ldz);
+  o.Uw = assemble ? take(SB3 * nv) : 0;
+  o.C = reuse ? 0 : take(SB3 * SB3);
   o.Ci = take(SB3 * SB3);
   o.wu = take(SB3);
   o.wv = take(SB3);
-  o.x = take(nv);
-  o.msm = take(nv);
   o.g = take(nv);
   o.dx = take(nv);
   o.mdx = take(nv);
-  o.jl = take(L);
   o.vl = take(L);
-  o.al = take(L);
-  o.Dl = take(L);
   o.fl = take(L);
-  o.pl = take(10 * K);
+  o.pl = take(6 * K);  // N, Y1, Y2, V0, V1, V2
   o.fc = take(3 * K);
-  o.red = take(32);
+  o.red = take(4);
+  o.lsw = mode == kWhole ? 0 : take(4 * (L + K));  // line search terms
   o.ldof = take(L);
   o.lsign = take(L);
   o.dlim = take(2 * nv);
-  o.J = o.JH = o.W = o.G = o.aw = o.arl = o.arc = o.hact = 0;
+  o.vbit = take(nv);
+  o.lord = take(p.nl);
+  o.mask = take(K);
+  o.list = take((p.nl + 1) * K);
+  o.cnt = take(p.nl + 1);
+  o.W = o.wnz = o.G = 0;
   if (assemble) {
-    o.J = take(3 * K * nv);
-    o.JH = take(3 * K * nv);
     o.W = take(6 * K);
-    o.G = take(2 * SB3);  // 6 per selected slot
-    o.hact = take(K);
-  }
-  if (whole) {
-    o.aw = take(2 * nv);
-    o.arl = take(L);
-    o.arc = take(3 * K);
+    o.wnz = take(K);
+    o.G = take(2 * SB3);
   }
   o.total = n;
   return o;
@@ -241,14 +281,204 @@ __device__ __forceinline__ float lim_scatter(const int* dlim, const float* f,
   return s;
 }
 
+// Lower Cholesky, in place, of the n columns of the rows at M (row stride
+// ld) on one warp, lane i taking row i where `live`: column by column,
+// each live row at or below the diagonal forms its entry as a dot product
+// of finished entries (the Crout order, which subtracts the same products
+// in the same order as the right-looking update of arrow.cuh's factor),
+// the pivot passed by a shuffle. Rows below n (a limb's border) take part.
+__device__ __forceinline__ void chol_cols(float* M, int n, int ld,
+                                          bool live) {
+  const int lane = threadIdx.x & 31;
+  for (int k = 0; k < n; ++k) {
+    const bool mine = live && lane >= k;
+    float s = 0.f;
+    if (mine) {
+      s = M[lane * ld + k];
+#pragma unroll 4
+      for (int j = 0; j < k; ++j) s -= M[lane * ld + j] * M[k * ld + j];
+    }
+    const float inv =
+        rsqrtf(fmaxf(__shfl_sync(0xffffffffu, s, k), 1e-30f));
+    if (mine) M[lane * ld + k] = s * inv;
+    __syncwarp();
+  }
+}
+
+// Lower Cholesky of the n x n block at M (row stride ld, n <= 32) on one
+// warp; zeros above the diagonal up to column zero_to.
+__device__ __forceinline__ void chol_warp(float* M, int n, int ld,
+                                          int zero_to) {
+  const int lane = threadIdx.x & 31;
+  chol_cols(M, n, ld, lane < n);
+  if (lane < n)
+    for (int c = lane + 1; c < zero_to; ++c) M[lane * ld + c] = 0.f;
+}
+
+// In place: the packed symmetric A becomes its packed factor (L_l, LB_l =
+// B_l L_l^-T, L_R), zeros above each live diagonal; reads only the lower
+// triangles of D_l and R (arrow_factor in arrow.cuh; each entry sees the
+// same operations in the same order). A warp a limb block (chol_cols):
+// lane i < d takes limb row i, lane dm + r border row r, the limbs taken
+// longest first (lord). Then the root Schur complement a thread an entry
+// and the root factor on warp 0.
+__device__ __forceinline__ void factor_packed(float* A, const ArrowPart& p,
+                                              const int* lord) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int dm = p.dm, nr = p.nr, nl = p.nl, rowlen = (dm + nr) * dm;
+  for (int b = warp; b < nl; b += kWarps) {
+    const int l = lord[b];
+    float* D = A + l * rowlen;
+    const int d = p.d[l];
+    chol_cols(D, d, dm, lane < d || (lane >= dm && lane < dm + nr));
+    if (lane < d)
+      for (int c = lane + 1; c < dm; ++c) D[lane * dm + c] = 0.f;
+  }
+  __syncthreads();
+  float* R = A + nl * rowlen;
+  for (int q = t; q < nr * nr; q += kThreads) {
+    const int r = q / nr, c = q - r * nr;
+    if (c > r) continue;
+    float s = R[r * dm + c];
+    for (int l = 0; l < nl; ++l) {
+      const float* LB = A + l * rowlen + dm * dm;
+      const int d = p.d[l];
+#pragma unroll
+      for (int k = 0; k < kMaxDm; ++k)
+        if (k < d) s -= LB[r * dm + k] * LB[c * dm + k];
+    }
+    R[r * dm + c] = s;
+  }
+  __syncthreads();
+  if (warp == 0) chol_warp(R, nr, dm, nr);
+  __syncthreads();
+}
+
+// In place: nrhs right-hand sides X (dof layout, row stride ld) become
+// A^-1 X for the packed factor F (arrow_solve in arrow.cuh, the same
+// operations in the same order): forward substitution a thread a (limb,
+// rhs), the root right-hand side a thread a (root dof, rhs), the root
+// solve a thread a rhs, the back substitution a thread a (limb, rhs),
+// longest limbs first (lord) so that a second round of tasks takes the
+// short ones; the limb's right-hand side in registers, the factor's rows
+// broadcast from shared memory to the threads of one limb.
+__device__ __forceinline__ void solve_packed(const float* F, float* X,
+                                             int nrhs, int ld,
+                                             const ArrowPart& p,
+                                             const int* lord) {
+  const int t = threadIdx.x;
+  const int dm = p.dm, nr = p.nr, nl = p.nl, rowlen = (dm + nr) * dm;
+  for (int q = t; q < nl * nrhs; q += kThreads) {
+    const int l = lord[q / nrhs], j = q % nrhs;
+    const float* D = F + l * rowlen;
+    float* y = X + (size_t)j * ld + p.lo[l];
+    const int d = p.d[l];
+    float r[kMaxDm];
+#pragma unroll
+    for (int i = 0; i < kMaxDm; ++i) r[i] = i < d ? y[i] : 0.f;
+#pragma unroll
+    for (int k = 0; k < kMaxDm; ++k) {
+      if (k < d) {
+        float s = r[k];
+#pragma unroll
+        for (int i = 0; i < k; ++i) s -= D[k * dm + i] * r[i];
+        r[k] = s / D[k * dm + k];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kMaxDm; ++i)
+      if (i < d) y[i] = r[i];
+  }
+  __syncthreads();
+  for (int q = t; q < nr * nrhs; q += kThreads) {
+    const int j = q / nr, r = q - j * nr;
+    float* x = X + (size_t)j * ld;
+    float s = x[r];
+    for (int l = 0; l < nl; ++l) {
+      const float* LB = F + l * rowlen + dm * dm;
+      const float* y = x + p.lo[l];
+      const int d = p.d[l];
+#pragma unroll
+      for (int k = 0; k < kMaxDm; ++k)
+        if (k < d) s -= LB[r * dm + k] * y[k];
+    }
+    x[r] = s;
+  }
+  __syncthreads();
+  const float* LR = F + nl * rowlen;
+  for (int j = t; j < nrhs; j += kThreads) {
+    float* x = X + (size_t)j * ld;
+    float r[kMaxNr];
+#pragma unroll
+    for (int i = 0; i < kMaxNr; ++i) r[i] = i < nr ? x[i] : 0.f;
+#pragma unroll
+    for (int k = 0; k < kMaxNr; ++k) {
+      if (k < nr) {
+        float s = r[k];
+#pragma unroll
+        for (int i = 0; i < k; ++i) s -= LR[k * dm + i] * r[i];
+        r[k] = s / LR[k * dm + k];
+      }
+    }
+#pragma unroll
+    for (int k = kMaxNr - 1; k >= 0; --k) {
+      if (k < nr) {
+        float s = r[k];
+#pragma unroll
+        for (int i = k + 1; i < kMaxNr; ++i)
+          if (i < nr) s -= LR[i * dm + k] * r[i];
+        r[k] = s / LR[k * dm + k];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kMaxNr; ++i)
+      if (i < nr) x[i] = r[i];
+  }
+  __syncthreads();
+  for (int q = t; q < nl * nrhs; q += kThreads) {
+    const int l = lord[q / nrhs], j = q % nrhs;
+    const float* D = F + l * rowlen;
+    const float* xr = X + (size_t)j * ld;
+    float* y = X + (size_t)j * ld + p.lo[l];
+    const int d = p.d[l];
+    float root[kMaxNr], r[kMaxDm];
+#pragma unroll
+    for (int i = 0; i < kMaxNr; ++i) root[i] = i < nr ? xr[i] : 0.f;
+#pragma unroll
+    for (int a = 0; a < kMaxDm; ++a) {
+      r[a] = 0.f;
+      if (a < d) {
+        float s = y[a];
+#pragma unroll
+        for (int i = 0; i < kMaxNr; ++i)
+          if (i < nr) s -= D[(dm + i) * dm + a] * root[i];
+        r[a] = s;
+      }
+    }
+#pragma unroll
+    for (int k = kMaxDm - 1; k >= 0; --k) {
+      if (k < d) {
+        float s = r[k];
+#pragma unroll
+        for (int i = k + 1; i < kMaxDm; ++i)
+          if (i < d) s -= D[i * dm + k] * r[i];
+        r[k] = s / D[k * dm + k];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kMaxDm; ++i)
+      if (i < d) y[i] = r[i];
+  }
+  __syncthreads();
+}
+
 // y = M x for a dense (nv, nv) M in global memory: a warp a row, the lanes
 // over its columns.
 __device__ __forceinline__ void dense_matvec(const float* __restrict__ M,
                                              const float* x, float* y,
                                              int nv) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  for (int i = warp; i < nv; i += nw) {
+  for (int i = warp; i < nv; i += kWarps) {
     float s = 0.f;
     for (int j = lane; j < nv; j += 32) s += M[(size_t)i * nv + j] * x[j];
     s = warp_sum(s);
@@ -256,129 +486,375 @@ __device__ __forceinline__ void dense_matvec(const float* __restrict__ M,
   }
 }
 
+// Per contact slot k, mask[k]: bit l for each limb whose columns its three
+// J rows touch (a nonzero or NaN entry), bit kRootBit for the root; a warp
+// takes kSlots slots at once, the lanes over the columns, kCols columns a
+// lane in flight. kDots (the whole solve): also J ws - aref into the
+// planes N, Y1, Y2 and J a_free - aref into V0..V2.
+template <bool kDots>
+__device__ __forceinline__ void contact_masks(
+    const float* __restrict__ J, int K, int nv, const int* vbit,
+    unsigned* mask, const float* ws, const float* af, const float* arc,
+    float* pl) {
+  constexpr int kSlots = 4, kCols = 4;  // slots, column strides in flight
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int k0 = warp; k0 < K; k0 += kSlots * kWarps) {
+    unsigned m[kSlots];
+    float sw[kSlots][3], sa[kSlots][3];
+#pragma unroll
+    for (int u = 0; u < kSlots; ++u) {
+      m[u] = 0;
+      for (int c = 0; c < 3; ++c) sw[u][c] = sa[u][c] = 0.f;
+    }
+    for (int v0 = lane; v0 < nv; v0 += 32 * kCols) {
+      float x[kSlots][kCols][3];
+#pragma unroll
+      for (int u = 0; u < kSlots; ++u) {
+#pragma unroll
+        for (int i = 0; i < kCols; ++i) {
+          const int k = k0 + u * kWarps, v = v0 + 32 * i;
+          const bool in = k < K && v < nv;
+          const float* j0 = J + (in ? (size_t)3 * k * nv + v : 0);
+          for (int c = 0; c < 3; ++c) x[u][i][c] = in ? j0[c * nv] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kCols; ++i) {
+        const int v = v0 + 32 * i;
+        if (v >= nv) break;
+        const unsigned bit = 1u << vbit[v];
+        float w = 0.f, f = 0.f;
+        if constexpr (kDots) w = ws[v], f = af[v];
+#pragma unroll
+        for (int u = 0; u < kSlots; ++u) {
+          const float* a = x[u][i];
+          if (a[0] != 0.f || a[1] != 0.f || a[2] != 0.f) m[u] |= bit;
+          if constexpr (kDots) {
+            sw[u][0] += a[0] * w, sw[u][1] += a[1] * w, sw[u][2] += a[2] * w;
+            sa[u][0] += a[0] * f, sa[u][1] += a[1] * f, sa[u][2] += a[2] * f;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kSlots; ++u) {
+      const int k = k0 + u * kWarps;
+      if (k >= K) break;
+      const unsigned mu = __reduce_or_sync(0xffffffffu, m[u]);
+      if (lane == 0) mask[k] = mu;
+      if constexpr (kDots) {
+        for (int c = 0; c < 3; ++c) {
+          const float w = warp_sum(sw[u][c]), f = warp_sum(sa[u][c]);
+          if (lane == 0) {
+            pl[c * K + k] = w - arc[3 * k + c];
+            pl[(3 + c) * K + k] = f - arc[3 * k + c];
+          }
+        }
+      }
+    }
+  }
+}
+
+// list + b * K: the slots whose mask has bit b (limb b < nl; b = nl: the
+// root), in increasing order; cnt[b] their number. A warp a list.
+__device__ __forceinline__ void contact_lists(const unsigned* mask, int K,
+                                              int nl, int* list, int* cnt) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int b = warp; b <= nl; b += kWarps) {
+    const unsigned bit = 1u << (b < nl ? b : kRootBit);
+    int n = 0;
+    for (int k0 = 0; k0 < K; k0 += 32) {
+      const int k = k0 + lane;
+      const bool in = k < K && (mask[k] & bit);
+      const unsigned bal = __ballot_sync(0xffffffffu, in);
+      if (in) list[b * K + n + __popc(bal & ((1u << lane) - 1u))] = k;
+      n += __popc(bal);
+    }
+    if (lane == 0) cnt[b] = n;
+  }
+}
+
+// out[v] = sum over the slots k touching v's block (its limb's list, or
+// the root's) of J[3k + c][v] f[3k + c], in the order of k then c, a
+// thread a dof: the dense sum over every row in its order, less the
+// exact zeros.
+__device__ __forceinline__ void jt_times(const float* __restrict__ J,
+                                         const float* f, const int* list,
+                                         const int* cnt, const int* vbit,
+                                         int K, const ArrowPart& p,
+                                         float* out) {
+  const int nv = p.nv;
+  for (int v = threadIdx.x; v < nv; v += kThreads) {
+    const int b = v < p.nr ? p.nl : vbit[v], n = cnt[b];
+    const int* ls = list + b * K;
+    float s = 0.f;
+#pragma unroll 4
+    for (int i = 0; i < n; ++i) {
+      const int k = ls[i];
+      const float* j = J + (size_t)3 * k * nv + v;
+      s += j[0] * f[3 * k];
+      s += j[nv] * f[3 * k + 1];
+      s += j[2 * nv] * f[3 * k + 2];
+    }
+    out[v] = s;
+  }
+}
+
+// V_c[k] (V + c * K) = J[3k + c] . x over the columns slot k touches; a
+// warp takes two slots at once, the lanes over the columns.
+__device__ __forceinline__ void j_times(const float* __restrict__ J,
+                                        const float* x, const unsigned* mask,
+                                        const int* vbit, int K, int nv,
+                                        float* V) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int k0 = warp; k0 < K; k0 += 2 * kWarps) {
+    const int k1 = k0 + kWarps;
+    const unsigned m0 = mask[k0], m1 = k1 < K ? mask[k1] : 0u;
+    const float* j0 = J + (size_t)3 * k0 * nv;
+    const float* j1 = J + (size_t)3 * (k1 < K ? k1 : k0) * nv;
+    float s[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (m0 | m1) {
+      for (int v = lane; v < nv; v += 32) {
+        const int b = vbit[v];
+        const float xv = x[v];
+        if ((m0 >> b) & 1u)
+          s[0] += j0[v] * xv, s[1] += j0[nv + v] * xv,
+              s[2] += j0[2 * nv + v] * xv;
+        if ((m1 >> b) & 1u)
+          s[3] += j1[v] * xv, s[4] += j1[nv + v] * xv,
+              s[5] += j1[2 * nv + v] * xv;
+      }
+#pragma unroll
+      for (int i = 0; i < 6; ++i) s[i] = warp_sum(s[i]);
+    }
+    if (lane == 0) {
+      V[k0] = s[0], V[K + k0] = s[1], V[2 * K + k0] = s[2];
+      if (k1 < K) V[k1] = s[3], V[K + k1] = s[4], V[2 * K + k1] = s[5];
+    }
+  }
+}
+
+// Row c of the weighted 3x3 W (unique entries 00 01 02 11 12 22) times
+// the three J rows of a slot at column v: (W J)[c][v], in the order a
+// dense J W buffer forms it.
+__device__ __forceinline__ float wj(const float* w, int c, const float* j0,
+                                    int nv, int v) {
+  const float w0 = c == 0 ? w[0] : (c == 1 ? w[1] : w[2]);
+  const float w1 = c == 0 ? w[1] : (c == 1 ? w[3] : w[4]);
+  const float w2 = c == 0 ? w[2] : (c == 1 ? w[4] : w[5]);
+  return w0 * j0[v] + w1 * j0[nv + v] + w2 * j0[2 * nv + v];
+}
+
+// Limb l's tile of J^T W J in registers, added to the packed A with the
+// limit diagonal g: lane i < d takes limb row lo + i (its lower triangle),
+// lane d + r root row r (the border B_l's row r), each over the limb's d
+// columns, summed over the listed slots whose W_k is not all zero. Each
+// entry sums J[3k + c][row] (W J)[3k + c][col] in the order of k then c,
+// the dense sum over every row less its exact zeros.
+__device__ __forceinline__ void limb_tile(float* A,
+                                          const float* __restrict__ J,
+                                          const float* W, const int* wnz,
+                                          const int* ls, int n,
+                                          const float* g, const ArrowPart& p,
+                                          int l) {
+  const int lane = threadIdx.x & 31, nv = p.nv, dm = p.dm, nr = p.nr;
+  const int d = p.d[l], lo = p.lo[l];
+  const int row = lane < d ? lo + lane : (lane < d + nr ? lane - d : -1);
+  float acc[kMaxDm];
+#pragma unroll
+  for (int c = 0; c < kMaxDm; ++c) acc[c] = 0.f;
+  for (int i = 0; i < n; ++i) {
+    const int k = ls[i];
+    if (!wnz[k]) continue;
+    const float* w = W + 6 * k;
+    const float* j0 = J + (size_t)3 * k * nv;
+    float r[3] = {0.f, 0.f, 0.f};
+    if (row >= 0) r[0] = j0[row], r[1] = j0[nv + row], r[2] = j0[2 * nv + row];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+#pragma unroll
+      for (int q = 0; q < kMaxDm; ++q)
+        if (q < d) acc[q] += r[c] * wj(w, c, j0, nv, lo + q);
+    }
+  }
+  float* D = A + l * (dm + nr) * dm;
+  if (lane < d) {
+#pragma unroll
+    for (int c = 0; c < kMaxDm; ++c) {
+      if (c <= lane) {
+        float h = D[lane * dm + c] + acc[c];
+        if (c == lane) h += g[lo + lane];
+        D[lane * dm + c] = h;
+      }
+    }
+  } else if (row >= 0) {
+    float* B = D + (dm + lane - d) * dm;
+#pragma unroll
+    for (int c = 0; c < kMaxDm; ++c)
+      if (c < d) B[c] += acc[c];
+  }
+}
+
+// The root tile (lower triangle) of J^T W J plus the limit diagonal, added
+// to A's root block: lane q takes entry q, summed over the root's listed
+// slots whose W_k is not all zero in the order of the dense sum.
+__device__ __forceinline__ void root_tile(float* A,
+                                          const float* __restrict__ J,
+                                          const float* W, const int* wnz,
+                                          const int* ls, int n,
+                                          const float* g,
+                                          const ArrowPart& p) {
+  const int lane = threadIdx.x & 31, nv = p.nv, dm = p.dm, nr = p.nr;
+  if (lane >= nr * (nr + 1) / 2) return;
+  int r = 0;
+  while ((r + 1) * (r + 2) / 2 <= lane) ++r;
+  const int c = lane - r * (r + 1) / 2;
+  float s = 0.f;
+  for (int i = 0; i < n; ++i) {
+    const int k = ls[i];
+    if (!wnz[k]) continue;
+    const float* w = W + 6 * k;
+    const float* j0 = J + (size_t)3 * k * nv;
+    for (int q = 0; q < 3; ++q) s += j0[q * nv + r] * wj(w, q, j0, nv, c);
+  }
+  float* R = A + p.nl * (dm + nr) * dm;
+  float h = R[r * dm + c] + s;
+  if (c == r) h += g[r];
+  R[r * dm + c] = h;
+}
+
+// Issues the bulk copies of env e's slabs into the stage of shared memory
+// sm (one thread).
 template <int kMode>
-__global__ void __launch_bounds__(kThreads) newton_kernel(NewtonArgs a) {
+__device__ __forceinline__ void stage_env(const NewtonArgs& a,
+                                          const Layout& o, float* sm,
+                                          uint64_t* bar, int e) {
+  constexpr bool kAssemble = kMode == kWhole || kMode == kBlockFull;
+  const ArrowPart& p = a.p;
+  const int nv = p.nv, K = a.K, L = a.L, SB3 = a.SB3;
+  const int msize = (p.nl + 1) * (p.dm + p.nr) * p.dm;
+  const int ncp = kAssemble ? 5 : 4;
+  const uint32_t f4 = sizeof(float);
+  uint32_t bytes = f4 * (msize + 2 * nv + L + 3 * K + 2 * L + ncp * K);
+  if constexpr (!kAssemble) bytes += f4 * SB3 * nv;
+  if constexpr (kMode == kReuse) bytes += f4 * (nv * SB3 + SB3 * SB3);
+  fence_proxy_async();
+  mbar_expect_bytes(bar, bytes);
+  const size_t E = (size_t)e;
+  bulk_load(sm + o.A, (kAssemble ? a.M : a.Hp) + E * msize, f4 * msize, bar);
+  if constexpr (!kAssemble)
+    bulk_load(sm + o.Ut, a.U + E * SB3 * nv, f4 * SB3 * nv, bar);
+  if constexpr (kMode == kReuse) {
+    bulk_load(sm + o.Zg, a.Zg + E * nv * SB3, f4 * nv * SB3, bar);
+    bulk_load(sm + o.LC, a.LC + E * SB3 * SB3, f4 * SB3 * SB3, bar);
+  }
+  bulk_load(sm + o.x, a.x + E * nv, f4 * nv, bar);
+  bulk_load(sm + o.msm, a.msm + E * nv, f4 * nv, bar);
+  bulk_load(sm + o.jl, a.jar_l + E * L, f4 * L, bar);
+  bulk_load(sm + o.jc, a.jar_c + E * 3 * K, f4 * 3 * K, bar);
+  bulk_load(sm + o.lp, a.lim_params + E * 2 * L, f4 * 2 * L, bar);
+  bulk_load(sm + o.cp, a.con_params + E * ncp * K, f4 * ncp * K, bar);
+}
+
+// Phase i of the current env ends: the block synchronises and thread 0
+// adds the cycles since the last mark to phase i (clock instantiation).
+#define PHASE(i)                        \
+  do {                                  \
+    if constexpr (kClock) {             \
+      __syncthreads();                  \
+      if (t == 0) {                     \
+        const long long c_ = clock64(); \
+        ph[i] += c_ - c_last;           \
+        c_last = c_;                    \
+      }                                 \
+    }                                   \
+  } while (0)
+
+template <int kMode, bool kClock>
+__global__ void __launch_bounds__(kThreads, 4) newton_kernel(NewtonArgs a) {
   constexpr bool kWholeSolve = kMode == kWhole;
   constexpr bool kAssemble = kWholeSolve || kMode == kBlockFull;
-  extern __shared__ float sm[];
+  extern __shared__ __align__(16) float sm[];
   const ArrowPart& p = a.p;
-  const int nv = p.nv, K = a.K, L = a.L, SB3 = a.SB3, R3 = 3 * K;
-  const int msize = (p.nl + 1) * (p.dm + p.nr) * p.dm;
+  const int nv = p.nv, nr = p.nr, nl = p.nl, K = a.K, L = a.L, SB3 = a.SB3;
+  const int R3 = 3 * K;
   const bool dense_m = kMode == kReuse && a.dense_m;
-  const Layout o = newton_layout(K, SB3, L, nv, msize, kMode, dense_m);
-  const int e = blockIdx.x, t = threadIdx.x, nt = blockDim.x;
-  const int lane = t & 31, warp = t >> 5, nw = nt >> 5;
+  const Layout& o = a.o;
+  const int msize = (nl + 1) * (p.dm + nr) * p.dm;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm);
 
-  float *A = sm + o.A, *Ut = sm + o.Ut, *Z = sm + o.Z;
-  float *C = sm + o.C, *Ci = sm + o.Ci, *wu = sm + o.wu, *wv = sm + o.wv;
-  float *x = sm + o.x, *msm = sm + o.msm, *g = sm + o.g, *dx = sm + o.dx;
-  float *mdx = sm + o.mdx, *jl = sm + o.jl, *vl = sm + o.vl;
-  float *al = sm + o.al, *Dl = sm + o.Dl, *fl = sm + o.fl, *fc = sm + o.fc;
-  float *red = sm + o.red;
+  float *Ci = sm + o.Ci, *wu = sm + o.wu, *wv = sm + o.wv;
+  float *g = sm + o.g, *dx = sm + o.dx, *mdx = sm + o.mdx;
+  float *vl = sm + o.vl, *fl = sm + o.fl, *fc = sm + o.fc, *red = sm + o.red;
   float* pl = sm + o.pl;
   float *N = pl, *Y1 = pl + K, *Y2 = pl + 2 * K;
   float *V0 = pl + 3 * K, *V1 = pl + 4 * K, *V2 = pl + 5 * K;
-  float *mu = pl + 6 * K, *fric = pl + 7 * K, *act = pl + 8 * K;
-  float* D = pl + 9 * K;
   int* ldof = reinterpret_cast<int*>(sm + o.ldof);
   float* lsign = sm + o.lsign;
   int* dlim = reinterpret_cast<int*>(sm + o.dlim);
+  int* vbit = reinterpret_cast<int*>(sm + o.vbit);
+  int* lord = reinterpret_cast<int*>(sm + o.lord);
+  unsigned* mask = reinterpret_cast<unsigned*>(sm + o.mask);
+  int* list = reinterpret_cast<int*>(sm + o.list);
+  int* cnt = reinterpret_cast<int*>(sm + o.cnt);
 
-  // ---- Load the tables, parameters and matrices of env e.
-  for (int i = t; i < L; i += nt) {
+  // ---- Once a block: the tables, the barriers, the first env's slabs.
+  for (int i = t; i < L; i += kThreads) {
     ldof[i] = a.lim.dof[i];
     lsign[i] = a.lim.sign[i];
   }
-  for (int i = t; i < 2 * nv; i += nt) dlim[i] = a.lim.dof_lim[i];
-  const float* lp = a.lim_params + (size_t)e * 2 * L;
-  for (int i = t; i < L; i += nt) {
-    al[i] = lp[i];
-    Dl[i] = lp[L + i];
+  for (int i = t; i < 2 * nv; i += kThreads) dlim[i] = a.lim.dof_lim[i];
+  for (int v = t; v < nv; v += kThreads) {
+    int l = 0;
+    while (l + 1 < nl && p.lo[l + 1] <= v) ++l;
+    vbit[v] = v < nr ? kRootBit : l;
   }
-  const int ncp = kAssemble ? 5 : 4;
-  const float* cp = a.con_params + (size_t)e * ncp * K;
-  for (int k = t; k < K; k += nt) {
-    mu[k] = cp[k];
-    fric[k] = cp[K + k];
-    act[k] = cp[2 * K + k];
-    D[k] = cp[3 * K + k];
+  if (t == 0) {
+    mbar_init(bar, 1);
+    for (int i = 0; i < nl; ++i) {  // limbs by decreasing size, stable
+      int j = i;
+      for (; j > 0 && p.d[lord[j - 1]] < p.d[i]; --j) lord[j] = lord[j - 1];
+      lord[j] = i;
+    }
   }
-  // M for the products M dx: a shared copy in the block kernel; the
-  // assembling modes read it from global memory (L2), which keeps the whole
-  // solve's shared memory under half an SM's so that two of its blocks fit;
-  // so do the reuse iterations a dense M (dense_matvec).
-  const float* Me = a.M + (size_t)e * (dense_m ? nv * nv : msize);
-  const float* Mm = Me;
-  if (!kAssemble && !dense_m) {
-    float* Ms = sm + o.Mm;
-    for (int i = t; i < msize; i += nt) Ms[i] = Me[i];
-    Mm = Ms;
-  }
-  const float* Je = a.J + (size_t)e * R3 * nv;
-  const float* Jp = Je;
+  __syncthreads();
+  if (t == 0) stage_env<kMode>(a, o, sm, bar, blockIdx.x);
 
-  if constexpr (!kAssemble) {
-    const float* He = a.Hp + (size_t)e * msize;  // Hp, or reuse: F
-    for (int i = t; i < msize; i += nt) A[i] = He[i];
-    const float* Ue = a.U + (size_t)e * SB3 * nv;
-    for (int i = t; i < SB3 * nv; i += nt) Ut[i] = Ue[i];
-    if constexpr (kMode == kReuse) {
-      const float* Ze = a.Zg + (size_t)e * nv * SB3;
-      for (int i = t; i < SB3 * nv; i += nt) {
-        const int v = i / SB3, r = i - v * SB3;
-        Z[r * nv + v] = Ze[i];
-      }
-      const float* Ce = a.LC + (size_t)e * SB3 * SB3;
-      for (int i = t; i < SB3 * SB3; i += nt) C[i] = Ce[i];
+  int round = 0;
+  for (int e = blockIdx.x; e < a.B; e += gridDim.x, ++round) {
+    long long ph[kPhases], c_last = 0;
+    if constexpr (kClock) {
+      for (int i = 0; i < kPhases; ++i) ph[i] = 0;
+      c_last = clock64();
     }
-    for (int v = t; v < nv; v += nt) {
-      x[v] = a.x[(size_t)e * nv + v];
-      msm[v] = a.msm[(size_t)e * nv + v];
-    }
-    for (int i = t; i < L; i += nt) jl[i] = a.jar_l[(size_t)e * L + i];
-    for (int q = t; q < R3; q += nt) pl[(q % 3) * K + q / 3] = a.jar_c[(size_t)e * R3 + q];
-    __syncthreads();
-  } else {
-    float *Js = sm + o.J, *JH = sm + o.JH, *W = sm + o.W, *G = sm + o.G;
-    float* hact = sm + o.hact;
-    for (int i = t; i < R3 * nv; i += nt) Js[i] = Je[i];
-    for (int i = t; i < msize; i += nt) A[i] = Me[i];
-    for (int k = t; k < K; k += nt) hact[k] = cp[4 * K + k];
-    Jp = Js;
+    mbar_wait(bar, round & 1);
+
+    float *A = sm + o.A, *x = sm + o.x, *msm = sm + o.msm, *jl = sm + o.jl;
+    float *al = sm + o.lp, *Dl = sm + o.lp + L;
+    const float* cp = sm + o.cp;
+    const float *mu = cp, *fric = cp + K, *act = cp + 2 * K, *D = cp + 3 * K;
+    const float* Je = a.J + (size_t)e * R3 * nv;
+    const float* Me = a.M + (size_t)e * (dense_m ? nv * nv : msize);
+    float* Ut = kAssemble ? sm + o.Uw : sm + o.Ut;
+    float* C = kMode == kReuse ? sm + o.LC : sm + o.C;
+
+    // ---- The contact-limb mask and lists; the Newton state's planes.
     if constexpr (kWholeSolve) {
-      float *af = sm + o.aw, *ws = sm + o.aw + nv, *arl = sm + o.arl;
-      float* arc = sm + o.arc;
-      for (int v = t; v < nv; v += nt) {
-        af[v] = a.x[(size_t)e * nv + v];
-        ws[v] = a.msm[(size_t)e * nv + v];
+      // Candidates: x holds a_free, msm the warmstart ws, jl the limit
+      // aref, the jc slab the contact aref. The warmstart's jars go to
+      // (jl, N, Y1, Y2), a_free's to (vl, V0, V1, V2); dx = ws - a_free.
+      float *af = x, *ws = msm;
+      for (int i = t; i < L; i += kThreads) {
+        const float arl = jl[i];
+        jl[i] = ws[ldof[i]] * lsign[i] - arl;
+        vl[i] = af[ldof[i]] * lsign[i] - arl;
       }
-      for (int i = t; i < L; i += nt) arl[i] = a.jar_l[(size_t)e * L + i];
-      for (int q = t; q < R3; q += nt) arc[q] = a.jar_c[(size_t)e * R3 + q];
+      contact_masks<true>(Je, K, nv, vbit, mask, ws, af, sm + o.jc, pl);
+      for (int v = t; v < nv; v += kThreads) dx[v] = ws[v] - af[v];
       __syncthreads();
-
-      // Candidate jars: warmstart into (jl, N, Y1, Y2), a_free into
-      // (vl, V0, V1, V2); dx = ws - a_free.
-      for (int i = t; i < L; i += nt) {
-        jl[i] = ws[ldof[i]] * lsign[i] - arl[i];
-        vl[i] = af[ldof[i]] * lsign[i] - arl[i];
-      }
-      for (int r = warp; r < R3; r += nw) {
-        float sw = 0.f, sa = 0.f;
-        for (int v = lane; v < nv; v += 32) {
-          sw += Js[r * nv + v] * ws[v];
-          sa += Js[r * nv + v] * af[v];
-        }
-        sw = warp_sum(sw);
-        sa = warp_sum(sa);
-        if (lane == 0) {
-          const int k = r / 3, c = r % 3;
-          pl[c * K + k] = sw - arc[r];
-          pl[(3 + c) * K + k] = sa - arc[r];
-        }
-      }
-      for (int v = t; v < nv; v += nt) dx[v] = ws[v] - af[v];
-      __syncthreads();
-      arrow_matvec(Mm, dx, mdx, p);
+      arrow_matvec(A, dx, mdx, p);  // A holds M here
+      contact_lists(mask, K, nl, list, cnt);
       __syncthreads();
       if (warp == 0) {  // primal costs of both candidates
         float sq = 0.f, lw = 0.f, la = 0.f, cw = 0.f, ca = 0.f;
@@ -403,286 +879,345 @@ __global__ void __launch_bounds__(kThreads) newton_kernel(NewtonArgs a) {
       }
       __syncthreads();
       const bool use_ws = red[0] > 0.5f;
-      for (int v = t; v < nv; v += nt) {
+      for (int v = t; v < nv; v += kThreads) {  // x <- start, msm <- M dx
         x[v] = use_ws ? ws[v] : af[v];
         msm[v] = use_ws ? mdx[v] : 0.f;
       }
       if (!use_ws) {
-        for (int i = t; i < L; i += nt) jl[i] = vl[i];
-        for (int q = t; q < R3; q += nt) pl[q] = pl[R3 + q];
+        for (int i = t; i < L; i += kThreads) jl[i] = vl[i];
+        for (int q = t; q < R3; q += kThreads) pl[q] = pl[R3 + q];
       }
+    } else {
+      const float* jc = sm + o.jc;
+      for (int q = t; q < R3; q += kThreads) pl[(q % 3) * K + q / 3] = jc[q];
+      contact_masks<false>(Je, K, nv, vbit, mask, nullptr, nullptr, nullptr,
+                           nullptr);
       __syncthreads();
-    } else {  // block full: the carried state
-      for (int v = t; v < nv; v += nt) {
-        x[v] = a.x[(size_t)e * nv + v];
-        msm[v] = a.msm[(size_t)e * nv + v];
-      }
-      for (int i = t; i < L; i += nt) jl[i] = a.jar_l[(size_t)e * L + i];
-      for (int q = t; q < R3; q += nt)
-        pl[(q % 3) * K + q / 3] = a.jar_c[(size_t)e * R3 + q];
-      __syncthreads();
+      contact_lists(mask, K, nl, list, cnt);
     }
+    __syncthreads();
+    PHASE(0);
 
-    // Hessian: W_k = D_k * cone Hessian (hess-active rows), J W, the limit
-    // diagonal (in g) and the lower packed entries of M + J^T W J + diag.
-    for (int k = t; k < K; k += nt) {
-      cone_hessian6(N[k], Y1[k], Y2[k], mu[k], fric[k], hact[k], W + 6 * k);
-      for (int i = 0; i < 6; ++i) W[6 * k + i] *= D[k];
-    }
-    for (int v = t; v < nv; v += nt) {
-      float s = 0.f;
-      for (int j = 0; j < 2; ++j) {
-        const int i = dlim[2 * v + j];
-        if (i >= 0) s += Dl[i] * (jl[i] < 0.f ? al[i] : 0.f);
-      }
-      g[v] = s + 1e-12f;
-    }
-    __syncthreads();
-    for (int q = t; q < R3 * nv; q += nt) {
-      const int r = q / nv, v = q - r * nv;
-      const int k = r / 3, c = r % 3;
-      const float* w = W + 6 * k;
-      // row c of the symmetric block: (00 01 02 | 01 11 12 | 02 12 22)
-      const float w0 = c == 0 ? w[0] : (c == 1 ? w[1] : w[2]);
-      const float w1 = c == 0 ? w[1] : (c == 1 ? w[3] : w[4]);
-      const float w2 = c == 0 ? w[2] : (c == 1 ? w[4] : w[5]);
-      JH[q] = w0 * Js[(3 * k) * nv + v] + w1 * Js[(3 * k + 1) * nv + v] +
-              w2 * Js[(3 * k + 2) * nv + v];
-    }
-    __syncthreads();
-    const int dm = p.dm, nr = p.nr, rowlen = (dm + nr) * dm;
-    for (int q = t; q < msize; q += nt) {
-      const int blk = q / rowlen, rem = q - blk * rowlen;
-      const int row = rem / dm, col = rem - row * dm;
-      int vi = -1, vj = -1;
-      if (blk < p.nl) {
-        const int d = p.d[blk], lo = p.lo[blk];
-        if (row < dm) {
-          if (row < d && col <= row) vi = lo + row, vj = lo + col;
-        } else if (col < d) {
-          vi = row - dm, vj = lo + col;
+    if constexpr (kAssemble) {
+      // Hessian: W_k = D_k * cone Hessian (hess-active slots), the limit
+      // diagonal (in g), then the tiles of M + J^T W J + diag.
+      float *W = sm + o.W, *G = sm + o.G;
+      int* wnz = reinterpret_cast<int*>(sm + o.wnz);
+      const float* hact = cp + 4 * K;
+      for (int k = t; k < K; k += kThreads) {
+        float w6[6];
+        cone_hessian6(N[k], Y1[k], Y2[k], mu[k], fric[k], hact[k], w6);
+        bool nz = false;
+        for (int i = 0; i < 6; ++i) {
+          w6[i] *= D[k];
+          W[6 * k + i] = w6[i];
+          nz |= w6[i] != 0.f;
         }
-      } else if (row < nr && col <= row) {
-        vi = row, vj = col;
+        wnz[k] = nz;
       }
-      if (vi >= 0) {
-        float s = 0.f;
-        for (int r = 0; r < R3; ++r) s += Js[r * nv + vi] * JH[r * nv + vj];
-        float h = Me[q] + s;
-        if (vi == vj) h += g[vi];
-        A[q] = h;
+      for (int v = t; v < nv; v += kThreads) {
+        float sd = 0.f;
+        for (int j = 0; j < 2; ++j) {
+          const int i = dlim[2 * v + j];
+          if (i >= 0) sd += Dl[i] * (jl[i] < 0.f ? al[i] : 0.f);
+        }
+        g[v] = sd + 1e-12f;
       }
+      __syncthreads();
+      PHASE(1);
+      for (int b = warp; b <= nl; b += kWarps) {
+        if (b < nl)
+          limb_tile(A, Je, W, wnz, list + b * K, cnt[b], g, p, b);
+        else
+          root_tile(A, Je, W, wnz, list + nl * K, cnt[nl], g, p);
+      }
+      __syncthreads();
+      PHASE(2);
+      // Woodbury rows of the selected cross-limb slots: U = G^T V.
+      const int SB = SB3 / 3;
+      const int* bs = a.bsel + (size_t)e * SB;
+      for (int q = t; q < SB; q += kThreads) {
+        const int k = bs[q];
+        float w6[6];
+        cone_hessian6(N[k], Y1[k], Y2[k], mu[k], fric[k], act[k] - hact[k],
+                      w6);
+        for (int i = 0; i < 6; ++i) w6[i] *= D[k];
+        chol3(w6, G + 6 * q);
+      }
+      __syncthreads();
+      for (int q = t; q < SB3 * nv; q += kThreads) {
+        const int r = q / nv, v = q - r * nv;
+        const int sl = r / 3, c = r % 3;
+        const float* gs = G + 6 * sl;  // a b c d e f
+        const float* j0 = Je + (size_t)(3 * bs[sl]) * nv;
+        float u;
+        if (c == 0)
+          u = gs[0] * j0[v] + gs[1] * j0[nv + v] + gs[2] * j0[2 * nv + v];
+        else if (c == 1)
+          u = gs[3] * j0[nv + v] + gs[4] * j0[2 * nv + v];
+        else
+          u = gs[5] * j0[2 * nv + v];
+        Ut[q] = u;
+      }
+      __syncthreads();
+      PHASE(3);
     }
-    // Woodbury rows of the selected cross-limb slots: U = G^T V.
-    const int SB = SB3 / 3;
-    const int* bs = a.bsel + (size_t)e * SB;
-    for (int s = t; s < SB; s += nt) {
-      const int k = bs[s];
-      float w6[6];
-      cone_hessian6(N[k], Y1[k], Y2[k], mu[k], fric[k], act[k] - hact[k], w6);
-      for (int i = 0; i < 6; ++i) w6[i] *= D[k];
-      chol3(w6, G + 6 * s);
+
+    // ---- Factor, Z = A^-1 U, capacitance I + U Z and its Cholesky (the
+    // reuse iterations take all three as given).
+    const float* Z;
+    int zr, zv;  // Z[r][v] at Z[r * zr + v * zv]
+    if constexpr (kMode != kReuse) {
+      factor_packed(A, p, lord);
+      PHASE(4);
+      float* Zw = sm + o.Z;
+      for (int q = t; q < SB3 * nv; q += kThreads) {
+        const int r = q / nv, v = q - r * nv;
+        Zw[r * o.ldz + v] = Ut[q];
+      }
+      __syncthreads();
+      solve_packed(A, Zw, SB3, o.ldz, p, lord);
+      PHASE(5);
+      for (int q = t; q < SB3 * SB3; q += kThreads) {
+        const int i = q / SB3, j = q - i * SB3;
+        if (j <= i) {
+          float sc = 0.f;
+#pragma unroll 4
+          for (int v = 0; v < nv; ++v) sc += Ut[i * nv + v] * Zw[j * o.ldz + v];
+          C[q] = i == j ? (1.f + sc) + 1e-10f : sc;
+        }
+      }
+      __syncthreads();
+      if (warp == 0) chol_warp(C, SB3, SB3, 0);
+      Z = Zw, zr = o.ldz, zv = 1;
+    } else {
+      Z = sm + o.Zg, zr = 1, zv = SB3;
     }
     __syncthreads();
-    for (int q = t; q < SB3 * nv; q += nt) {
-      const int r = q / nv, v = q - r * nv;
-      const int s = r / 3, c = r % 3;
-      const float* gs = G + 6 * s;  // a b c d e f
-      const float* j0 = Js + (3 * bs[s]) * nv;
-      float u;
-      if (c == 0)
-        u = gs[0] * j0[v] + gs[1] * j0[nv + v] + gs[2] * j0[2 * nv + v];
-      else if (c == 1)
-        u = gs[3] * j0[nv + v] + gs[4] * j0[2 * nv + v];
+    for (int c = t; c < SB3; c += kThreads) {  // Ci = LC^-1, column c
+      for (int i = c; i < SB3; ++i) {
+        float sc = i == c ? 1.f : 0.f;
+#pragma unroll 4
+        for (int k = c; k < i; ++k) sc -= C[i * SB3 + k] * Ci[k * SB3 + c];
+        Ci[i * SB3 + c] = sc / C[i * SB3 + i];
+      }
+    }
+    __syncthreads();
+    PHASE(6);
+
+    LsRows rows;
+    rows.jl = jl, rows.vl = vl, rows.al = al, rows.Dl = Dl;
+    rows.n0 = N, rows.t10 = Y1, rows.t20 = Y2;
+    rows.v0 = V0, rows.v1 = V1, rows.v2 = V2;
+    rows.mu = mu, rows.fric = fric, rows.act = act, rows.D = D;
+    rows.L = L, rows.K = K;
+
+    // ---- Newton iterations on the fixed factor.
+    for (int it = 0; it < a.n_iters; ++it) {
+      for (int i = t; i < L; i += kThreads)
+        fl[i] = jl[i] < 0.f ? -Dl[i] * jl[i] * al[i] : 0.f;
+      for (int k = t; k < K; k += kThreads) {
+        float r[3];
+        cone_residual3(N[k], Y1[k], Y2[k], mu[k], fric[k], r);
+        const float Da = D[k] * act[k];
+        fc[3 * k] = -Da * r[0];
+        fc[3 * k + 1] = -Da * r[1];
+        fc[3 * k + 2] = -Da * r[2];
+      }
+      __syncthreads();
+      jt_times(Je, fc, list, cnt, vbit, K, p, g);
+      __syncthreads();
+      for (int v = t; v < nv; v += kThreads)
+        g[v] = (msm[v] - lim_scatter(dlim, fl, lsign, v)) - g[v];
+      __syncthreads();
+      PHASE(7);
+      solve_packed(A, g, 1, nv, p, lord);  // g <- t = A^-1 g
+      PHASE(8);
+      for (int r = warp; r < SB3; r += kWarps) {
+        float sw = 0.f;
+        for (int v = lane; v < nv; v += 32) sw += Ut[r * nv + v] * g[v];
+        sw = warp_sum(sw);
+        if (lane == 0) wu[r] = sw;
+      }
+      __syncthreads();
+      if (warp == 0) {  // wu <- Ci^T (Ci wu), the capacitance solve
+        float sw = 0.f;
+        if (lane < SB3)
+          for (int j = 0; j <= lane; ++j) sw += Ci[lane * SB3 + j] * wu[j];
+        __syncwarp();
+        if (lane < SB3) wv[lane] = sw;
+        __syncwarp();
+        sw = 0.f;
+        if (lane < SB3)
+          for (int j = lane; j < SB3; ++j) sw += Ci[j * SB3 + lane] * wv[j];
+        __syncwarp();
+        if (lane < SB3) wu[lane] = sw;
+      }
+      __syncthreads();
+      for (int v = t; v < nv; v += kThreads) {
+        float sw = 0.f;
+        for (int r = 0; r < SB3; ++r) sw += Z[r * zr + v * zv] * wu[r];
+        dx[v] = -(g[v] - sw);
+      }
+      __syncthreads();
+      PHASE(9);
+      if (dense_m)
+        dense_matvec(Me, dx, mdx, nv);
       else
-        u = gs[5] * j0[2 * nv + v];
-      Ut[q] = u;
-    }
-    __syncthreads();
-  }
-
-  // ---- Factor, Z = A^-1 U, capacitance I + U Z and its Cholesky (the
-  // reuse iterations take all three as given), then its inverse.
-  if constexpr (kMode != kReuse) {
-    arrow_factor(A, p);
-    for (int i = t; i < SB3 * nv; i += nt) Z[i] = Ut[i];
-    __syncthreads();
-    arrow_solve(A, Z, SB3, nv, p);
-    for (int q = t; q < SB3 * SB3; q += nt) {
-      const int i = q / SB3, j = q - i * SB3;
-      if (j <= i) {
-        float s = 0.f;
-        for (int v = 0; v < nv; ++v) s += Ut[i * nv + v] * Z[j * nv + v];
-        C[q] = i == j ? (1.f + s) + 1e-10f : s;
-      }
-    }
-    __syncthreads();
-    for (int k = 0; k < SB3; ++k) {
-      const float inv = rsqrtf(fmaxf(C[k * SB3 + k], 1e-30f));
+        arrow_matvec(Me, dx, mdx, p);
       __syncthreads();
-      for (int i = k + t; i < SB3; i += nt) C[i * SB3 + k] *= inv;
-      __syncthreads();
-      const int m = SB3 - k - 1;
-      for (int q = t; q < m * m; q += nt) {
-        const int i = k + 1 + q / m, j = k + 1 + q % m;
-        if (j <= i) C[i * SB3 + j] -= C[i * SB3 + k] * C[j * SB3 + k];
+      PHASE(10);
+      j_times(Je, dx, mask, vbit, K, nv, V0);
+      for (int i = t; i < L; i += kThreads) vl[i] = dx[ldof[i]] * lsign[i];
+      if (warp == 0) {  // msm . dx, dx . M dx
+        float s0 = 0.f, s1 = 0.f;
+        for (int v = lane; v < nv; v += 32) {
+          s0 += msm[v] * dx[v];
+          s1 += dx[v] * mdx[v];
+        }
+        s0 = warp_sum(s0), s1 = warp_sum(s1);
+        if (lane == 0) red[0] = s0, red[1] = s1;
       }
       __syncthreads();
-    }
-  }
-  for (int c = t; c < SB3; c += nt) {  // Ci = LC^-1 (lower), column c
-    for (int i = c; i < SB3; ++i) {
-      float s = i == c ? 1.f : 0.f;
-      for (int k = c; k < i; ++k) s -= C[i * SB3 + k] * Ci[k * SB3 + c];
-      Ci[i * SB3 + c] = s / C[i * SB3 + i];
-    }
-  }
-  __syncthreads();
-
-  LsRows rows;
-  rows.jl = jl, rows.vl = vl, rows.al = al, rows.Dl = Dl;
-  rows.n0 = N, rows.t10 = Y1, rows.t20 = Y2;
-  rows.v0 = V0, rows.v1 = V1, rows.v2 = V2;
-  rows.mu = mu, rows.fric = fric, rows.act = act, rows.D = D;
-  rows.L = L, rows.K = K;
-
-  // ---- Newton iterations on the fixed factor.
-  for (int it = 0; it < a.n_iters; ++it) {
-    for (int i = t; i < L; i += nt) fl[i] = jl[i] < 0.f ? -Dl[i] * jl[i] * al[i] : 0.f;
-    for (int k = t; k < K; k += nt) {
-      float r[3];
-      cone_residual3(N[k], Y1[k], Y2[k], mu[k], fric[k], r);
-      const float Da = D[k] * act[k];
-      fc[3 * k] = -Da * r[0];
-      fc[3 * k + 1] = -Da * r[1];
-      fc[3 * k + 2] = -Da * r[2];
-    }
-    __syncthreads();
-    for (int v = t; v < nv; v += nt) {
-      float jt = 0.f;
-#pragma unroll 8
-      for (int r = 0; r < R3; ++r) jt += Jp[(size_t)r * nv + v] * fc[r];
-      g[v] = (msm[v] - lim_scatter(dlim, fl, lsign, v)) - jt;
-    }
-    __syncthreads();
-    arrow_solve(A, g, 1, nv, p);  // g <- t = A^-1 g
-    for (int r = warp; r < SB3; r += nw) {
-      float s = 0.f;
-      for (int v = lane; v < nv; v += 32) s += Ut[r * nv + v] * g[v];
-      s = warp_sum(s);
-      if (lane == 0) wu[r] = s;
-    }
-    __syncthreads();
-    for (int i = t; i < SB3; i += nt) {
-      float s = 0.f;
-      for (int j = 0; j <= i; ++j) s += Ci[i * SB3 + j] * wu[j];
-      wv[i] = s;
-    }
-    __syncthreads();
-    for (int i = t; i < SB3; i += nt) {
-      float s = 0.f;
-      for (int j = i; j < SB3; ++j) s += Ci[j * SB3 + i] * wv[j];
-      wu[i] = s;
-    }
-    __syncthreads();
-    for (int v = t; v < nv; v += nt) {
-      float s = 0.f;
-      for (int r = 0; r < SB3; ++r) s += Z[r * nv + v] * wu[r];
-      dx[v] = -(g[v] - s);
-    }
-    __syncthreads();
-    if (dense_m)
-      dense_matvec(Me, dx, mdx, nv);
-    else
-      arrow_matvec(Mm, dx, mdx, p);
-    for (int r0 = kRows * warp; r0 < R3; r0 += kRows * nw) {
-      // kRows rows a warp at once, so their loads are in flight together.
-      const int nu = min(kRows, R3 - r0);
-      float s[kRows];
-#pragma unroll
-      for (int u = 0; u < kRows; ++u) s[u] = 0.f;
-      for (int v = lane; v < nv; v += 32) {
-        const float xv = dx[v];
-#pragma unroll
-        for (int u = 0; u < kRows; ++u)
-          if (u < nu) s[u] += Jp[(size_t)(r0 + u) * nv + v] * xv;
+      PHASE(11);
+      // The search on one warp or with the block computing its terms: the
+      // same step bit for bit; the one warp is quicker at K 24 (one slot
+      // a lane), the block at K 64.
+      float alpha;
+      if constexpr (kWholeSolve) {
+        if (warp == 0) {
+          const float step =
+              ls_alpha_warp(rows, red[0], red[1], 6, a.ls_iters, lane);
+          if (lane == 0) red[2] = step;
+        }
+        __syncthreads();
+        alpha = red[2];
+      } else {
+        alpha = ls_alpha_split(rows, red[0], red[1], 6, a.ls_iters,
+                               reinterpret_cast<float4*>(sm + o.lsw),
+                               red + 2);
       }
-#pragma unroll
-      for (int u = 0; u < kRows; ++u) s[u] = warp_sum(s[u]);
-      if (lane == 0)
-        for (int u = 0; u < nu; ++u)
-          pl[(3 + (r0 + u) % 3) * K + (r0 + u) / 3] = s[u];
-    }
-    for (int i = t; i < L; i += nt) vl[i] = dx[ldof[i]] * lsign[i];
-    __syncthreads();
-    if (warp == 0) {
-      float s0 = 0.f, s1 = 0.f;
-      for (int v = lane; v < nv; v += 32) {
-        s0 += msm[v] * dx[v];
-        s1 += dx[v] * mdx[v];
+      PHASE(12);
+      for (int v = t; v < nv; v += kThreads) {
+        x[v] += alpha * dx[v];
+        msm[v] += alpha * mdx[v];
       }
-      s0 = warp_sum(s0);
-      s1 = warp_sum(s1);
-      const float alpha = ls_alpha_warp(rows, s0, s1, 6, a.ls_iters, lane);
-      if (lane == 0) red[1] = alpha;
+      for (int i = t; i < L; i += kThreads) jl[i] += alpha * vl[i];
+      for (int q = t; q < R3; q += kThreads) pl[q] += alpha * pl[R3 + q];
+      __syncthreads();
+      PHASE(13);
     }
-    __syncthreads();
-    const float alpha = red[1];
-    for (int v = t; v < nv; v += nt) {
-      x[v] += alpha * dx[v];
-      msm[v] += alpha * mdx[v];
-    }
-    for (int i = t; i < L; i += nt) jl[i] += alpha * vl[i];
-    for (int q = t; q < R3; q += nt) pl[q] += alpha * pl[R3 + q];
-    __syncthreads();
-  }
 
-  // ---- Outputs.
-  if constexpr (!kWholeSolve) {
-    for (int v = t; v < nv; v += nt) {
-      a.o0[(size_t)e * nv + v] = x[v];
-      a.o1[(size_t)e * nv + v] = msm[v];
+    // ---- Outputs.
+    if constexpr (!kWholeSolve) {
+      for (int v = t; v < nv; v += kThreads) {
+        a.o0[(size_t)e * nv + v] = x[v];
+        a.o1[(size_t)e * nv + v] = msm[v];
+      }
+      for (int i = t; i < L; i += kThreads) a.o2[(size_t)e * L + i] = jl[i];
+      for (int q = t; q < R3; q += kThreads)
+        a.o3[(size_t)e * R3 + q] = pl[(q % 3) * K + q / 3];
+    } else {
+      for (int i = t; i < L; i += kThreads)
+        fl[i] = -Dl[i] * jl[i] * (jl[i] < 0.f ? al[i] : 0.f);
+      for (int k = t; k < K; k += kThreads) {
+        float r[3];
+        cone_residual3(N[k], Y1[k], Y2[k], mu[k], fric[k], r);
+        const float Da = D[k] * act[k];
+        fc[3 * k] = -Da * r[0];
+        fc[3 * k + 1] = -Da * r[1];
+        fc[3 * k + 2] = -Da * r[2];
+      }
+      __syncthreads();
+      jt_times(Je, fc, list, cnt, vbit, K, p, g);
+      __syncthreads();
+      for (int v = t; v < nv; v += kThreads) {
+        a.o0[(size_t)e * nv + v] = x[v];
+        a.o1[(size_t)e * nv + v] = lim_scatter(dlim, fl, lsign, v) + g[v];
+      }
+      for (int i = t; i < L; i += kThreads) a.o2[(size_t)e * L + i] = fl[i];
+      for (int q = t; q < R3; q += kThreads) a.o3[(size_t)e * R3 + q] = fc[q];
     }
-    for (int i = t; i < L; i += nt) a.o2[(size_t)e * L + i] = jl[i];
-    for (int q = t; q < R3; q += nt) a.o3[(size_t)e * R3 + q] = pl[(q % 3) * K + q / 3];
-  } else {
-    for (int i = t; i < L; i += nt) fl[i] = -Dl[i] * jl[i] * (jl[i] < 0.f ? al[i] : 0.f);
-    for (int k = t; k < K; k += nt) {
-      float r[3];
-      cone_residual3(N[k], Y1[k], Y2[k], mu[k], fric[k], r);
-      const float Da = D[k] * act[k];
-      fc[3 * k] = -Da * r[0];
-      fc[3 * k + 1] = -Da * r[1];
-      fc[3 * k + 2] = -Da * r[2];
-    }
+    // Every thread is done with the stage before the next env's slabs
+    // come in; the other blocks on the SM compute while they do.
     __syncthreads();
-    for (int v = t; v < nv; v += nt) {
-      float jt = 0.f;
-      for (int r = 0; r < R3; ++r) jt += Jp[r * nv + v] * fc[r];
-      a.o0[(size_t)e * nv + v] = x[v];
-      a.o1[(size_t)e * nv + v] = lim_scatter(dlim, fl, lsign, v) + jt;
+    if (t == 0 && e + (int)gridDim.x < a.B)
+      stage_env<kMode>(a, o, sm, bar, e + gridDim.x);
+    PHASE(14);
+    if constexpr (kClock) {
+      if (t == 0 && e % a.clk_stride == 0)
+        for (int i = 0; i < kPhases; ++i)
+          a.clk[(size_t)(e / a.clk_stride) * kPhases + i] += ph[i];
     }
-    for (int i = t; i < L; i += nt) a.o2[(size_t)e * L + i] = fl[i];
-    for (int q = t; q < R3; q += nt) a.o3[(size_t)e * R3 + q] = fc[q];
   }
 }
 
-template <int kMode>
-int launch(const NewtonArgs& a, int B, void* stream) {
-  if (a.p.nl > 16 || a.p.nl < 1 || a.SB3 < 1 || B < 1) return -1;
-  const int msize = (a.p.nl + 1) * (a.p.dm + a.p.nr) * a.p.dm;
-  const Layout o = newton_layout(a.K, a.SB3, a.L, a.p.nv, msize, kMode,
-                                 kMode == kReuse && a.dense_m);
-  const size_t smem = sizeof(float) * (size_t)o.total;
+bool supported(const NewtonArgs& a) {
+  const ArrowPart& p = a.p;
+  return p.nl >= 1 && p.nl <= 16 && p.dm <= kMaxDm && p.nr <= kMaxNr &&
+         p.dm + p.nr <= 32 && a.SB3 >= 1 && a.SB3 <= kMaxSB3 && a.B >= 1 &&
+         a.K >= 1;
+}
+
+
+// Blocks an SM of an instantiation at its shared memory, and the
+// persistent grid for B envs.
+template <int kMode, bool kClock>
+cudaError_t geometry(const NewtonArgs& a, size_t smem, int* blocks,
+                     int* grid) {
+  cudaError_t err = cudaFuncSetAttribute(
+      newton_kernel<kMode, kClock>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, newton_kernel<kMode, kClock>, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (*blocks < 1) return cudaErrorInvalidConfiguration;
+  *grid = a.B < *blocks * sms ? a.B : *blocks * sms;
+  return cudaSuccess;
+}
+
+template <int kMode, bool kClock>
+int launch_as(const NewtonArgs& a, void* stream) {
+  const size_t smem = sizeof(float) * (size_t)a.o.total;
   if (smem > 232448) return -1;  // Hopper's shared memory per block
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        newton_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  newton_kernel<kMode><<<B, kThreads, smem, (cudaStream_t)stream>>>(a);
+  int blocks = 0, grid = 0;
+  const cudaError_t err = geometry<kMode, kClock>(a, smem, &blocks, &grid);
+  if (err != cudaSuccess) return (int)err;
+  newton_kernel<kMode, kClock>
+      <<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <int kMode>
+int launch(NewtonArgs a, void* stream) {
+  if (!supported(a)) return -1;
+  a.o = newton_layout(a.K, a.SB3, a.L, a.p, kMode);
+  if (g_clk == nullptr) return launch_as<kMode, false>(a, stream);
+  a.clk = g_clk, a.clk_stride = g_clk_stride;
+  return launch_as<kMode, true>(a, stream);
+}
+
+// Registers a thread, shared memory a block (bytes), blocks an SM and the
+// persistent grid of one mode's main instantiation for B envs.
+template <int kMode>
+int info(const NewtonArgs& a, int* out) {
+  if (!supported(a)) return -1;
+  const size_t smem =
+      sizeof(float) * (size_t)newton_layout(a.K, a.SB3, a.L, a.p, kMode).total;
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, newton_kernel<kMode, false>);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0, grid = 0;
+  err = geometry<kMode, false>(a, smem, &blocks, &grid);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = fa.numRegs, out[1] = (int)smem, out[2] = blocks, out[3] = grid;
+  return 0;
 }
 
 }  // namespace
@@ -703,8 +1238,9 @@ FB_API int newton_block_f32(const float* Hp, const float* M, const float* J,
   a.o0 = x_o, a.o1 = msm_o, a.o2 = jl_o, a.o3 = jc_o;
   a.lim = LimTables{lim_dof, lim_sign, dof_lim};
   a.p = *part;
-  a.K = K, a.SB3 = SB3, a.L = L, a.ls_iters = ls_iters, a.n_iters = n_iters;
-  return launch<kBlock>(a, B, stream);
+  a.B = B, a.K = K, a.SB3 = SB3, a.L = L;
+  a.ls_iters = ls_iters, a.n_iters = n_iters;
+  return launch<kBlock>(a, stream);
 }
 
 FB_API int newton_block_full_f32(
@@ -721,8 +1257,9 @@ FB_API int newton_block_full_f32(
   a.o0 = x_o, a.o1 = msm_o, a.o2 = jl_o, a.o3 = jc_o;
   a.lim = LimTables{lim_dof, lim_sign, dof_lim};
   a.p = *part;
-  a.K = K, a.SB3 = 3 * SB, a.L = L, a.ls_iters = ls_iters, a.n_iters = n_iters;
-  return launch<kBlockFull>(a, B, stream);
+  a.B = B, a.K = K, a.SB3 = 3 * SB, a.L = L;
+  a.ls_iters = ls_iters, a.n_iters = n_iters;
+  return launch<kBlockFull>(a, stream);
 }
 
 FB_API int newton_solve_f32(const float* Mp, const float* J, const int* bsel,
@@ -741,8 +1278,9 @@ FB_API int newton_solve_f32(const float* Mp, const float* J, const int* bsel,
   a.o0 = qacc, a.o1 = qfrc, a.o2 = f_l, a.o3 = f_c;
   a.lim = LimTables{lim_dof, lim_sign, dof_lim};
   a.p = *part;
-  a.K = K, a.SB3 = 3 * SB, a.L = L, a.ls_iters = ls_iters, a.n_iters = n_iters;
-  return launch<kWhole>(a, B, stream);
+  a.B = B, a.K = K, a.SB3 = 3 * SB, a.L = L;
+  a.ls_iters = ls_iters, a.n_iters = n_iters;
+  return launch<kWhole>(a, stream);
 }
 
 // Kernel 10: M dense (B, nv, nv) when dense_m, else packed (B, msize).
@@ -763,7 +1301,34 @@ FB_API int newton_reuse_f32(const float* F, const float* M, const float* J,
   a.o0 = x_o, a.o1 = msm_o, a.o2 = jl_o, a.o3 = jc_o;
   a.lim = LimTables{lim_dof, lim_sign, dof_lim};
   a.p = *part;
-  a.K = K, a.SB3 = SB3, a.L = L, a.ls_iters = ls_iters, a.n_iters = n_iters;
+  a.B = B, a.K = K, a.SB3 = SB3, a.L = L;
+  a.ls_iters = ls_iters, a.n_iters = n_iters;
   a.dense_m = dense_m;
-  return launch<kReuse>(a, B, stream);
+  return launch<kReuse>(a, stream);
+}
+
+// Phase clocks: while clk is set, every launch runs the clock instantiation
+// and adds the cycles of each phase of every stride-th env to clk
+// ((ceil(B / stride), kPhases) int64); nullptr turns it off.
+FB_API int newton_phase_clock(long long* clk, int stride) {
+  if (stride < 1) return -1;
+  g_clk = clk, g_clk_stride = stride;
+  return 0;
+}
+
+// Resources of mode (0 block, 1 whole, 2 reuse, 3 block full) at these
+// widths: out = registers a thread, shared bytes a block, blocks an SM,
+// grid blocks for B envs.
+FB_API int newton_info(int mode, int B, int K, int SB3, int L,
+                       const ArrowPart* part, int* out) {
+  NewtonArgs a{};
+  a.p = *part;
+  a.B = B, a.K = K, a.SB3 = SB3, a.L = L;
+  switch (mode) {
+    case kBlock: return info<kBlock>(a, out);
+    case kWhole: return info<kWhole>(a, out);
+    case kReuse: return info<kReuse>(a, out);
+    case kBlockFull: return info<kBlockFull>(a, out);
+  }
+  return -1;
 }

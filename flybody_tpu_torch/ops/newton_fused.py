@@ -25,8 +25,10 @@ Woodbury correction H = A + U^T U:
     and U and the capacitance factor LC come in; M is dense or packed.
     Plain version `reuse_ref` (`_ref_step_n`).
 
-CUDA tensors launch the kernels (float32, contiguous; anything else
-raises); CPU tensors take the plain versions. The cone machinery and the
+CUDA tensors launch the kernels (float32, contiguous; the operands the
+kernels copy per env in bulk 16-byte aligned with each env's slab a
+multiple of 16 bytes, `check_slabs`; anything else raises); CPU tensors
+take the plain versions. The cone machinery and the
 Hessian/Woodbury assembly shared with physics/solver.py live here.
 """
 
@@ -46,6 +48,14 @@ launches = 0  # newton_block kernel launches
 solve_launches = 0  # newton_solve kernel launches
 block_full_launches = 0  # newton_block_full kernel launches
 reuse_launches = 0  # newton reuse kernel launches
+
+# The phases whose clocks `record_phases` reads (csrc/newton.cu's PHASE
+# marks); the last seven repeat in every Newton iteration.
+PHASES = ('stage-in', 'cone Hessians', 'assembly', 'Woodbury rows',
+          'factor', 'Z = A^-1 U', 'capacitance + Ci', 'J^T f', 'solve',
+          'Woodbury correction', 'M dx', 'J dx', 'line search', 'update',
+          'write-out')
+MODES = {'block': 0, 'whole': 1, 'reuse': 2, 'block_full': 3}
 
 
 # ------------------------------------------------------ cone machinery
@@ -337,6 +347,36 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+def check_slabs(*named):
+    """(tensor, name) pairs of the operands the kernels stage per env by
+    bulk asynchronous copies: each must start 16-byte aligned and hold a
+    multiple of 16 bytes an env. Raises ValueError otherwise (the kernels
+    have no element-wise copy)."""
+    for t, name in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f'{name}: the Newton kernels copy each env\'s '
+                             f'slab in bulk; its storage must be 16-byte '
+                             f'aligned (offset {t.data_ptr() % 16} B)')
+        per_env = (t.numel() // max(t.shape[0], 1)) * t.element_size()
+        if per_env % 16:
+            raise ValueError(f'{name}: each env\'s slab must be a multiple '
+                             f'of 16 bytes for the bulk copies, got '
+                             f'{per_env} B')
+
+
+def check_widths(part, SB3: int):
+    """The partition and Woodbury widths the kernels' register tiles
+    hold: limb blocks of at most 16 dofs, a root of at most 6, one block
+    and the root within a warp's 32 lanes, at most 32 Woodbury rows."""
+    if part.dmax > 16 or part.nr > 6 or part.dmax + part.nr > 32:
+        raise ValueError(f'the Newton kernels take limb blocks of <= 16 '
+                         f'dofs and a root of <= 6 (dmax {part.dmax}, nr '
+                         f'{part.nr})')
+    if not 1 <= SB3 <= 32:
+        raise ValueError(f'the Newton kernels take 1 to 32 Woodbury rows, '
+                         f'got {SB3}')
+
+
 def newton_block(part, lim_dof, lim_sign, Hp, M, conJ, U, x, msm, jar_l,
                  jar_c, lim_params, con_params, ls_iters: int, n_iters: int):
     """Kernel 8 on CUDA tensors, `newton_block_ref` on CPU tensors (same
@@ -358,6 +398,10 @@ def newton_block(part, lim_dof, lim_sign, Hp, M, conJ, U, x, msm, jar_l,
                            (lim_params, (Bn, 2, L), 'lim_params'),
                            (con_params, (Bn, 4, K), 'con_params')):
         _cuda.check(t, shape, name)
+    check_widths(part, SB3)
+    check_slabs((Hp, 'Hp'), (U, 'U'), (x, 'x'),
+                (msm, 'msm'), (jar_l, 'jar_l'), (jar_c, 'jar_c'),
+                (lim_params, 'lim_params'), (con_params, 'con_params'))
     ldof, lsign, dlim = lim_tables(lim_dof, lim_sign, nv, Hp.device)
     outs = (torch.empty_like(x), torch.empty_like(msm),
             torch.empty_like(jar_l), torch.empty_like(jar_c))
@@ -395,6 +439,10 @@ def newton_solve(part, lim_dof, lim_sign, Mp, conJ, bsel, a_free, ws,
                            (con_params5, (Bn, 5, K), 'con_params5')):
         _cuda.check(t, shape, name)
     _cuda.check(bsel, (Bn, SB), 'bsel', dtype=torch.int32)
+    check_widths(part, 3 * SB)
+    check_slabs((Mp, 'Mp'), (a_free, 'a_free'), (ws, 'ws'),
+                (lim_aref, 'lim_aref'), (con_aref, 'con_aref'),
+                (lim_params, 'lim_params'), (con_params5, 'con_params5'))
     ldof, lsign, dlim = lim_tables(lim_dof, lim_sign, nv, Mp.device)
     outs = (torch.empty_like(a_free), torch.empty_like(a_free),
             torch.empty_like(lim_aref), torch.empty_like(con_aref))
@@ -434,6 +482,10 @@ def newton_block_full(part, lim_dof, lim_sign, Mp, conJ, bsel, x, msm,
                            (con_params5, (Bn, 5, K), 'con_params5')):
         _cuda.check(t, shape, name)
     _cuda.check(bsel, (Bn, SB), 'bsel', dtype=torch.int32)
+    check_widths(part, 3 * SB)
+    check_slabs((Mp, 'Mp'), (x, 'x'), (msm, 'msm'),
+                (jar_l, 'jar_l'), (jar_c, 'jar_c'),
+                (lim_params, 'lim_params'), (con_params5, 'con_params5'))
     ldof, lsign, dlim = lim_tables(lim_dof, lim_sign, nv, Mp.device)
     outs = (torch.empty_like(x), torch.empty_like(msm),
             torch.empty_like(jar_l), torch.empty_like(jar_c))
@@ -473,6 +525,10 @@ def reuse(part, lim_dof, lim_sign, F, M, conJ, Z, U, LC, x, msm, jar_l, jar_c,
                            (lim_params, (Bn, 2, L), 'lim_params'),
                            (con_params, (Bn, 4, K), 'con_params')):
         _cuda.check(t, shape, name)
+    check_widths(part, SB3)
+    check_slabs((F, 'F'), (Z, 'Z'), (U, 'U'), (LC, 'LC'),
+                (x, 'x'), (msm, 'msm'), (jar_l, 'jar_l'), (jar_c, 'jar_c'),
+                (lim_params, 'lim_params'), (con_params, 'con_params'))
     ldof, lsign, dlim = lim_tables(lim_dof, lim_sign, nv, F.device)
     outs = (torch.empty_like(x), torch.empty_like(msm),
             torch.empty_like(jar_l), torch.empty_like(jar_c))
@@ -487,3 +543,35 @@ def reuse(part, lim_dof, lim_sign, F, M, conJ, Z, U, LC, x, msm, jar_l, jar_c,
     _cuda.raise_on(rc, 'newton_reuse_f32')
     reuse_launches += 1
     return outs
+
+
+def record_phases(fn, batch: int, stride: int, device):
+    """Runs fn() (Newton kernel launches on `batch` envs) with the phase
+    clocks on: every stride-th env's cycles in each phase of PHASES, an
+    int64 tensor (ceil(batch / stride), len(PHASES)) on the CPU, summed
+    over the launches fn makes."""
+    clk = torch.zeros(((batch + stride - 1) // stride, len(PHASES)),
+                      dtype=torch.int64, device=device)
+    on = _cuda.function('newton', 'newton_phase_clock', [_P, _I])
+    _cuda.raise_on(on(clk.data_ptr(), stride), 'newton_phase_clock')
+    try:
+        fn()
+        torch.cuda.synchronize(device)
+    finally:
+        on(None, 1)
+    return clk.cpu()
+
+
+def kernel_info(mode: str, part, batch: int, K: int, SB3: int,
+                L: int) -> dict:
+    """Registers a thread, shared memory a block, blocks an SM (the
+    occupancy calculator) and grid blocks of a Newton mode's kernel at
+    these widths."""
+    out = (ctypes.c_int * 4)()
+    fn = _cuda.function('newton', 'newton_info', [_I] * 5 + [
+        ctypes.POINTER(_ar.CPart), ctypes.POINTER(ctypes.c_int * 4)])
+    _cuda.raise_on(fn(MODES[mode], batch, K, SB3, L,
+                      ctypes.byref(_ar.c_part(part)), ctypes.byref(out)),
+                   'newton_info')
+    return dict(registers=out[0], smem_bytes=out[1], blocks_per_sm=out[2],
+                grid=out[3])

@@ -1,7 +1,7 @@
 """Where a control step spends its time, on one GPU.
 
     python -m flybody_tpu_torch.tools.profile_step --batch 8192 \
-        [--preset default|bench]
+        [--preset default|default_full|bench]
     python -m flybody_tpu_torch.tools.profile_step --model two_fly \
         [--batch 4096] [--preset default|bench]
 

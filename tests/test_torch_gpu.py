@@ -101,6 +101,10 @@ def test_newton_block_refuses_what_its_kernel_does_not_take(env):
     with pytest.raises(ValueError, match='contiguous'):
         nf.newton_block(*args(U=torch.zeros(B, nv, SB3,
                                             device=dev).transpose(1, 2)))
+    # The kernel copies each env's slabs in bulk: 16-byte aligned only.
+    with pytest.raises(ValueError, match='aligned'):
+        nf.newton_block(*args(x=torch.zeros(B * nv + 1,
+                                            device=dev)[1:].view(B, nv)))
 
 
 @pytest.mark.gpu
@@ -155,6 +159,9 @@ def test_last_slice_wrappers_refuse_what_their_kernels_do_not_take(env):
     with pytest.raises(ValueError, match='contiguous'):
         nf.newton_block_full(*args(jar_c=torch.zeros(B, 3, K, device=dev)
                                    .transpose(1, 2)))
+    with pytest.raises(ValueError, match='aligned'):
+        nf.newton_block_full(*args(jar_l=torch.zeros(B * L + 1, device=dev)
+                                   [1:].view(B, L)))
 
 
 @pytest.mark.gpu
@@ -206,6 +213,42 @@ def test_unpacked_wrappers_refuse_what_their_kernels_do_not_take(env):
     with pytest.raises(ValueError, match='contiguous'):
         nf.reuse(*args(Z=torch.zeros(B, SB3, nv, device=dev).transpose(1,
                                                                         2)))
+    with pytest.raises(ValueError, match='aligned'):
+        nf.reuse(*args(msm=torch.zeros(B * nv + 1, device=dev)[1:]
+                       .view(B, nv)))
+
+
+@pytest.mark.gpu
+def test_newton_kernels_hold_on_ragged_batches(env):
+    """Rows 8 and 9 (block-full and whole-solve modes) at batches 1, 133
+    and 8,193, which leave the persistent grid a ragged tail: at 8,193
+    envs each kernel against its plain version at 30 line-search steps
+    (chip_smoke.NEWTON_ENV_SHARE of envs within NEWTON_ENV_TOL), and at
+    1 and 133 envs exactly the 8,193-env launch's first envs (each env's
+    arithmetic does not depend on the block that takes it). The whole
+    solve also refuses a misaligned slab."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from flybody_tpu_torch.ops import newton_fused as nf
+    from flybody_tpu_torch.tools import profile_newton
+    plain = {nf.newton_block: nf.newton_block_ref,
+             nf.newton_block_full: nf.newton_block_full_ref,
+             nf.newton_solve: nf.newton_solve_ref}
+    _, modes = profile_newton.phase_operands(8193, chip_smoke.SEED)
+    for mode, (fn, args, _, it) in modes.items():
+        full = fn(*args, 30, it)
+        err = chip_smoke.env_err(full, plain[fn](*args, 30, it))
+        assert chip_smoke.share(err) >= chip_smoke.NEWTON_ENV_SHARE, mode
+        for n in (1, 133):
+            sub = tuple(a[:n] if torch.is_tensor(a) and a.dim()
+                        and a.shape[0] == 8193 else a for a in args)
+            for o, f in zip(fn(*sub, 30, it), full):
+                assert torch.equal(o, f[:n]), (mode, n)
+    args = modes['whole'][1]
+    bad = torch.zeros(args[6].numel() + 1, device='cuda')[1:].view(
+        args[6].shape)
+    with pytest.raises(ValueError, match='aligned'):
+        nf.newton_solve(*args[:6], bad, *args[7:], 6, 1)
 
 
 @pytest.mark.gpu
