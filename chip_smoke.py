@@ -43,8 +43,10 @@ Phases (any failure exits non-zero):
      2,048 candidates (K 64), and row 9's block-full mode on the default
      forward pass through newton_checks beside three wrong controls that
      must fail (a bf16-rounded Hessian, one iteration more, one fewer).
-     Each Newton mode's registers a thread, shared memory a block, blocks
-     an SM and persistent grid are printed (newton_resources);
+     Each Newton mode's, K2's and the fused noslip's registers a thread,
+     shared memory a block, blocks an SM and grid are printed
+     (kernel_resources), and the noslip operands' path work: envs by the
+     number of slots they list (use > 0), the slots row 11 sweeps;
   4. main path, at each preset (default, default_full, bench):
      walk_imitation(functional=True) reset + 5 control steps at batch
      8192; state finite; every kernel's launch count equal to the
@@ -361,6 +363,8 @@ def kernel_phase(env, batch, seed, report):
                   + 2 * meta.ntendon * meta.nv * 2 + meta.nu * 20)
     entry('force_stage', err, ms, pms, nbytes(used) + nbytes(out2), fl)
     log(f'force_stage: {ms:.3f} ms kernel, {pms:.3f} ms plain')
+    kernel_resources('force_stage', force_stage.kernel_info(model, batch),
+                     batch, report)
     # K2's ellipsoid fluid branch, on the walking model with it switched on.
     vm = spec.from_numpy(*force_stage.ellipsoid_variant(
         *spec.read_npz(spec.WALK_IMITATION_NPZ)), device=dev,
@@ -528,16 +532,22 @@ def bf16_hessian(plain):
     return run
 
 
-def newton_resources(mode, part, batch, K, SB3, L, report):
-    """Logs and records a Newton mode's registers a thread, shared memory a
-    block, blocks an SM and persistent grid at these widths."""
-    from flybody_tpu_torch.ops import newton_fused as nf
-    info = nf.kernel_info(mode, part, batch, K, SB3, L)
-    report.setdefault('newton_resources', {})[mode] = info
-    log(f'newton {mode} kernel: {info["registers"]} registers a thread, '
+def kernel_resources(name, info, batch, report, key='kernel_resources'):
+    """Logs and records a kernel's registers a thread, shared memory a
+    block, blocks an SM and grid (its kernel_info)."""
+    report.setdefault(key, {})[name] = info
+    log(f'{name} kernel: {info["registers"]} registers a thread, '
         f'{info["smem_bytes"]} B shared memory a block, '
         f'{info["blocks_per_sm"]} blocks an SM, grid {info["grid"]} '
         f'(batch {batch})')
+
+
+def newton_resources(mode, part, batch, K, SB3, L, report):
+    """kernel_resources of a Newton mode at these widths."""
+    from flybody_tpu_torch.ops import newton_fused as nf
+    kernel_resources(f'newton {mode}',
+                     nf.kernel_info(mode, part, batch, K, SB3, L), batch,
+                     report, 'newton_resources')
 
 
 def newton_checks(name, kernel, plain, args, ls, n_it, controls, stats):
@@ -894,6 +904,7 @@ def dense_collision_kernels(model, data_in, entry, report):
 def solver_kernels(model, data_in, entry, report):
     """Rows 8, 9 and 11 against their plain versions on the rows, factor
     and forces of real forward passes at both presets."""
+    import torch
     from flybody_tpu_torch.ops import arrow
     from flybody_tpu_torch.ops import newton_fused as nf
     from flybody_tpu_torch.ops import noslip_gs as ng
@@ -979,10 +990,19 @@ def solver_kernels(model, data_in, entry, report):
             newton_resources('whole', part, batch, K, 3 * SB, L, report)
         report[f'newton_readings_{preset}'] = rd
 
-        # Row 11 on the slots the preset sweeps.
+        # Row 11 on the slots the preset sweeps; the path's work: how many
+        # slots each env lists (use > 0), the ones the kernel sweeps.
         nargs = solver.noslip_operands(d.qLD, efc, d.qacc, f_c,
                                        cfg['noslip_contacts'])
         ns = nargs[1].shape[1]
+        hist = torch.bincount((nargs[4] > 0).sum(1).cpu(),
+                              minlength=ns + 1).tolist()
+        report[f'noslip_listed_{preset}'] = hist
+        log(f'noslip path work ({preset}, {ns} slots): envs by listed '
+            f'slots ' + ', '.join(f'{n}: {c}' for n, c in enumerate(hist)
+                                  if c)
+            + f'; {sum(n * c for n, c in enumerate(hist))} of {batch * ns} '
+            f'slots listed')
         out = ng.noslip_fused(part, *nargs, 3)
         err, rel = compare(f'noslip_fused[{ns} slots]', out,
                            ng.noslip_fused_ref(part, *nargs, 3),
@@ -1002,6 +1022,8 @@ def solver_kernels(model, data_in, entry, report):
         log(f'noslip_fused ({preset}, {ns} slots): {ms:.3f} ms kernel, '
             f'{pms:.3f} ms plain, bound '
             f'{max(byts / HBM_BYTES_PER_S, fl / FP32_FLOPS) * 1e3:.4f} ms')
+        kernel_resources(f'noslip_fused[{ns} slots]',
+                         ng.kernel_info(part, batch, ns), batch, report)
 
 
 def block_full_check(part, d, efc, ops, st, stats, ls, entry, report):

@@ -121,6 +121,31 @@ def check(t: torch.Tensor, shape, what: str, dtype=torch.float32):
         raise ValueError(f'{what}: expected a contiguous tensor')
 
 
+def record_phases(name: str, symbol: str, nphases: int, fn, batch: int,
+                  stride: int, device) -> torch.Tensor:
+    """Runs fn() (launches of library `name`'s kernel on `batch` envs)
+    with its phase clocks on (C entry `symbol`): every stride-th env's
+    cycles in each of the kernel's `nphases` phases, an int64 tensor
+    (ceil(batch / stride), nphases) on the CPU, summed over the launches
+    fn makes."""
+    clk = torch.zeros(((batch + stride - 1) // stride, nphases),
+                      dtype=torch.int64, device=device)
+    on = function(name, symbol, [ctypes.c_void_p, ctypes.c_int])
+    raise_on(on(clk.data_ptr(), stride), symbol)
+    try:
+        fn()
+        torch.cuda.synchronize(device)
+    finally:
+        on(None, 1)
+    return clk.cpu()
+
+
+def info_dict(out) -> dict:
+    """A kernel's resources from its C info entry's four ints."""
+    return dict(registers=out[0], smem_bytes=out[1], blocks_per_sm=out[2],
+                grid=out[3])
+
+
 def raise_on(rc: int, what: str):
     if rc != 0:
         raise RuntimeError(f'{what}: CUDA launch failed with error {rc}')

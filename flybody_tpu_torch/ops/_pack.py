@@ -21,11 +21,24 @@ class Pack:
         foff = np.cumsum([0] + [len(p) for p in fparts])[:-1]
         head = len(floats) + len(ints)
         ioff = head + np.cumsum([0] + [len(p) for p in iparts])[:-1]
-        self.floats = np.concatenate(fparts + [np.zeros(1)]).astype(
-            np.float32)
+        self.floats64 = np.concatenate(fparts + [np.zeros(1)])
+        self.floats = self.floats64.astype(np.float32)
         self.ints = np.concatenate(
             [foff, ioff] + iparts + [np.zeros(1, np.int64)]).astype(np.int32)
         self._dev = {}
+
+    def table(self, name: str, float64: bool = False) -> np.ndarray:
+        """One table by name, as packed (float32 or int32); float64: a float
+        table before its rounding to float32."""
+        if name in self.fnames:
+            i, off, n = self.fnames.index(name), 0, self.nf
+            arr = self.floats64 if float64 else self.floats
+        else:
+            i, arr, off, n = (self.inames.index(name), self.ints, self.nf,
+                              self.ni)
+        lo = self.ints[off + i]
+        hi = self.ints[off + i + 1] if i + 1 < n else len(arr) - 1
+        return arr[lo:hi]
 
     @property
     def nf(self) -> int:

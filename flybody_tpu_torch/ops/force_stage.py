@@ -26,6 +26,10 @@ from flybody_tpu_torch.ops._pack import Pack
 NAMES = ('cvel', 'cdof_dot', 'ten_velocity', 'qfrc_bias', 'qfrc_passive',
          'qfrc_fluid', 'qfrc_actuator', 'actuator_force', 'act_dot', 'qM')
 
+# Phases of the kernel's clock instantiation (record_phases), in order.
+PHASES = ('stage-in', 'velocities', 'body wrenches', 'subtree sums',
+          'dof forces', 'mass matrix', 'passive', 'actuation', 'write-out')
+
 launches = 0
 
 
@@ -95,8 +99,68 @@ def _dof_parents(meta) -> np.ndarray:
     return par
 
 
+def body_levels(meta) -> tuple[np.ndarray, np.ndarray]:
+    """Bodies 1..nb-1 by tree depth, each depth in body order, and where
+    each depth starts: the kernel's root-to-leaves schedule (a body reads
+    only its parent's velocity, which an earlier level wrote)."""
+    par = np.array(meta.body_parentid)
+    depth = np.zeros(len(par), np.int64)
+    for b in range(1, len(par)):
+        depth[b] = depth[par[b]] + 1
+    order = np.argsort(depth[1:], kind='stable') + 1
+    off = np.searchsorted(depth[order], np.arange(1, depth.max() + 2))
+    return order, off
+
+
+def mass_codes(meta, part) -> np.ndarray:
+    """Per entry of the packed mass matrix (nl + 1, dm + nr, dm), what the
+    kernel writes there: -1 zero, -2 the identity padding of a limb
+    block, else (i << 16) | (j << 1) | a for buf_i . cdof_j (+
+    dof_armature[i] when a is 1), j on dof i's ancestor chain: the walk of
+    each dof's ancestor chain, dof by dof, whose last write to an entry is
+    the one kept."""
+    nv, nl, dm, nr = meta.nv, len(part.ds), part.dmax, part.nr
+    assert nv < 1 << 15, 'mass_codes: dof indices take 15 bits'
+    limb = np.full(nv, -1, np.int64)
+    pos = np.arange(nv, dtype=np.int64)
+    for li, (lo, d) in enumerate(zip(part.los, part.ds)):
+        limb[lo:lo + d] = li
+        pos[lo:lo + d] = np.arange(d)
+    dpar = _dof_parents(meta)
+    rowlen = (dm + nr) * dm
+    code = np.full((nl + 1) * rowlen, -1, np.int64)
+    for li in range(nl):
+        code[li * rowlen + np.arange(dm) * (dm + 1)] = -2
+    for i in range(nv):
+        li, ai = limb[i], pos[i]
+        j = i
+        while j >= 0:
+            lj, aj = limb[j], pos[j]
+            c = (i << 16) | (j << 1)
+            if li >= 0 and lj >= 0:
+                code[li * rowlen + ai * dm + aj] = c + (i == j)
+                code[li * rowlen + aj * dm + ai] = c + (i == j)
+            elif li >= 0:
+                code[li * rowlen + (dm + aj) * dm + ai] = c
+            else:
+                code[nl * rowlen + ai * dm + aj] = c + (i == j)
+                code[nl * rowlen + aj * dm + ai] = c + (i == j)
+            j = dpar[j]
+    return code
+
+
+def moment_lists(mom_dof: np.ndarray, nv: int):
+    """CSR lists (ptr (nv + 1), k) of the nonzero moments of each dof, in
+    the order of the moment list (k ascending): qfrc_actuator[i] sums
+    mom_coef[k] * actuator_force[mom_u[k]] over them in that order."""
+    k = np.argsort(mom_dof, kind='stable')
+    ptr = np.searchsorted(mom_dof[k], np.arange(nv + 1))
+    return ptr, k
+
+
 def pack(model) -> Pack:
-    """The kernel's constant tables for this model (built once)."""
+    """The kernel's constant tables for this model (built once); `dims`
+    holds their sizes (csrc/force_stage.cu `Dim`)."""
     p = model._cache.get('force_stage_pack')
     if p is not None:
         return p
@@ -125,11 +189,6 @@ def pack(model) -> Pack:
             stiff[adr] = a['jnt_stiffness'][j]
             sref[adr] = a['qpos_spring'][meta.jnt_qposadr[j]]
             dqadr[adr] = meta.jnt_qposadr[j]
-    limb = np.full(nv, -1, np.int64)
-    pos = np.arange(nv, dtype=np.int64)
-    for li, (lo, d) in enumerate(zip(part.los, part.ds)):
-        limb[lo:lo + d] = li
-        pos[lo:lo + d] = np.arange(d)
 
     tb = _sm.act_tables(meta)
     act_rows = np.stack([
@@ -144,11 +203,13 @@ def pack(model) -> Pack:
     act_q = np.where(tb['is_joint'] > 0, tb['trn_qadr'], tb['ten_id'])
     mom = a['actuator_moment']
     mu, md = np.nonzero(mom)
+    mptr, mk = moment_lists(md, nv)
     ell = np.nonzero(np.array(meta.geom_fluid_active))[0]
     ell_f = np.concatenate([a['geom_fluid'][ell], a['geom_size'][ell]], 1)
     ell_i = np.stack([ell, np.array(meta.geom_bodyid)[ell]], 1)
+    lbody, loff = body_levels(meta)
     dims = [meta.nq, nv, nb, meta.ntendon, nu, meta.na, nl, dm, nr, len(mu),
-            len(ell), meta.ngeom]
+            len(ell), meta.ngeom, len(loff) - 1]
     p = Pack(
         floats=[('gravity', a['gravity']), ('wind', a['wind']),
                 ('fluid', [a['density'], a['viscosity']]),
@@ -165,13 +226,31 @@ def pack(model) -> Pack:
         ints=[('dims', dims), ('parent', meta.body_parentid),
               ('root', meta.body_rootid), ('dofadr', meta.body_dofadr),
               ('dofnum', meta.body_dofnum), ('dof_body', meta.dof_bodyid),
-              ('dof_kind', kind), ('dof_parent', _dof_parents(meta)),
-              ('dof_limb', limb), ('dof_pos', pos), ('dof_qadr', dqadr),
+              ('dof_kind', kind), ('level_body', lbody), ('level_off', loff),
+              ('mass_code', mass_codes(meta, part)), ('dof_qadr', dqadr),
               ('act_q', act_q), ('act_d', tb['trn_dadr']),
               ('act_adr', meta.actuator_actadr), ('mom_u', mu),
-              ('mom_dof', md), ('ellipsoid', ell_i)])
+              ('mom_ptr', mptr), ('mom_k', mk), ('ellipsoid', ell_i)])
+    p.dims = np.array(dims, np.int32)
+    # The ints before the mass codes (header, dims, tree and dof tables),
+    # which the kernel stages in shared memory.
+    p.ntopo = int(p.ints[p.nf + p.inames.index('mass_code')])
     model._cache['force_stage_pack'] = p
     return p
+
+
+def bulk_mask(slabs) -> int:
+    """Bit s set when slab s (the inputs the kernel stages per env, in its
+    order: qpos, qvel, act, ctrl, cdof, cinert, xipos, ximat, subtree_com,
+    ten_length) starts 16-byte aligned and holds a multiple of 16 bytes an
+    env (a 1-D bulk copy's terms); the kernel loads the others element by
+    element."""
+    m = 0
+    for s, t in enumerate(slabs):
+        per_env = (t.numel() // max(t.shape[0], 1)) * t.element_size()
+        if t.data_ptr() % 16 == 0 and per_env % 16 == 0:
+            m |= 1 << s
+    return m
 
 
 def force_stage(model, qpos, qvel, act, ctrl, cdof, cinert, xipos, ximat,
@@ -197,17 +276,43 @@ def force_stage(model, qpos, qvel, act, ctrl, cdof, cinert, xipos, ximat,
     fp, ip = p.on(qpos.device)
     nl, dm, nr = len(part.ds), part.dmax, part.nr
     shapes = [(nb, 6), (nv, 6), (nt,), (nv,), (nv,), (nv,), (nv,), (nu,),
-              (na,), (nl + 1, dm + nr, dm), (54 * nb + 6 * nv,)]
+              (na,), (nl + 1, dm + nr, dm)]
     outs = [torch.empty((B,) + s, dtype=torch.float32, device=qpos.device)
             for s in shapes]
     iptr = (ctypes.c_void_p * len(ins))(*[t.data_ptr() for t, _ in ins])
     optr = (ctypes.c_void_p * len(outs))(*[o.data_ptr() for o in outs])
+    dims = p.dims.ctypes.data_as(ctypes.c_void_p)
     fn = _cuda.function('force_stage', 'force_stage_f32', [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p])
-    rc = fn(iptr, optr, fp.data_ptr(), fp.numel(), ip.data_ptr(),
-            ip.numel(), p.nf, p.ni, B, _cuda.stream())
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_void_p])
+    rc = fn(iptr, optr, fp.data_ptr(), ip.data_ptr(), p.nf, p.ni, p.ntopo,
+            dims, len(p.dims),
+            bulk_mask([t for t, _ in ins[:9]] + [ten_length]), B,
+            _cuda.stream())
     _cuda.raise_on(rc, 'force_stage_f32')
     launches += 1
-    return tuple(outs[:10])  # the last is the kernel's scratch
+    return tuple(outs)
+
+
+def record_phases(fn, batch: int, stride: int, device):
+    """Runs fn() (force_stage launches on `batch` envs) with the kernel's
+    phase clocks on: every stride-th env's cycles in each phase of PHASES,
+    an int64 tensor (ceil(batch / stride), len(PHASES)) on the CPU."""
+    return _cuda.record_phases('force_stage', 'force_stage_phase_clock',
+                               len(PHASES), fn, batch, stride, device)
+
+
+def kernel_info(model, batch: int) -> dict:
+    """Registers a thread, shared memory a block, blocks an SM (the
+    occupancy calculator) and grid blocks of the kernel for this model at
+    this batch."""
+    p = pack(model)
+    out = (ctypes.c_int * 4)()
+    fn = _cuda.function('force_stage', 'force_stage_info', [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int * 4)])
+    _cuda.raise_on(fn(p.ntopo, p.dims.ctypes.data_as(ctypes.c_void_p),
+                      len(p.dims), batch, ctypes.byref(out)),
+                   'force_stage_info')
+    return _cuda.info_dict(out)

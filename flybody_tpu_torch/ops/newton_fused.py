@@ -354,8 +354,8 @@ def check_slabs(*named):
     have no element-wise copy)."""
     for t, name in named:
         if t.data_ptr() % 16:
-            raise ValueError(f'{name}: the Newton kernels copy each env\'s '
-                             f'slab in bulk; its storage must be 16-byte '
+            raise ValueError(f'{name}: the kernel copies each env\'s slab '
+                             f'in bulk; its storage must be 16-byte '
                              f'aligned (offset {t.data_ptr() % 16} B)')
         per_env = (t.numel() // max(t.shape[0], 1)) * t.element_size()
         if per_env % 16:
@@ -550,16 +550,8 @@ def record_phases(fn, batch: int, stride: int, device):
     clocks on: every stride-th env's cycles in each phase of PHASES, an
     int64 tensor (ceil(batch / stride), len(PHASES)) on the CPU, summed
     over the launches fn makes."""
-    clk = torch.zeros(((batch + stride - 1) // stride, len(PHASES)),
-                      dtype=torch.int64, device=device)
-    on = _cuda.function('newton', 'newton_phase_clock', [_P, _I])
-    _cuda.raise_on(on(clk.data_ptr(), stride), 'newton_phase_clock')
-    try:
-        fn()
-        torch.cuda.synchronize(device)
-    finally:
-        on(None, 1)
-    return clk.cpu()
+    return _cuda.record_phases('newton', 'newton_phase_clock', len(PHASES),
+                               fn, batch, stride, device)
 
 
 def kernel_info(mode: str, part, batch: int, K: int, SB3: int,
@@ -573,5 +565,4 @@ def kernel_info(mode: str, part, batch: int, K: int, SB3: int,
     _cuda.raise_on(fn(MODES[mode], batch, K, SB3, L,
                       ctypes.byref(_ar.c_part(part)), ctypes.byref(out)),
                    'newton_info')
-    return dict(registers=out[0], smem_bytes=out[1], blocks_per_sm=out[2],
-                grid=out[3])
+    return _cuda.info_dict(out)

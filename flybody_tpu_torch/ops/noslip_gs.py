@@ -13,7 +13,8 @@ held fixed, each slot's tangent force clamped to its friction circle.
     inverses (the dense path computes them outside). Plain version
     `gs_ref` (the JAX package's `_reference`).
 
-CUDA tensors launch the kernels (float32, contiguous; anything else
+CUDA tensors launch the kernels (float32, contiguous, and for kernel 11
+F and Jt 16-byte aligned with 16-byte multiples an env; anything else
 raises); CPU tensors run the plain versions.
 """
 
@@ -25,6 +26,10 @@ import torch
 
 from flybody_tpu_torch.ops import _cuda
 from flybody_tpu_torch.ops import arrow as _ar
+from flybody_tpu_torch.ops import newton_fused as _nf
+
+# Phases of kernel 11's clock instantiation (record_phases), in order.
+PHASES = ('stage-in', 'guard', 'solve', 'inverses', 'sweeps', 'write-out')
 
 launches = 0  # noslip_fused (kernel 11) launches
 gs_launches = 0  # gs (row 12) launches
@@ -95,6 +100,11 @@ def noslip_fused(part, F, Jt, aref_t, lim, use, x0, ft0, iterations: int):
                            (lim, (Bn, K), 'lim'), (use, (Bn, K), 'use'),
                            (x0, (Bn, nv), 'x0'), (ft0, (Bn, K, 2), 'ft0')):
         _cuda.check(t, shape, name)
+    # The factor and each slot's two J_t rows come in by bulk copies.
+    _nf.check_slabs((F, 'F'), (Jt, 'Jt'))
+    if (8 * nv) % 16:
+        raise ValueError(f'Jt: a slot\'s two rows ({8 * nv} B) must be a '
+                         f'multiple of 16 bytes for the bulk copies')
     x = torch.empty_like(x0)
     ft = torch.empty_like(ft0)
     P, I = ctypes.c_void_p, ctypes.c_int
@@ -107,6 +117,26 @@ def noslip_fused(part, F, Jt, aref_t, lim, use, x0, ft0, iterations: int):
     _cuda.raise_on(rc, 'noslip_fused_f32')
     launches += 1
     return x, ft
+
+
+def record_phases(fn, batch: int, stride: int, device):
+    """Runs fn() (noslip_fused launches on `batch` envs) with kernel 11's
+    phase clocks on: every stride-th env's cycles in each phase of PHASES,
+    an int64 tensor (ceil(batch / stride), len(PHASES)) on the CPU."""
+    return _cuda.record_phases('noslip', 'noslip_phase_clock', len(PHASES),
+                               fn, batch, stride, device)
+
+
+def kernel_info(part, batch: int, K: int) -> dict:
+    """Registers a thread, shared memory a block, blocks an SM (the
+    occupancy calculator) and grid blocks of kernel 11 at K slots."""
+    out = (ctypes.c_int * 4)()
+    fn = _cuda.function('noslip', 'noslip_info', [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(_ar.CPart),
+        ctypes.POINTER(ctypes.c_int * 4)])
+    _cuda.raise_on(fn(batch, K, ctypes.byref(_ar.c_part(part)),
+                      ctypes.byref(out)), 'noslip_info')
+    return _cuda.info_dict(out)
 
 
 def gs(Jt, Pt, Ainv, aref_t, lim, use, x0, ft0, iterations: int):

@@ -12,15 +12,20 @@ and times only the contact solve: CUDA events on the card, the host clock
 on the CPU. The JAX tool's host-sync round trip does not exist here, so it
 has no --rtt row.
 
---phases (card only) reads the Newton kernels' phase clocks instead, per
-mode at the main path's shapes: the block kernel (row 8) and the
-block-full mode (row 9) on a default-preset forward pass, the whole solve
-(row 9) on a bench-preset one, from a walk_imitation state perturbed as
-chip_smoke.py's kernel phase perturbs it. Per mode it prints the
-registers, shared memory, blocks an SM and grid of the kernel, its time,
-and the cycles of each phase (ops/newton_fused.PHASES) per env, averaged
-over every --stride-th env, with their shares; it writes the tables to
-chiprun_out/profile_newton_phases.json.
+--phases (card only) reads kernels' phase clocks instead, per mode at the
+main path's shapes, from a walk_imitation state perturbed as
+chip_smoke.py's kernel phase perturbs it: the Newton block kernel (row 8)
+and the block-full mode (row 9) on a default-preset forward pass, the
+whole solve (row 9) on a bench-preset one (ops/newton_fused.PHASES); the
+force stage (K2) on that default forward pass's position-stage outputs
+(ops/force_stage.PHASES); the fused noslip (row 11) on each forward
+pass's noslip operands, 64 slots (default) and 16 (bench)
+(ops/noslip_gs.PHASES), with the histogram of slots each env sweeps.
+--modes picks some of block, block_full, whole, force_stage,
+noslip_fused. Per mode it prints the registers, shared memory, blocks an
+SM and grid of the kernel, its time, and the cycles of each phase per
+env, averaged over every --stride-th env, with their shares; it writes
+the tables to chiprun_out/profile_newton_phases.json.
 """
 
 from __future__ import annotations
@@ -34,13 +39,16 @@ import torch
 from flybody_tpu_torch.tools import profile_engine as pe
 
 
-def phase_operands(batch: int, seed: int):
-    """(part, {mode: (kernel, args without the trip counts, ls, iters)})
-    for the three modes the walk_imitation presets launch."""
+MODES = ('block', 'block_full', 'whole', 'force_stage', 'noslip_fused')
+
+
+def walk_passes(batch: int, seed: int):
+    """(model, part, {preset: (d, efc, f_c)}): a default- and a
+    bench-preset forward pass (engine.fwd_acc) of a walk_imitation state
+    perturbed as chip_smoke.py's kernel phase perturbs it."""
     from flybody_tpu_torch.envs import fly_envs
     from flybody_tpu_torch.ops import arrow
-    from flybody_tpu_torch.ops import newton_fused as nf
-    from flybody_tpu_torch.physics import engine, solver
+    from flybody_tpu_torch.physics import engine
     env = fly_envs.walk_imitation(functional=True)
     model, meta = env.model, env.model.meta
     g = torch.Generator(device='cpu').manual_seed(seed)
@@ -54,11 +62,34 @@ def phase_operands(batch: int, seed: int):
     data_in = state.data.replace(qpos=qpos, qvel=randn(batch, meta.nv),
                                  act=randn(batch, meta.na, scale=0.2),
                                  ctrl=randn(batch, meta.nu, scale=0.3))
-    part = arrow.build_partition(meta)
+    return model, arrow.build_partition(meta), {
+        preset: engine.fwd_acc(model, data_in, engine.PRESETS[preset])
+        for preset in ('default', 'bench')}
+
+
+def force_args(d) -> tuple:
+    """K2's operands (after the model) from a forward pass's data."""
+    return tuple(t.contiguous() for t in (
+        d.qpos, d.qvel, d.act, d.ctrl, d.cdof, d.cinert, d.xipos, d.ximat,
+        d.subtree_com, d.geom_xpos, d.geom_xmat, d.ten_length))
+
+
+def noslip_args(d, efc, f_c, preset) -> tuple:
+    """Row 11's operands (after the partition) on the preset's slots."""
+    from flybody_tpu_torch.physics import engine, solver
+    return solver.noslip_operands(d.qLD, efc, d.qacc, f_c,
+                                  engine.PRESETS[preset]['noslip_contacts'])
+
+
+def newton_operands(part, passes):
+    """{mode: (kernel, args without the trip counts, ls, iters)} for the
+    three Newton modes the walk_imitation presets launch."""
+    from flybody_tpu_torch.ops import arrow
+    from flybody_tpu_torch.ops import newton_fused as nf
+    from flybody_tpu_torch.physics import engine, solver
     modes = {}
-    for preset in ('default', 'bench'):
+    for preset, (d, efc, _) in passes.items():
         cfg = engine.PRESETS[preset]
-        d, efc, _ = engine.fwd_acc(model, data_in, cfg)
         a_free = arrow.solve_ref(part, d.qLD, d.qfrc_smooth)
         ops = solver.operands(efc, cfg['sb_break'])
         ls = cfg['ls_iterations']
@@ -75,44 +106,90 @@ def phase_operands(batch: int, seed: int):
                               solver.solve_args(part, d.qM, efc, ops,
                                                 a_free, d.qacc),
                               ls, cfg['solver_iterations'])
-    return part, modes
+    return modes
 
 
-def phase_tables(batch: int, seed: int, stride: int, iters: int) -> dict:
-    """Per mode: the kernel's resources and time and its phase cycles."""
+def phase_operands(batch: int, seed: int):
+    """(part, {mode: (kernel, args without the trip counts, ls, iters)})
+    for the three Newton modes the walk_imitation presets launch."""
+    _, part, passes = walk_passes(batch, seed)
+    return part, newton_operands(part, passes)
+
+
+def kernel_runs(batch: int, seed: int, modes=MODES) -> dict:
+    """{table: (fn, phases module, resources, histogram)} for the kernels
+    of `modes` on the walk_imitation presets' forward passes; fn()
+    launches the kernel once; histogram: envs by listed slots (row 11)."""
+    from flybody_tpu_torch.ops import force_stage as fs
     from flybody_tpu_torch.ops import newton_fused as nf
-    part, modes = phase_operands(batch, seed)
+    from flybody_tpu_torch.ops import noslip_gs as ng
+    model, part, passes = walk_passes(batch, seed)
     out = {}
-    for mode, (fn, args, ls, it) in modes.items():
+    for mode, (kern, args, ls, it) in newton_operands(part, passes).items():
+        if mode not in modes:
+            continue
         if mode == 'block':  # (.., Hp, M, conJ, U, ..)
             K, SB3 = args[5].shape[1], args[6].shape[1]
         else:  # (.., M, conJ, bsel, ..)
             K, SB3 = args[4].shape[1], 3 * args[5].shape[1]
-        info = nf.kernel_info(mode, part, batch, K, SB3, len(args[1]))
-        ms = pe._time(lambda: fn(*args, ls, it), iters, True) * 1e3
-        clk = nf.record_phases(lambda: fn(*args, ls, it), batch, stride,
-                               args[3].device).double()
+        info = dict(nf.kernel_info(mode, part, batch, K, SB3, len(args[1])),
+                    K=K, SB3=SB3, ls=ls, iterations=it)
+        out[mode] = (lambda kern=kern, args=args, ls=ls, it=it:
+                     kern(*args, ls, it), nf, info, None)
+    if 'force_stage' in modes:
+        fargs = force_args(passes['default'][0])
+        out['force_stage'] = (lambda: fs.force_stage(model, *fargs), fs,
+                              fs.kernel_info(model, batch), None)
+    if 'noslip_fused' in modes:
+        for preset, (d, efc, f_c) in passes.items():
+            nargs = noslip_args(d, efc, f_c, preset)
+            ns = nargs[1].shape[1]
+            hist = torch.bincount((nargs[4] > 0).sum(1).cpu(),
+                                  minlength=ns + 1).tolist()
+            out[f'noslip_fused[{ns} slots]'] = (
+                lambda nargs=nargs: ng.noslip_fused(part, *nargs, 3), ng,
+                dict(ng.kernel_info(part, batch, ns), K=ns, sweeps=3), hist)
+    return out
+
+
+def phase_tables(batch: int, seed: int, stride: int, iters: int,
+                 modes=MODES) -> dict:
+    """Per mode: the kernel's resources and time and its phase cycles."""
+    out = {}
+    for name, (fn, mod, info, hist) in kernel_runs(batch, seed,
+                                                   modes).items():
+        ms = pe._time(fn, iters, True) * 1e3
+        clk = mod.record_phases(fn, batch, stride,
+                                torch.device('cuda')).double()
         cyc = clk.mean(0)
         total = float(cyc.sum())
-        out[mode] = dict(K=K, SB3=SB3, ls=ls, iterations=it, ms=ms,
-                         sampled_envs=clk.shape[0], cycles_per_env=total,
+        out[name] = dict(ms=ms, sampled_envs=clk.shape[0],
+                         cycles_per_env=total,
                          phases={p: dict(cycles=float(c),
                                          share=float(c) / total)
-                                 for p, c in zip(nf.PHASES, cyc)},
+                                 for p, c in zip(mod.PHASES, cyc)},
                          **info)
+        if hist is not None:
+            out[name]['listed_slots_histogram'] = hist
     return out
 
 
 def print_tables(tables: dict, batch: int):
     for mode, r in tables.items():
-        print(f'{mode}: K {r["K"]}, 3SB {r["SB3"]}, ls {r["ls"]}, '
-              f'{r["iterations"]} iteration(s); {r["ms"]:.3f} ms at batch '
-              f'{batch}; {r["registers"]} registers, {r["smem_bytes"]} B '
-              f'shared a block, {r["blocks_per_sm"]} blocks an SM, grid '
-              f'{r["grid"]}; {r["cycles_per_env"]:.0f} cycles an env '
-              f'({r["sampled_envs"]} envs sampled)')
+        shape = ', '.join(f'{k} {r[k]}' for k in ('K', 'SB3', 'ls',
+                                                  'iterations', 'sweeps')
+                          if k in r)
+        print(f'{mode}: {shape + "; " if shape else ""}{r["ms"]:.3f} ms at '
+              f'batch {batch}; {r["registers"]} registers, '
+              f'{r["smem_bytes"]} B shared a block, {r["blocks_per_sm"]} '
+              f'blocks an SM, grid {r["grid"]}; {r["cycles_per_env"]:.0f} '
+              f'cycles an env ({r["sampled_envs"]} envs sampled)')
         for p, v in r['phases'].items():
             print(f'  {p:22s} {v["cycles"]:12.0f} {100 * v["share"]:6.1f}%')
+        if 'listed_slots_histogram' in r:
+            h = r['listed_slots_histogram']
+            print('  envs by listed slots: ' + ', '.join(
+                f'{n}: {c}' for n, c in enumerate(h) if c))
 
 
 def main(argv=None) -> float:
@@ -129,12 +206,15 @@ def main(argv=None) -> float:
                    help='per-phase cycles of the Newton kernels (card)')
     p.add_argument('--stride', type=int, default=16,
                    help='--phases: record every stride-th env')
+    p.add_argument('--modes', nargs='+', choices=MODES, default=MODES,
+                   help='--phases: the kernels to read')
     args = p.parse_args(argv)
     if args.phases:
         if args.cpu or not torch.cuda.is_available():
             raise SystemExit('--phases reads the kernels\' clocks: it needs '
                              'a CUDA device')
-        tables = phase_tables(args.batch, args.seed, args.stride, args.iters)
+        tables = phase_tables(args.batch, args.seed, args.stride, args.iters,
+                              args.modes)
         print(f'device {torch.cuda.get_device_name(0)}')
         print_tables(tables, args.batch)
         os.makedirs('chiprun_out', exist_ok=True)

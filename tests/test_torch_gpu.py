@@ -252,6 +252,72 @@ def test_newton_kernels_hold_on_ragged_batches(env):
 
 
 @pytest.mark.gpu
+def test_force_stage_holds_on_ragged_batches(env):
+    """K2 (a block an env) at batches 1, 133 and 8,193 of
+    tools/profile_newton.py's walk state, on the walking model and on its
+    ellipsoid-fluid variant: at 8,193 envs against its plain version
+    (chip_smoke's per-index relative error 1e-4), at 1 and 133 envs
+    exactly the 8,193-env launch's first envs."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from flybody_tpu_torch.model import spec
+    from flybody_tpu_torch.ops import force_stage as fs
+    from flybody_tpu_torch.tools import profile_newton
+    model, _, passes = profile_newton.walk_passes(8193, chip_smoke.SEED)
+    fargs = profile_newton.force_args(passes['default'][0])
+    variant = spec.from_numpy(*fs.ellipsoid_variant(
+        *spec.read_npz(spec.WALK_IMITATION_NPZ)), device='cuda',
+        dtype=model.dtype)
+    for m in (model, variant):
+        full = fs.force_stage(m, *fargs)
+        _, rel = chip_smoke.compare('force_stage', full,
+                                    fs.force_stage_ref(m, *fargs), fs.NAMES)
+        assert rel <= 1e-4
+        for n in (1, 133):
+            for o, f in zip(fs.force_stage(m, *(a[:n] for a in fargs)),
+                            full):
+                assert torch.equal(o, f[:n]), n
+
+
+@pytest.mark.gpu
+def test_noslip_holds_at_1_16_and_64_slots_with_edge_envs(env):
+    """Row 11 on 133 envs of a default-preset forward pass at 1, 16 and 64
+    slots, the first envs made edge cases (tools/kernel_ab.edge_envs: a
+    NaN in the factor, a zero pivot, every slot listed, no slot listed, a
+    NaN in an unlisted J_t row, an infinite unlisted force): non-finite
+    entries where the plain version has them, the other envs against it
+    at chip_smoke.NOSLIP_REL_TOL per index, and the env with no listed
+    slot exactly x0 and ft0. The wrapper refuses a factor that is not
+    16-byte aligned (the kernel copies it in bulk)."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from flybody_tpu_torch.ops import noslip_gs as ng
+    from flybody_tpu_torch.physics import solver
+    from flybody_tpu_torch.tools import kernel_ab, profile_newton
+    _, part, passes = profile_newton.walk_passes(133, chip_smoke.SEED)
+    d, efc, f_c = passes['default']
+    for K in (1, 16, 64):
+        args = kernel_ab.edge_envs(
+            solver.noslip_operands(d.qLD, efc, d.qacc, f_c, K))
+        x, ft = ng.noslip_fused(part, *args, 3)
+        xr, ftr = ng.noslip_fused_ref(part, *args, 3)
+        for o, r in ((x, xr), (ft, ftr)):
+            assert torch.equal(torch.isfinite(o), torch.isfinite(r)), K
+        ok = torch.isfinite(xr).all(1) & torch.isfinite(ftr).flatten(1).all(1)
+        assert int((~ok).sum()) >= 4, K
+        _, rel = chip_smoke.compare(f'noslip_fused[{K} slots]',
+                                    (x[ok], ft[ok]), (xr[ok], ftr[ok]),
+                                    ('x', 'ft'))
+        assert rel <= chip_smoke.NOSLIP_REL_TOL, K
+        assert torch.equal(x[3], args[5][3]) and torch.equal(ft[3],
+                                                             args[6][3])
+    F = args[0]
+    bad = torch.zeros(F.numel() + 1, device='cuda')[1:].view(F.shape)
+    with pytest.raises(ValueError, match='aligned'):
+        ng.noslip_fused(part, bad, *args[1:], 3)
+
+
+@pytest.mark.gpu
 def test_collision_wrappers_refuse_what_their_kernels_do_not_take(env):
     """narrowphase, mpr_merged and contact_rows raise on a float64 or a
     non-contiguous CUDA operand instead of running their plain versions."""
