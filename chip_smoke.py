@@ -43,9 +43,12 @@ Phases (any failure exits non-zero):
      2,048 candidates (K 64), and row 9's block-full mode on the default
      forward pass through newton_checks beside three wrong controls that
      must fail (a bf16-rounded Hessian, one iteration more, one fewer).
-     Each Newton mode's, K2's and the fused noslip's registers a thread,
-     shared memory a block, blocks an SM and grid are printed
-     (kernel_resources), and the noslip operands' path work: envs by the
+     Each Newton mode's, K1's, K2's, the merged MPR's and the fused
+     noslip's registers a thread, shared memory a block, blocks an SM and
+     grid are printed (kernel_resources), with the share of the merged
+     MPR's warps whose lanes share one type-pair key at each preset's P
+     and its pre-pass order held against the plain one
+     (mpr_order_readings), and the noslip operands' path work: envs by the
      number of slots they list (use > 0), the slots row 11 sweeps;
   4. main path, at each preset (default, default_full, bench):
      walk_imitation(functional=True) reset + 5 control steps at batch
@@ -68,7 +71,8 @@ Phases (any failure exits non-zero):
   7. tools (tools_phase): one profile_collide pass (the seven groups'
      per-pair MPR launches, the FULL collide's rows 5 and 6) and one
      profile_micro chain at batch 8192, every launch counted exactly and
-     every output finite, then both tables;
+     every output finite, K1's resources and the merged MPR's readings on
+     the dense collide's candidates, then both tables;
   8. unpacked: tools/profile_engine.py's stage chain on the walking model
      with a dense mass matrix and the dense collide at batch 8192
      (unpacked_phase): one pass with exact launch counts (rows 18 and 19 once, K3 five times: four
@@ -341,6 +345,8 @@ def kernel_phase(env, batch, seed, report):
                   + meta.nv * 30 + meta.ntendon * meta.nq * 2)
     entry('pos_stage', err, ms, pms, nbytes([qpos]) + nbytes(out), fl)
     log(f'pos_stage: {ms:.3f} ms kernel, {pms:.3f} ms plain')
+    kernel_resources('pos_stage', pos_stage.kernel_info(model, batch), batch,
+                     report)
 
     # K2 on the plain K1 outputs.
     ref = tuple(t.contiguous() for t in ref)
@@ -602,19 +608,28 @@ ELLIPSOID_SUPPORT_FLOPS = 51  # any other type code
 
 
 def mpr_flops(prm, polish: int) -> float:
-    """Operations of the MPR kernel on these candidates: 3 + 10 + 24 +
-    polish + 1 Minkowski supports per pair (two geom supports and 21
-    more), the discovery (57 each), refinement (79 each) and polish (29
-    each) iterations' own algebra, and ~246 for the start and the
-    witness."""
-    t = prm[..., 8:10].round().long().flatten().tolist()
-    sup = sum(SUPPORT_FLOPS.get(c, ELLIPSOID_SUPPORT_FLOPS) for c in t)
-    return _mpr_ops(prm[..., 0].numel(), sup, polish)
+    """Operations of the merged MPR kernel on these candidates (_mpr_ops):
+    polish only on the smooth pairs (prm[..., 10]), since the kernel skips
+    it on the others."""
+    import torch
+    t = prm[..., 8:10].round().long()
+    cost = torch.tensor([SUPPORT_FLOPS.get(c, ELLIPSOID_SUPPORT_FLOPS)
+                         for c in range(int(t.max()) + 1)], device=t.device)
+    sup = cost[t].sum(-1).double()
+    smooth = prm[..., 10] > 0.5
+    ns = int(smooth.sum())
+    return (_mpr_ops(sup.numel() - ns, float(sup[~smooth].sum()), 0)
+            + _mpr_ops(ns, float(sup[smooth].sum()), polish))
 
 
 def _mpr_ops(n: int, sup: float, polish: int) -> float:
-    """mpr_flops of n pairs whose geom supports take `sup` in all."""
-    evals = 3 + 10 + 24 + polish + 1
+    """Operations of MPR on n pairs whose geom supports take `sup` in all,
+    with `polish` polish steps each (0: none): 3 + 10 + 24 Minkowski
+    supports per pair, and polish + 1 more where it polishes (two geom
+    supports and 21 more each), the discovery (57 each), refinement (79
+    each) and polish (29 each) iterations' own algebra, and ~246 for the
+    start and the witness."""
+    evals = 3 + 10 + 24 + (polish + 1 if polish else 0)
     return evals * (sup + 21 * n) + n * (246 + 10 * 57 + 24 * 79
                                          + polish * 29)
 
@@ -692,16 +707,13 @@ def collision_kernels(model, data_in, entry, report):
     log(f'narrowphase: {ms:.3f} ms kernel, {pms:.3f} ms plain '
         f'({out[0].shape[1]} slots)')
 
-    gcat = collision._geom_cat(d)
-    ft = collision._pair_family_tables(meta, True)
     for preset in PRESETS:
         cfg = engine.PRESETS[preset]
         # Row 6 on the preset's merged broadphase candidates.
         P = cfg['mpr_top_p']
-        idx, c1, c2 = collision._broadphase(model, d, gcat, ft, P)
-        collision._mpr_merged(model, d, gcat, P)  # builds the pair table
-        prm = model._cache['mpr_table'][idx][..., :11].contiguous()
+        c1, c2, prm, _ = collision.merged_candidates(model, d, P)
         margs = (c1, c2, prm, 8)
+        mpr_order_readings(f'P {P}', prm, batch, report)
         out = mk.mpr_merged(*margs)
         ref = mk.mpr_merged_ref(*margs)
         f64 = mk.mpr_merged_ref(c1.double(), c2.double(), prm.double(), 8)
@@ -723,16 +735,18 @@ def collision_kernels(model, data_in, entry, report):
             raise AssertionError(f'mpr_merged [{preset}] disagrees: {rd}')
         err = rd['kernel']['near_dist_err_q50_q99_max'][2]
         ms = cuda_ms(lambda: mk.mpr_merged(*margs), 20)
+        order_ms = cuda_ms(lambda: mk.mpr_order(prm), 20)  # within ms
         pms = cuda_ms(lambda: mk.mpr_merged_ref(*margs), 3)
         fl = mpr_flops(prm, 8)
         byts = nbytes([c1, c2, prm]) + nbytes(out)
-        report[f'mpr_{preset}'] = dict(pairs=P, ms=ms, plain_ms=pms,
-                                       bytes=byts, flops=fl,
+        report[f'mpr_{preset}'] = dict(pairs=P, ms=ms, pre_pass_ms=order_ms,
+                                       plain_ms=pms, bytes=byts, flops=fl,
                                        max_abs_err=err)
         if preset == 'default':
             entry('mpr_merged', err, ms, pms, byts, fl)
-        log(f'mpr_merged ({preset}, {P} pairs): {ms:.3f} ms kernel, '
-            f'{pms:.3f} ms plain, bound '
+        log(f'mpr_merged ({preset}, {P} pairs): {ms:.3f} ms kernel (its '
+            f'pre-pass mpr_order alone {order_ms:.4f}), {pms:.3f} ms plain, '
+            f'bound '
             f'{max(byts / HBM_BYTES_PER_S, fl / FP32_FLOPS) * 1e3:.4f} ms')
 
         # Row 7 on the preset's candidates (the kernels' collide).
@@ -740,6 +754,27 @@ def collision_kernels(model, data_in, entry, report):
         efc_check(model, d, solver.contact_candidates(model, con),
                   cfg['ncon_max'], preset, entry if preset == 'default'
                   else None, report)
+
+
+def mpr_order_readings(tag, prm, batch, report):
+    """Row 6's resources (kernel_resources), the share of warps whose 32
+    lanes share one type-pair key in the kernel's lane order and unsorted,
+    and whether the pre-pass's order is the plain `type_order`, which it
+    must be."""
+    import torch
+    from flybody_tpu_torch.ops import mpr_kernel as mk
+    kernel_resources(f'mpr_merged[{tag}]', mk.kernel_info(prm.shape[0]
+                                                          * prm.shape[1]),
+                     batch, report)
+    rd = {'ordered': mk.uniform_share(prm), 'unsorted': mk.uniform_share(
+        prm, 1)}
+    rd['pre_pass_order_is_plain'] = bool(torch.equal(
+        mk.mpr_order(prm).long(), mk.type_order(prm)))
+    log(f'  mpr_merged [{tag}]: type-uniform warps ' + json.dumps(rd))
+    report.setdefault('mpr_uniform_warps', {})[tag] = rd
+    if not rd['pre_pass_order_is_plain']:
+        raise AssertionError(f'mpr_merged [{tag}]: the pre-pass order is '
+                             f'not the plain type_order')
 
 
 def efc_check(model, d, cand, K, tag, entry, report):
@@ -2360,6 +2395,13 @@ def tools_phase(batch, seed, report):
     model, d = pc.setup(args)
     counted('profile_collide pass', COLLIDE_PER_PASS,
             lambda: pc.collide_pass(model, d), total)
+    from flybody_tpu_torch.ops import pos_stage
+    from flybody_tpu_torch.physics import collision, kinematics
+    kernel_resources('pos_stage[tools]', pos_stage.kernel_info(model, batch),
+                     batch, report)
+    mpr_order_readings('dense collide', collision.merged_candidates(
+        model, kinematics.fwd_position_smooth(model, d)[0],
+        collision.MPR_MERGED_TOP_P)[2], batch, report)
     margs = pm.parser().parse_args(flags)
     margs.task = 'walk_imitation'
     _, d0 = pe.setup(margs)

@@ -1,9 +1,14 @@
 // One-dimensional bulk asynchronous copies (Hopper's TMA without a tensor
-// map) from global into shared memory, completing on an mbarrier. The
-// Newton kernels (newton.cu) stage each env's contiguous slabs with them:
-// one thread announces the bytes of a stage on its barrier and issues one
-// copy a slab; every thread of the block then waits on the barrier's
-// phase. Addresses and sizes must be multiples of 16 bytes.
+// map) from global into shared memory, completing on an mbarrier, and from
+// shared into global memory, completing in bulk groups. The Newton kernels
+// (newton.cu) stage each env's contiguous slabs with them: one thread
+// announces the bytes of a stage on its barrier and issues one copy a slab;
+// every thread of the block then waits on the barrier's phase. The
+// position stage (pos_stage.cu) writes its outputs' slabs back with them:
+// every thread that wrote the slabs fences (fence_proxy_async), the block
+// synchronises, one thread issues the stores and commits them, and waits
+// for their reads of shared memory before the block ends. Addresses and
+// sizes must be multiples of 16 bytes.
 #pragma once
 
 #include <cstdint>
@@ -63,4 +68,25 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   }
+}
+
+// Copies `bytes` from shared src to global dst, in the current bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(smem_addr(src)), "r"(bytes)
+      : "memory");
+}
+
+// Closes the current bulk group of this thread's stores.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until every committed bulk store of this thread has read its
+// shared memory (the writes to global memory may still be in flight).
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }

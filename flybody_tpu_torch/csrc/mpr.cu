@@ -19,14 +19,27 @@
 // What bounds it: operations. Per candidate it reads 35 floats and writes
 // 7 (168 B) but evaluates the Minkowski support S(d) 3 + 10 + 24 +
 // polish + 1 times (two geom supports each) with a few cross products per
-// iteration. Design: one thread per (env, candidate); the portal (v0-v3),
-// the witness sums s1-s3, both geoms' poses and the flags live in
-// registers. One template holds both kernels: in the merged kernel the
-// support is dispatched per geom with a switch on its type code, so a
-// thread evaluates one support where the TPU evaluated all four and
-// selected one (the same value); the per-pair kernel is an instantiation
-// with both types fixed at compile time (the seven convex pairs of the
-// walking model), so its supports carry no branch on the type.
+// iteration. Design: one thread per candidate; the portal (v0-v3), the
+// witness sums s1-s3, both geoms' poses and the flags live in registers.
+// One template holds both kernels: in the merged kernel the support is
+// dispatched per geom with a switch on its type code, so a thread
+// evaluates one support where the TPU evaluated all four and selected one
+// (the same value); the per-pair kernel is an instantiation with both
+// types fixed at compile time (the seven convex pairs of the walking
+// model), so its supports carry no branch on the type.
+//
+// The merged kernel's lanes take its candidates in the order of their
+// type-pair key (pair_key: both geoms' support branches and the smooth
+// flag), stable, so that the lanes of a warp share one branch of each
+// switch and one polish decision: the broadphase hands each env's top-P
+// pairs in distance order, which mixes the walking model's seven type
+// pairs in every warp. The order comes from a pre-pass (mpr_order_kernel:
+// a stable counting sort of each window of kWindow candidates, written to
+// `order`): on the walk state ~98% of the warps are then type-uniform (a
+// sort of each block's own 128 candidates in shared memory left ~19%, and
+// ran 1.5x slower). Each lane writes its results at its candidate's own
+// index. Polish runs only on smooth pairs (elsewhere its result was never
+// taken), its 8 steps fixed.
 
 #include "geom.cuh"
 
@@ -39,6 +52,81 @@ constexpr float kEps = 1e-12f;
 // MuJoCo geom types (model/spec.py); kAny: the type code is read per pair.
 constexpr int kSphere = 2, kCapsule = 3, kEllipsoid = 4, kCylinder = 5;
 constexpr int kAny = -1;
+constexpr int kKeys = 32;  // pair_key's range
+constexpr int kOrderThreads = 1024, kOrderRounds = 8;
+constexpr int kWindow = kOrderThreads * kOrderRounds;  // a pre-pass block's
+
+// The support branch a type code takes (support<kAny>'s switch).
+__device__ __forceinline__ int branch(int type) {
+  return type == kSphere ? 0 : type == kCapsule ? 1 : type == kCylinder ? 2 : 3;
+}
+
+// A merged candidate's order key from its parameter row: both geoms'
+// support branches and the smooth flag (ops/mpr_kernel.pair_keys).
+__device__ __forceinline__ int pair_key(const float* pr) {
+  return (branch((int)lrintf(pr[8])) * 4 + branch((int)lrintf(pr[9]))) * 2 +
+         (pr[10] > 0.5f ? 1 : 0);
+}
+
+// Stable counting sort of a window's n <= R * NT items by key(i) in [0,
+// kKeys), by the NT threads of a block: out[rank] = base + i. Items are
+// ranked by (key, i): i = r * NT + thread, so by (key, round, warp, lane).
+// cnt: kKeys * R * NT / 32 ints, wsum: 32 ints of shared memory.
+template <int NT, int R, typename KeyFn>
+__device__ __forceinline__ void window_order(int n, KeyFn key, int* cnt,
+                                             int* wsum, int* out, int base) {
+  constexpr int NW = NT / 32;
+  static_assert(kKeys * NW == NT, "each thread scans R counts");
+  const int t = threadIdx.x, w = t >> 5, lane = t & 31;
+  for (int j = t; j < kKeys * R * NW; j += NT) cnt[j] = 0;
+  __syncthreads();
+  int k[R], rank[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = r * NT + t;
+    k[r] = i < n ? key(i) : kKeys;
+    const unsigned peers = __match_any_sync(0xffffffffu, k[r]);
+    rank[r] = __popc(peers & ((1u << lane) - 1u));
+    if (k[r] < kKeys && rank[r] == 0)
+      cnt[(k[r] * R + r) * NW + w] = __popc(peers);
+  }
+  __syncthreads();
+  // Exclusive scan of cnt in index order, R entries a thread.
+  int loc[R], sum = 0;
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    loc[q] = cnt[t * R + q];
+    sum += loc[q];
+  }
+  int incl = sum;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) wsum[w] = incl;
+  __syncthreads();
+  if (w == 0) {
+    const int v = lane < NW ? wsum[lane] : 0;
+    int inc = v;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, inc, o);
+      if (lane >= o) inc += u;
+    }
+    if (lane < NW) wsum[lane] = inc - v;
+  }
+  __syncthreads();
+  int at = wsum[w] + incl - sum;
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    cnt[t * R + q] = at;
+    at += loc[q];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (k[r] < kKeys)
+      out[cnt[(k[r] * R + r) * NW + w] + rank[r]] = base + r * NT + t;
+}
 
 __device__ __forceinline__ V3 unit(V3 v) { return v / fmaxf(norm(v), kEps); }
 
@@ -134,19 +222,21 @@ __device__ __forceinline__ Geom load_geom(const float* c, const float* prm,
 }
 
 // T1, T2: the pair's geom types, or kAny (the merged kernel: the types and
-// the smooth flag come from each pair's parameter row of 11 floats). With
-// fixed types the row has 8 floats and polish is accepted on every pair,
-// as the TPU's per-pair kernel (no smooth mask).
+// the smooth flag come from each pair's parameter row of 11 floats; lane g
+// takes candidate order[g]). With fixed types the row has 8 floats and
+// polish is accepted on every pair, as the TPU's per-pair kernel (no
+// smooth mask).
 template <int T1, int T2>
 __global__ void __launch_bounds__(kThreads)
     mpr_kernel(const float* __restrict__ c1, const float* __restrict__ c2,
                const float* __restrict__ prm, float* __restrict__ dist_o,
                float* __restrict__ nrm_o, float* __restrict__ pos_o,
-               int count, int polish) {
+               int count, int polish, const int* __restrict__ order) {
   constexpr bool kMerged = T1 == kAny;
   constexpr int kPrm = kMerged ? 11 : 8;
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= count) return;
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= count) return;
+  const int t = kMerged ? order[g] : g;  // this lane's candidate
   const float* pr = prm + (size_t)t * kPrm;
   const Geom g1 = load_geom<T1>(c1 + (size_t)t * 12, pr, 0);
   const Geom g2 = load_geom<T2>(c2 + (size_t)t * 12, pr, 4);
@@ -268,7 +358,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   V3 pos = 0.5f * (w1 * s1 + w2 * s2 + w3 * s3);
 
-  if (polish > 0) {
+  if (polish > 0 && smooth) {
     const float scale =
         fmaxf(fmaxf(fmaxf(g1.size.x, g1.size.y), g1.size.z),
               fmaxf(fmaxf(g2.size.x, g2.size.y), g2.size.z));
@@ -295,23 +385,68 @@ __global__ void __launch_bounds__(kThreads)
   st3(pos_o + 3 * (size_t)t, sep ? v3(0.f, 0.f, 0.f) : pos);
 }
 
+// The pre-pass: `order` (count ints) takes each window of kWindow
+// candidates in pair_key order.
+__global__ void __launch_bounds__(kOrderThreads)
+    mpr_order_kernel(const float* __restrict__ prm, int count,
+                     int* __restrict__ order) {
+  __shared__ int cnt[kKeys * kOrderRounds * (kOrderThreads / 32)], wsum[32];
+  const int w0 = blockIdx.x * kWindow, n = min(kWindow, count - w0);
+  window_order<kOrderThreads, kOrderRounds>(
+      n, [&](int i) { return pair_key(prm + (size_t)(w0 + i) * 11); }, cnt,
+      wsum, order + w0, w0);
+}
+
+int order_launch(const float* prm, int n, int* order, void* stream) {
+  mpr_order_kernel<<<(n + kWindow - 1) / kWindow, kOrderThreads, 0,
+                     (cudaStream_t)stream>>>(prm, n, order);
+  return launch_status();
+}
+
 template <int T1, int T2>
 int launch(const float* c1, const float* c2, const float* prm, float* dist,
-           float* normal, float* pos, int n, int polish, void* stream) {
+           float* normal, float* pos, int n, int polish, const int* order,
+           void* stream) {
   mpr_kernel<T1, T2><<<(n + kThreads - 1) / kThreads, kThreads, 0,
                        (cudaStream_t)stream>>>(c1, c2, prm, dist, normal, pos,
-                                               n, polish);
+                                               n, polish, order);
   return launch_status();
 }
 
 }  // namespace
 
+// Kernel 6: the pre-pass writes the lanes' order into `order` (n ints of
+// scratch), then the main kernel runs.
 FB_API int mpr_merged_f32(const float* c1, const float* c2, const float* prm,
                           float* dist, float* normal, float* pos, int n,
-                          int polish, void* stream) {
-  if (n < 1 || polish < 0) return -1;
-  return launch<kAny, kAny>(c1, c2, prm, dist, normal, pos, n, polish,
+                          int polish, int* order, void* stream) {
+  if (n < 1 || polish < 0 || !order) return -1;
+  const int rc = order_launch(prm, n, order, stream);
+  if (rc) return rc;
+  return launch<kAny, kAny>(c1, c2, prm, dist, normal, pos, n, polish, order,
                             stream);
+}
+
+// Kernel 6's pre-pass alone (for its check against the plain order).
+FB_API int mpr_order_f32(const float* prm, int n, int* order, void* stream) {
+  if (n < 1) return -1;
+  return order_launch(prm, n, order, stream);
+}
+
+// Resources of kernel 6's main kernel: out = registers a thread, shared
+// bytes a block, blocks an SM, grid blocks for n candidates.
+FB_API int mpr_merged_info(int n, int* out) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, mpr_kernel<kAny, kAny>);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, mpr_kernel<kAny, kAny>, kThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.sharedSizeBytes;
+  out[2] = blocks, out[3] = (n + kThreads - 1) / kThreads;
+  return 0;
 }
 
 // Kernel 20: the candidates of one type pair (type1 <= type2), prm rows of
@@ -322,9 +457,10 @@ FB_API int mpr_pair_f32(int type1, int type2, const float* c1,
                         void* stream) {
   if (n < 1 || polish < 0) return -1;
   switch (type1 * 8 + type2) {
-#define FB_MPR_PAIR(A, B) \
-  case A * 8 + B:         \
-    return launch<A, B>(c1, c2, prm, dist, normal, pos, n, polish, stream);
+#define FB_MPR_PAIR(A, B)                                                    \
+  case A * 8 + B:                                                            \
+    return launch<A, B>(c1, c2, prm, dist, normal, pos, n, polish, nullptr, \
+                        stream);
     FB_MPR_PAIR(kSphere, kEllipsoid)
     FB_MPR_PAIR(kSphere, kCylinder)
     FB_MPR_PAIR(kCapsule, kEllipsoid)

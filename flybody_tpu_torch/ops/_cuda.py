@@ -121,6 +121,19 @@ def check(t: torch.Tensor, shape, what: str, dtype=torch.float32):
         raise ValueError(f'{what}: expected a contiguous tensor')
 
 
+def bulk_mask(tensors) -> int:
+    """Bit i set when tensors[i] starts 16-byte aligned and holds a
+    multiple of 16 bytes an env (its leading dimension): the terms of a 1-D
+    bulk copy of one env's slab. Kernels move the others element by
+    element."""
+    m = 0
+    for i, t in enumerate(tensors):
+        per_env = (t.numel() // max(t.shape[0], 1)) * t.element_size()
+        if t.data_ptr() % 16 == 0 and per_env % 16 == 0:
+            m |= 1 << i
+    return m
+
+
 def record_phases(name: str, symbol: str, nphases: int, fn, batch: int,
                   stride: int, device) -> torch.Tensor:
     """Runs fn() (launches of library `name`'s kernel on `batch` envs)

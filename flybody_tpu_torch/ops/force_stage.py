@@ -239,20 +239,6 @@ def pack(model) -> Pack:
     return p
 
 
-def bulk_mask(slabs) -> int:
-    """Bit s set when slab s (the inputs the kernel stages per env, in its
-    order: qpos, qvel, act, ctrl, cdof, cinert, xipos, ximat, subtree_com,
-    ten_length) starts 16-byte aligned and holds a multiple of 16 bytes an
-    env (a 1-D bulk copy's terms); the kernel loads the others element by
-    element."""
-    m = 0
-    for s, t in enumerate(slabs):
-        per_env = (t.numel() // max(t.shape[0], 1)) * t.element_size()
-        if t.data_ptr() % 16 == 0 and per_env % 16 == 0:
-            m |= 1 << s
-    return m
-
-
 def force_stage(model, qpos, qvel, act, ctrl, cdof, cinert, xipos, ximat,
                 subtree_com, geom_xpos, geom_xmat, ten_length):
     if qpos.device.type == 'cpu':
@@ -288,7 +274,7 @@ def force_stage(model, qpos, qvel, act, ctrl, cdof, cinert, xipos, ximat,
         ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_void_p])
     rc = fn(iptr, optr, fp.data_ptr(), ip.data_ptr(), p.nf, p.ni, p.ntopo,
             dims, len(p.dims),
-            bulk_mask([t for t, _ in ins[:9]] + [ten_length]), B,
+            _cuda.bulk_mask([t for t, _ in ins[:9]] + [ten_length]), B,
             _cuda.stream())
     _cuda.raise_on(rc, 'force_stage_f32')
     launches += 1

@@ -8,7 +8,10 @@ the done / separated flags, then `polish_iters` polish steps).
     `_mpr_merged_pallas`): the broadphase-selected candidates of every
     mixed-type pair group at once, each pair with its own geom type codes;
     polish accepted on smooth (cylinder-free) pairs only. Plain version
-    `mpr_merged_ref`.
+    `mpr_merged_ref`. The kernel's lanes take the candidates in the stable
+    order of their type-pair key (`pair_keys`) within windows of WINDOW
+    candidates, from a pre-pass (`mpr_order` alone); `type_order` is that
+    order in plain torch. Polish runs on smooth pairs only.
   * `mpr_pair` (kernel 20; the TPU's `make_mpr_pe`, `_mpr_pallas`): the
     candidates of ONE type pair, its supports fixed at compile time; polish
     accepted on every pair (no smooth mask, as the TPU kernel). Plain
@@ -34,8 +37,12 @@ from flybody_tpu_torch.model import spec as _s
 from flybody_tpu_torch.ops import _cuda
 from flybody_tpu_torch.physics import mpr as _mpr
 
-launches = 0  # mpr_merged kernel launches
+launches = 0  # mpr_merged calls (each the pre-pass and the main kernel)
 pair_launches = 0  # mpr_pair kernel launches
+WINDOW = 8192  # candidates the pre-pass orders together (csrc/mpr.cu kWindow)
+# The support branch of each geom type code (csrc/mpr.cu `branch`); any
+# other code takes the ellipsoid's.
+_BRANCH = {_s.GEOM_SPHERE: 0, _s.GEOM_CAPSULE: 1, _s.GEOM_CYLINDER: 2}
 # The type pairs mpr_pair's kernel is instantiated for (csrc/mpr.cu).
 PAIRS = ((_s.GEOM_SPHERE, _s.GEOM_ELLIPSOID),
          (_s.GEOM_SPHERE, _s.GEOM_CYLINDER),
@@ -58,6 +65,64 @@ def mpr_merged_ref(c1, c2, prm, polish_iters: int,
         smooth_mask=prm[..., 10] > 0.5, refine_iters=refine_iters)
 
 
+def pair_keys(prm) -> torch.Tensor:
+    """Each merged candidate's order key, (B, P) int64 in [0, 32): both
+    geoms' support branches and the smooth flag (csrc/mpr.cu `pair_key`)."""
+    def branch(col):
+        code = torch.round(prm[..., col]).long()
+        out = torch.full_like(code, 3)
+        for t, b in _BRANCH.items():
+            out = torch.where(code == t, b, out)
+        return out
+    return (branch(8) * 4 + branch(9)) * 2 + (prm[..., 10] > 0.5).long()
+
+
+def type_order(prm, window: int = WINDOW) -> torch.Tensor:
+    """The kernel's lane order in plain torch: the flat candidate indices
+    (B * P,) int64, each window of `window` consecutive candidates in the
+    stable order of pair_keys."""
+    keys = pair_keys(prm).flatten()
+    n = keys.numel()
+    win = torch.arange(n, device=keys.device) // window
+    return torch.sort(win * 64 + keys, stable=True).indices
+
+
+def uniform_share(prm, window: int = WINDOW) -> float:
+    """The share of warps (32 lanes in lane order, the last one cut at the
+    candidates' end) whose candidates share one pair key."""
+    keys = pair_keys(prm).flatten()[type_order(prm, window)]
+    n = keys.numel()
+    pad = torch.cat([keys, keys[-1:].expand((-n) % 32)])
+    w = pad.reshape(-1, 32)
+    return float((w == w[:, :1]).all(1).double().mean())
+
+
+def mpr_order(prm) -> torch.Tensor:
+    """Kernel 6's pre-pass alone on a CUDA prm: the lane order (B * P,)
+    int32 (type_order on CPU tensors, int64)."""
+    if prm.device.type == 'cpu':
+        return type_order(prm)
+    B, P = prm.shape[:2]
+    _cuda.check(prm, (B, P, 11), 'prm')
+    order = torch.empty(B * P, dtype=torch.int32, device=prm.device)
+    V = ctypes.c_void_p
+    fn = _cuda.function('mpr', 'mpr_order_f32', [V, ctypes.c_int, V, V])
+    _cuda.raise_on(fn(prm.data_ptr(), B * P, order.data_ptr(),
+                      _cuda.stream()), 'mpr_order_f32')
+    return order
+
+
+def kernel_info(n: int) -> dict:
+    """Registers a thread, shared memory a block, blocks an SM (the
+    occupancy calculator) and grid blocks of kernel 6's main kernel for n
+    candidates."""
+    out = (ctypes.c_int * 4)()
+    fn = _cuda.function('mpr', 'mpr_merged_info', [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int * 4)])
+    _cuda.raise_on(fn(n, ctypes.byref(out)), 'mpr_merged_info')
+    return _cuda.info_dict(out)
+
+
 def mpr_merged(c1, c2, prm, polish_iters: int):
     """Kernel 6 on CUDA tensors, `mpr_merged_ref` on CPU tensors."""
     if c1.device.type == 'cpu':
@@ -70,11 +135,12 @@ def mpr_merged(c1, c2, prm, polish_iters: int):
     dist = torch.empty((B, P), dtype=torch.float32, device=c1.device)
     normal = torch.empty((B, P, 3), dtype=torch.float32, device=c1.device)
     pos = torch.empty_like(normal)
+    order = torch.empty(B * P, dtype=torch.int32, device=c1.device)
     V, I = ctypes.c_void_p, ctypes.c_int
-    fn = _cuda.function('mpr', 'mpr_merged_f32', [V] * 6 + [I] * 2 + [V])
+    fn = _cuda.function('mpr', 'mpr_merged_f32', [V] * 6 + [I] * 2 + [V] * 2)
     rc = fn(c1.data_ptr(), c2.data_ptr(), prm.data_ptr(), dist.data_ptr(),
             normal.data_ptr(), pos.data_ptr(), B * P, polish_iters,
-            _cuda.stream())
+            order.data_ptr(), _cuda.stream())
     _cuda.raise_on(rc, 'mpr_merged_f32')
     launches += 1
     return dist, normal, pos

@@ -327,9 +327,13 @@ def _cc_compact(model: FlyModel, data: Data, gcat, top_p: int
                         params=sel[..., 6:20])
 
 
-def _mpr_merged(model: FlyModel, data: Data, gcat, top_p: int
-                ) -> CompactBlock:
-    """All mixed-type MPR groups: one broadphase + one MPR sweep."""
+def merged_candidates(model: FlyModel, data: Data, top_p: int, gcat=None
+                      ) -> tuple:
+    """The merged MPR's operands on the `top_p` broadphase candidates of
+    `data`'s geometry (its position stage's geom_xpos, geom_xmat): (c1, c2,
+    prm, sel), prm = sel[..., :11] contiguous (ops/mpr_kernel.py), sel the
+    candidates' rows of the pair table (B, P, 26)."""
+    gcat = _geom_cat(data) if gcat is None else gcat
     ft = _pair_family_tables(model.meta, True)
     g1, g2 = ft['g1'], ft['g2']
 
@@ -344,7 +348,14 @@ def _mpr_merged(model: FlyModel, data: Data, gcat, top_p: int
 
     idx, c1, c2 = _broadphase(model, data, gcat, ft, top_p)
     sel = model.const('mpr_table', table)[idx]
-    dist, n, pos = _mprk.mpr_merged(c1, c2, sel[..., :11].contiguous(), 8)
+    return c1, c2, sel[..., :11].contiguous(), sel
+
+
+def _mpr_merged(model: FlyModel, data: Data, gcat, top_p: int
+                ) -> CompactBlock:
+    """All mixed-type MPR groups: one broadphase + one MPR sweep."""
+    c1, c2, prm, sel = merged_candidates(model, data, top_p, gcat)
+    dist, n, pos = _mprk.mpr_merged(c1, c2, prm, 8)
     return CompactBlock(idx=sel[..., 25], dist=dist, pos=pos, normal=n,
                         params=sel[..., 11:25])
 

@@ -1,23 +1,30 @@
-"""K2 and row 11 against an earlier tree's kernels on the card.
+"""K1, K2 and rows 6 and 11 against an earlier tree's kernels on the card.
 
     python -m flybody_tpu_torch.tools.kernel_ab --parent DIR [--batch 8192]
 
 DIR is the root of an unpacked earlier tree (for example `git archive` of
 the parent commit into a directory that .gitignore lists). Its
-csrc/force_stage.cu and csrc/noslip.cu are built into separate libraries
-and driven through its own wrappers (ops/force_stage.py, ops/noslip_gs.py,
+csrc/pos_stage.cu, csrc/mpr.cu, csrc/force_stage.cu and csrc/noslip.cu are
+built into separate libraries and driven through its own wrappers
+(ops/pos_stage.py, ops/mpr_kernel.py, ops/force_stage.py, ops/noslip_gs.py,
 loaded under other module names), beside this tree's kernels, on the same
-operands: the force stage (K2) on a default-preset forward pass's
-position-stage outputs of tools/profile_newton.py's walk state and on the
-ellipsoid-fluid variant of the model (ops/force_stage.ellipsoid_variant),
-the fused noslip (row 11) on both presets' noslip operands (64 and 16
-slots; and with the first envs made edge cases of the slot lists and the
-guard, `edge_envs`). Per case it prints whether every output is the
-earlier kernel's bit for bit (torch.equal, NaN in the same places) and
-both kernels' times (CUDA events over --reps calls, tools/profile_engine's
-timer), taken in turns: earlier, this, this, earlier. For an output that
-differs it prints how many entries do and the largest difference. It
-writes chiprun_out/kernel_ab.json and exits 1 if an output differs.
+operands: the position stage (K1) on the walk state of
+tools/profile_newton.py, on walk_imitation's state after a control step at
+each preset, on the two-fly scene two substeps from its flailing start
+(batch / 2 scenes) and on edge envs (`pos_edge_envs`); the merged MPR
+(row 6) on the broadphase candidates of the walk state at P 128 and P 32
+and of the two-fly state at P 128, and on edge candidates
+(`mpr_edge_candidates`); the force stage (K2) on a default-preset forward
+pass's position-stage outputs and on the ellipsoid-fluid variant of the
+model (ops/force_stage.ellipsoid_variant); the fused noslip (row 11) on both
+presets' noslip operands (64 and 16 slots; and with the first envs made
+edge cases of the slot lists and the guard, `edge_envs`). Per case it
+prints whether every output is the earlier kernel's bit for bit
+(torch.equal, NaN in the same places) and both kernels' times (CUDA events
+over --reps calls, tools/profile_engine's timer), taken in turns: earlier,
+this, this, earlier. For an output that differs it prints how many entries
+do and the largest difference. It writes chiprun_out/kernel_ab.json and
+exits 1 if an output differs.
 """
 
 from __future__ import annotations
@@ -36,17 +43,36 @@ import torch
 from flybody_tpu_torch.ops import _cuda
 
 
-def parent_lib(root: str, name: str) -> ctypes.CDLL:
-    """The earlier tree's csrc/<name>.cu built with this tree's nvcc
-    command into _build/ (once)."""
+def parent_libs(root: str, names) -> dict:
+    """{name: the earlier tree's csrc/<name>.cu built with this tree's nvcc
+    command into _build/ (once; one nvcc per source, all started
+    together)}. Prints each built kernel's registers (ptxas)."""
     csrc = os.path.join(root, 'flybody_tpu_torch', 'csrc')
-    out = os.path.join(_cuda.BUILD, f'libparent_{name}.so')
-    if not os.path.exists(out):
-        os.makedirs(_cuda.BUILD, exist_ok=True)
-        cmd = _cuda._command(name, out)
-        cmd[-1] = os.path.join(csrc, f'{name}.cu')
-        subprocess.run(cmd, check=True, capture_output=True, text=True)
-    return ctypes.CDLL(out)
+    os.makedirs(_cuda.BUILD, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = os.path.join(_cuda.BUILD, f'libparent_{name}.so')
+        if not os.path.exists(out):
+            cmd = _cuda._command(name, out)
+            cmd[-1] = os.path.join(csrc, f'{name}.cu')
+            procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True)
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc failed for the earlier {name}.cu:\n'
+                               f'{log}')
+        entry = None
+        for line in log.splitlines():
+            if 'Compiling entry function' in line:
+                entry = line.split("'")[1]
+            elif 'Used' in line and entry:
+                print(f'earlier {name}: {entry}: {line.split(": ", 1)[-1]}')
+                entry = None
+    return {name: ctypes.CDLL(os.path.join(_cuda.BUILD,
+                                           f'libparent_{name}.so'))
+            for name in names}
 
 
 def parent_module(root: str, name: str):
@@ -109,25 +135,149 @@ def edge_envs(nargs) -> tuple:
     return F, Jt, aref, lim, use, x0, ft0
 
 
+def pos_edge_envs(qpos) -> torch.Tensor:
+    """K1's qpos with the first envs made edge cases: a NaN in the free
+    joint's position, a zero free-joint quaternion, a hinge angle of 1e6,
+    a NaN hinge angle."""
+    q = qpos.clone()
+    q[0, 1] = float('nan')
+    q[1, 3:7] = 0.0
+    q[2, 7] = 1e6
+    q[3, 20] = float('nan')
+    return q
+
+
+def walk_states(batch: int, seed: int) -> dict:
+    """{preset: qpos} of walk_imitation after one control step from reset
+    at each preset (seeded uniform actions)."""
+    from flybody_tpu_torch.envs import fly_envs
+    out = {}
+    for preset in ('default', 'bench'):
+        env = fly_envs.walk_imitation(functional=True, preset=preset)
+        g = torch.Generator(device='cpu').manual_seed(seed)
+        lo = torch.as_tensor(env.action_min, dtype=torch.float32)
+        hi = torch.as_tensor(env.action_max, dtype=torch.float32)
+        state, _ = env.reset(batch, generator=g)
+        a = (lo + (hi - lo) * torch.rand(batch, len(lo), generator=g)).to(
+            state.data.qpos.device)
+        state, _ = env.step(state, a)
+        out[preset] = state.data.qpos.contiguous()
+    return out
+
+
+def two_fly_state(batch: int, seed: int, device='cuda'):
+    """(model, data) of the two-fly scene two default-preset substeps
+    from reset with qvel ~ N(0, 1), ctrl ~ U(-1, 1) (numpy, `seed`)."""
+    import numpy as np
+    from flybody_tpu_torch.model import spec
+    from flybody_tpu_torch.physics import engine
+    from flybody_tpu_torch.physics.state import make_data
+    model = spec.load(spec.TWO_FLY_NPZ, device=device)
+    rng = np.random.RandomState(seed)
+    meta = model.meta
+    d = make_data(model, batch).replace(
+        qvel=torch.as_tensor(rng.randn(batch, meta.nv), dtype=model.dtype,
+                             device=model.device),
+        ctrl=torch.as_tensor(rng.uniform(-1.0, 1.0, (batch, meta.nu)),
+                             dtype=model.dtype, device=model.device))
+    for _ in range(2):
+        d = engine.step(model, d, engine.PRESETS['default']).strip()
+    return model, d
+
+
+def mpr_edge_candidates(c1, c2, prm) -> tuple:
+    """Row 6's operands (B * P >= 512) with edge candidates: in env 0
+    coincident centres (the v0 fallback), a separated pair, a spherical
+    sphere-ellipsoid pair along the line of centres (degenerate n1), a NaN
+    pose; candidates 128-255 all of the most common pair key (one block of
+    128 type-uniform), candidates 256-383 cycling through every key present
+    (a block of all-different neighbours)."""
+    from flybody_tpu_torch.model import spec as _s
+    from flybody_tpu_torch.ops import mpr_kernel as mk
+    B, P = prm.shape[:2]
+    c1, c2, prm = (t.reshape(B * P, -1).clone() for t in (c1, c2, prm))
+    c2[0, :3] = c1[0, :3]
+    c2[1, :3] = c1[1, :3] + 10.0
+    eye = torch.eye(3, dtype=c1.dtype, device=c1.device).flatten()
+    c1[2, 3:], c2[2, 3:] = eye, eye
+    c2[2, :3] = c1[2, :3] + torch.tensor([0.0, 0.0, 0.008], device=c1.device)
+    prm[2, 0:3] = 0.004
+    prm[2, 4:7] = 0.006
+    prm[2, 8:11] = torch.tensor([float(_s.GEOM_SPHERE),
+                                 float(_s.GEOM_ELLIPSOID), 1.0],
+                                device=c1.device)
+    c1[3, 0] = float('nan')
+    keys = mk.pair_keys(prm)
+    present = torch.unique(keys)
+    top = int(torch.mode(keys).values)
+    src = torch.nonzero(keys == top).flatten()[:128]
+    dst = torch.arange(128, 128 + len(src), device=c1.device)
+    cyc = []
+    pools = {int(k): torch.nonzero(keys == k).flatten().tolist()
+             for k in present}
+    for j in range(128):
+        pool = pools[int(present[j % len(present)])]
+        cyc.append(pool[(j // len(present)) % len(pool)])
+    src = torch.cat([src, torch.as_tensor(cyc, device=c1.device)])
+    dst = torch.cat([dst, torch.arange(256, 384, device=c1.device)])
+    for t in (c1, c2, prm):
+        t[dst] = t[src].clone()
+    return tuple(t.reshape(B, P, -1).contiguous() for t in (c1, c2, prm))
+
+
+KERNELS = ('pos_stage', 'mpr', 'force_stage', 'noslip')
+
+
 def cases(batch: int, seed: int, root: str):
     """[(name, lib name, earlier fn, this fn)], each fn() one launch."""
     from flybody_tpu_torch.model import spec
     from flybody_tpu_torch.ops import force_stage as fs
+    from flybody_tpu_torch.ops import mpr_kernel as mk
     from flybody_tpu_torch.ops import noslip_gs as ng
+    from flybody_tpu_torch.ops import pos_stage as ps
+    from flybody_tpu_torch.physics import collision, kinematics
     from flybody_tpu_torch.tools import profile_newton as pn
     pfs, png = parent_module(root, 'force_stage'), parent_module(
         root, 'noslip_gs')
+    pps, pmk = parent_module(root, 'pos_stage'), parent_module(
+        root, 'mpr_kernel')
     model, part, passes = pn.walk_passes(batch, seed)
     dev, dt = model.device, model.dtype
 
-    def fresh(variant=False):  # separate models: the packs are cached
-        arrays, meta = spec.read_npz(spec.WALK_IMITATION_NPZ)
+    def fresh(variant=False, path=spec.WALK_IMITATION_NPZ):
+        # Separate models: the packs are cached.
+        arrays, meta = spec.read_npz(path)
         if variant:
             arrays, meta = fs.ellipsoid_variant(arrays, meta)
         return spec.from_numpy(arrays, meta, device=dev, dtype=dt)
 
-    fargs = pn.force_args(passes['default'][0])
+    def operands(m, d, P):  # row 6's, on d's geometry
+        d = kinematics.fwd_position_smooth(m, d)[0]
+        return collision.merged_candidates(m, d, P)[:3]
+
     out = []
+    tf_model, tf_data = two_fly_state(batch // 2, seed)
+    walk = passes['default'][0].qpos.contiguous()
+    qs = [('walk state', walk, spec.WALK_IMITATION_NPZ)]
+    qs += [(f'walk_imitation after a {p} step', q, spec.WALK_IMITATION_NPZ)
+           for p, q in walk_states(batch, seed).items()]
+    qs += [('two_fly', tf_data.qpos.contiguous(), spec.TWO_FLY_NPZ),
+           ('edge envs', pos_edge_envs(walk), spec.WALK_IMITATION_NPZ)]
+    for tag, q, path in qs:
+        old_m, new_m = fresh(path=path), fresh(path=path)
+        out.append((f'pos_stage[{tag}]', 'pos_stage',
+                    lambda m=old_m, q=q: pps.pos_stage(m, q),
+                    lambda m=new_m, q=q: ps.pos_stage(m, q)))
+    d = passes['default'][0]
+    margs = [('P 128', operands(model, d, 128)),
+             ('P 32', operands(model, d, 32)),
+             ('two_fly, P 128', operands(tf_model, tf_data, 128))]
+    margs.append(('P 32, edge candidates', mpr_edge_candidates(*margs[1][1])))
+    for tag, a in margs:
+        out.append((f'mpr_merged[{tag}]', 'mpr',
+                    lambda a=a: pmk.mpr_merged(*a, 8),
+                    lambda a=a: mk.mpr_merged(*a, 8)))
+    fargs = pn.force_args(passes['default'][0])
     for tag, variant in (('force_stage', False),
                          ('force_stage[ellipsoid fluid]', True)):
         old_m, new_m = fresh(variant), fresh(variant)
@@ -155,8 +305,11 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit('kernel_ab runs the kernels: it needs a CUDA device')
     from flybody_tpu_torch.tools.profile_engine import _time
-    _cuda.build_all()
-    libs = {n: parent_lib(args.parent, n) for n in ('force_stage', 'noslip')}
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(1) as pool:  # this tree's kernels beside
+        build = pool.submit(_cuda.build_all)  # the earlier ones
+        libs = parent_libs(args.parent, KERNELS)
+        build.result()
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                            '--format=csv,noheader'], capture_output=True,
                           text=True).stdout.strip()

@@ -17,11 +17,12 @@ main path's shapes, from a walk_imitation state perturbed as
 chip_smoke.py's kernel phase perturbs it: the Newton block kernel (row 8)
 and the block-full mode (row 9) on a default-preset forward pass, the
 whole solve (row 9) on a bench-preset one (ops/newton_fused.PHASES); the
+position stage (K1) on that state's qpos (ops/pos_stage.PHASES); the
 force stage (K2) on that default forward pass's position-stage outputs
 (ops/force_stage.PHASES); the fused noslip (row 11) on each forward
 pass's noslip operands, 64 slots (default) and 16 (bench)
 (ops/noslip_gs.PHASES), with the histogram of slots each env sweeps.
---modes picks some of block, block_full, whole, force_stage,
+--modes picks some of block, block_full, whole, pos_stage, force_stage,
 noslip_fused. Per mode it prints the registers, shared memory, blocks an
 SM and grid of the kernel, its time, and the cycles of each phase per
 env, averaged over every --stride-th env, with their shares; it writes
@@ -39,7 +40,8 @@ import torch
 from flybody_tpu_torch.tools import profile_engine as pe
 
 
-MODES = ('block', 'block_full', 'whole', 'force_stage', 'noslip_fused')
+MODES = ('block', 'block_full', 'whole', 'pos_stage', 'force_stage',
+         'noslip_fused')
 
 
 def walk_passes(batch: int, seed: int):
@@ -123,6 +125,7 @@ def kernel_runs(batch: int, seed: int, modes=MODES) -> dict:
     from flybody_tpu_torch.ops import force_stage as fs
     from flybody_tpu_torch.ops import newton_fused as nf
     from flybody_tpu_torch.ops import noslip_gs as ng
+    from flybody_tpu_torch.ops import pos_stage as ps
     model, part, passes = walk_passes(batch, seed)
     out = {}
     for mode, (kern, args, ls, it) in newton_operands(part, passes).items():
@@ -136,6 +139,10 @@ def kernel_runs(batch: int, seed: int, modes=MODES) -> dict:
                     K=K, SB3=SB3, ls=ls, iterations=it)
         out[mode] = (lambda kern=kern, args=args, ls=ls, it=it:
                      kern(*args, ls, it), nf, info, None)
+    if 'pos_stage' in modes:
+        qpos = passes['default'][0].qpos.contiguous()
+        out['pos_stage'] = (lambda: ps.pos_stage(model, qpos), ps,
+                            ps.kernel_info(model, batch), None)
     if 'force_stage' in modes:
         fargs = force_args(passes['default'][0])
         out['force_stage'] = (lambda: fs.force_stage(model, *fargs), fs,

@@ -426,3 +426,78 @@ def test_dense_wrappers_refuse_what_their_kernels_do_not_take(env):
     with pytest.raises(ValueError, match='contiguous'):
         noslip_gs.gs(*dict(g, Pt=torch.zeros(B, K, nv, 2, device=dev)
                            .transpose(2, 3)).values(), 3)
+
+
+@pytest.mark.gpu
+def test_pos_stage_and_mpr_hold_on_ragged_batches(env):
+    """K1 (a block an env) at batches 1, 7 and 8,193 of
+    tools/profile_newton.py's walk state and the merged MPR (row 6) at P 1,
+    33 and 128 of its broadphase candidates: at 8,193
+    envs against their plain versions (chip_smoke's per-index relative
+    error 1e-4; row 6 through chip_smoke.mpr_gate), at 1
+    and 7 envs exactly the 8,193-env launch's first envs; the pre-pass's
+    order is the plain `type_order`."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from flybody_tpu_torch.ops import mpr_kernel as mk
+    from flybody_tpu_torch.ops import pos_stage as ps
+    from flybody_tpu_torch.physics import collision, kinematics
+    from flybody_tpu_torch.tools import kernel_ab, profile_newton
+    model, _, passes = profile_newton.walk_passes(8193, chip_smoke.SEED)
+    d = passes['default'][0]
+    qpos = d.qpos.contiguous()
+    full = ps.pos_stage(model, qpos)
+    _, rel = chip_smoke.compare('pos_stage', full,
+                                ps.pos_stage_ref(model, qpos), ps.NAMES)
+    assert rel <= 1e-4
+    for n in (1, 7):
+        for o, f in zip(ps.pos_stage(model, qpos[:n].contiguous()), full):
+            assert torch.equal(o, f[:n]), n
+    for P in (1, 33, 128):
+        c1, c2, prm, _ = collision.merged_candidates(
+            model, kinematics.fwd_position_smooth(model, d)[0], P)
+        assert torch.equal(mk.mpr_order(prm).long(),
+                           mk.type_order(prm).to(prm.device))
+        ref = mk.mpr_merged_ref(c1, c2, prm, 8)
+        f64 = mk.mpr_merged_ref(c1.double(), c2.double(), prm.double(), 8)
+        out = mk.mpr_merged(c1, c2, prm, 8)
+        rd = {'kernel': chip_smoke.mpr_pair_stats(out, ref),
+              'near_misses_against_float64': {
+                  name: chip_smoke.mpr_pair_stats(o, f64)['near_misses']
+                  for name, o in (('kernel', out), ('plain', ref))}}
+        assert chip_smoke.mpr_gate(rd, 'kernel'), (P, rd)
+        for n in (1, 7):
+            part = mk.mpr_merged(c1[:n].contiguous(), c2[:n].contiguous(),
+                                 prm[:n].contiguous(), 8)
+            for o, f in zip(part, out):
+                assert kernel_ab.same(o, f[:n]), (P, n)
+
+
+@pytest.mark.gpu
+def test_mpr_uniform_and_mixed_blocks_match_one_candidate_at_a_time(env):
+    """Row 6 on a block of 128 candidates of one type-pair key and a block
+    of 128 cycling through every key (tools/kernel_ab.mpr_edge_candidates,
+    with its edge candidates before them): each candidate's results are
+    the bits of a launch on that candidate alone."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from flybody_tpu_torch.ops import mpr_kernel as mk
+    from flybody_tpu_torch.physics import collision, kinematics
+    from flybody_tpu_torch.tools import kernel_ab, profile_newton
+    model, _, passes = profile_newton.walk_passes(16, chip_smoke.SEED)
+    d = kinematics.fwd_position_smooth(model, passes['default'][0])[0]
+    ops = kernel_ab.mpr_edge_candidates(
+        *collision.merged_candidates(model, d, 32)[:3])
+    c1, c2, prm = (t.reshape(1, -1, t.shape[-1])[:, :384].contiguous()
+                   for t in ops)
+    keys = mk.pair_keys(prm)[0]
+    assert len(torch.unique(keys[128:256])) == 1
+    assert len(torch.unique(keys[256:384])) >= 5
+    alone = [mk.mpr_merged(c1[:, i:i + 1].contiguous(),
+                           c2[:, i:i + 1].contiguous(),
+                           prm[:, i:i + 1].contiguous(), 8)
+             for i in range(384)]
+    out = mk.mpr_merged(c1, c2, prm, 8)
+    for i in range(384):
+        for o, a in zip(out, alone[i]):
+            assert kernel_ab.same(o[:, i:i + 1], a), i
