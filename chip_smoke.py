@@ -43,7 +43,8 @@ Phases (any failure exits non-zero):
      2,048 candidates (K 64), and row 9's block-full mode on the default
      forward pass through newton_checks beside three wrong controls that
      must fail (a bf16-rounded Hessian, one iteration more, one fewer).
-     Each Newton mode's, K1's, K2's, the merged MPR's and the fused
+     Each Newton mode's, K1's, K2's, K3's (its packed
+     one-right-hand-side kernel), K4's, the merged MPR's and the fused
      noslip's registers a thread, shared memory a block, blocks an SM and
      grid are printed (kernel_resources), with the share of the merged
      MPR's warps whose lanes share one type-pair key at each preset's P
@@ -270,6 +271,89 @@ def nbytes(ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def sens_reads(model, sargs) -> list:
+    """The entries of each K4 operand (sens_stage's order, batch first)
+    that sensordata depends on, as boolean tensors of the operands'
+    shapes: qacc, cdof and cdof_dot at the dofs of the chains of the
+    bodies whose acceleration the sensors read (sens_stage.plan's `dofs`),
+    and qvel at those whose cdof_dot row is not zero (in this run's data:
+    the free joint's translations have a zero one);
+    the force rows (3-5) of cinert of the force sensors' subtrees
+    (`need`): a force sensor reads only the force part of the internal
+    forces, which takes no torque; cvel of those bodies and of the
+    gyros', velocimeters' and accelerometers' bodies; the site positions
+    of the velocimeters and accelerometers and the site frames of every
+    sensor but touch; subtree_com at the roots of the velocimeters' and
+    accelerometers' bodies; every contact's bodies; the normal, force and
+    active flag of each contact with a side on `need` (in this run's
+    data; its position only moves the torque), and the normal force and
+    active flag of each other contact on a touch sensor's body."""
+    import torch
+    from flybody_tpu_torch.model import spec
+    from flybody_tpu_torch.ops import sens_stage
+    from flybody_tpu_torch.physics import sensors
+    meta = model.meta
+    rows = sensors.sensor_rows(meta)
+    pl = sens_stage.plan(meta, rows)
+
+    def sites(*types):
+        return sorted({r['objid'] for r in rows if r['type'] in types})
+
+    def bodies(*types):
+        return {meta.site_bodyid[r['objid']] for r in rows
+                if r['type'] in types}
+    arm = (spec.SENS_VELOCIMETER, spec.SENS_ACCELEROMETER)
+    need = pl['need'].tolist()
+    masks = [torch.zeros(t.shape, dtype=torch.bool, device=t.device)
+             for t in sargs]
+    (qacc, qvel, cvel, cdof, cdd, cinert, spos, smat, scom, cpos, cn, cb12,
+     cact, fc) = masks
+    dofs = sorted(set(pl['dofs'].tolist()))
+    for m in (qacc, cdof, cdd):
+        m[:, dofs] = True
+    qvel[:, dofs] = (sargs[4][:, dofs] != 0).any(-1)
+    cinert[:, need, 3:] = True
+    cvel[:, sorted(set(need) | bodies(spec.SENS_GYRO, *arm))] = True
+    spos[:, sites(*arm)] = True
+    smat[:, sites(spec.SENS_GYRO, spec.SENS_FORCE, *arm)] = True
+    scom[:, sorted({meta.body_rootid[b] for b in bodies(*arm)})] = True
+    cb12[:] = True
+    b12 = torch.round(sargs[11]).long()
+
+    def on(ids):
+        ids = torch.as_tensor(sorted(ids), dtype=torch.long,
+                              device=b12.device)
+        return torch.isin(b12, ids).any(1)
+    wrench, touch = on(need), on(bodies(spec.SENS_TOUCH))
+    for m in (cn, fc):
+        m[wrench] = True
+    fc[..., 0] |= touch
+    cact[:] = wrench | touch
+    return masks
+
+
+def sens_work(model, sargs) -> tuple:
+    """(bytes, operations) K4 must spend on these operands: the entries
+    of sens_reads, each read once, and sensordata written once; the
+    accelerations over the `dofs` chains (4 an entry a component), the body
+    forces of `need` (~200 each), the wrenches of the contacts sens_reads
+    keeps (80 each, both sides) and the subtree sums (6 a term), 20 a
+    sensordata entry."""
+    from flybody_tpu_torch.ops import sens_stage
+    from flybody_tpu_torch.physics import sensors
+    meta = model.meta
+    pl = sens_stage.plan(meta, sensors.sensor_rows(meta))
+    masks = sens_reads(model, sargs)
+    B = sargs[0].shape[0]
+    byts = sum(int(m.sum()) * t.element_size()
+               for m, t in zip(masks, sargs))
+    byts += B * meta.nsensordata * sargs[0].element_size()
+    ops = (B * (24 * len(pl['dofs']) + 200 * len(pl['need'])
+                + 6 * len(pl['sub']) + 20 * meta.nsensordata)
+           + 80 * int(masks[9][..., 0].sum()))
+    return byts, ops
+
+
 def compare(name, outs, refs, names):
     """Max abs error of each output, and its error relative to the largest
     |ref| at the same index of axis 1 (each body, dof, limb block, tendon,
@@ -406,17 +490,15 @@ def kernel_phase(env, batch, seed, report):
           nbytes([Mp, rhs]) + nbytes([F, x]), fl, library_ms=lms)
     log(f'arrow_factor_solve: {ms:.3f} ms kernel, {pms:.3f} ms plain, '
         f'{lms:.3f} ms torch.linalg.solve (dense)')
+    kernel_resources('arrow_factor_solve', arrow.kernel_info(part, batch),
+                     batch, report)
 
     # K4 on what fwd hands the sensors for this state: its contact rows,
     # constraint forces and accelerations.
     d, efc, f_c = engine.fwd_acc(model, state.data.replace(
         qpos=qpos, qvel=qvel, act=act, ctrl=ctrl))
     K = efc.con_active.shape[1]
-    cb12 = torch.stack([efc.con_body1, efc.con_body2], 1).float()
-    sargs = tuple(t.contiguous() for t in (
-        d.qacc, d.qvel, d.cvel, d.cdof, d.cdof_dot, d.cinert, d.site_xpos,
-        d.site_xmat, d.subtree_com, efc.con_xpos, efc.con_normal, cb12,
-        efc.con_active, f_c))
+    sargs = sens_stage.operands(d, efc, f_c)
     out4 = sens_stage.sens_stage(model, *sargs)
     ref4 = sens_stage.sens_stage_ref(model, *sargs)
     err, rel = compare('sens_stage', (out4,), (ref4,), ('sensordata',))
@@ -424,10 +506,11 @@ def kernel_phase(env, batch, seed, report):
         raise AssertionError(f'sens_stage disagrees: rel {rel:.3e}')
     ms = cuda_ms(lambda: sens_stage.sens_stage(model, *sargs), 20)
     pms = cuda_ms(lambda: sens_stage.sens_stage_ref(model, *sargs), 5)
-    fl = batch * (meta.nbody * 200 + K * 40 * 2 + meta.nsensordata * 20)
-    entry('sens_stage', err, ms, pms, nbytes(sargs) + nbytes([out4]), fl)
+    entry('sens_stage', err, ms, pms, *sens_work(model, sargs))
     log(f'sens_stage: {ms:.3f} ms kernel, {pms:.3f} ms plain; active '
         f'contacts per env {efc.con_active.sum(1).mean().item():.2f}')
+    kernel_resources('sens_stage', sens_stage.kernel_info(model, K, batch),
+                     batch, report)
 
     data_in = state.data.replace(qpos=qpos, qvel=qvel, act=act, ctrl=ctrl)
     collision_kernels(model, data_in, entry, report)

@@ -285,6 +285,12 @@ def factor_solve_ref(part: Part, A, b):
 # ---------------------------------------------------------------------------
 # Kernels: K3 (factor + solve), row 18 (factor), row 19 (substitution).
 
+# Phases of K3's packed one-right-hand-side kernel (record_phases), in
+# order.
+PHASES = ('stage-in', 'limb factor', 'root factor, F out',
+          'forward substitution', 'root solve', 'back substitution',
+          'write-out')
+
 launches = 0  # K3
 factor_launches = 0  # row 18
 solve_launches = 0  # row 19
@@ -338,8 +344,10 @@ def factor_solve(part: Part, A, b):
     """Kernel K3: the packed factor F of A (dense (B, nv, nv) or packed
     (B, nl+1, dm+nr, dm)) and x = A^-1 b, b (B, nv) or (B, nv, m).
 
-    CUDA tensors (float32) launch the kernel; CPU tensors take
-    factor_solve_ref."""
+    CUDA tensors (float32) launch the kernel (a packed A with one
+    right-hand side: arrow_fs1_kernel, a 128-thread block an env, where
+    the partition fits its lanes and register tile; else arrow_kernel);
+    CPU tensors take factor_solve_ref."""
     if A.device.type == 'cpu' and b.device.type == 'cpu':
         return factor_solve_ref(part, A, b)
     global launches
@@ -347,13 +355,42 @@ def factor_solve(part: Part, A, b):
     m = _check_rhs(part, b, Bn)
     F = _packed_like(part, A)
     x = torch.empty_like(b)
-    fn = _cuda.function('arrow', 'arrow_factor_solve_f32', [
-        _P, _P, _P, _P, _I, _I, _I, ctypes.POINTER(CPart), _P])
-    rc = fn(A.data_ptr(), b.data_ptr(), F.data_ptr(), x.data_ptr(), Bn,
-            int(dense), m, ctypes.byref(c_part(part)), _cuda.stream())
-    _cuda.raise_on(rc, 'arrow_factor_solve_f32')
+    if not dense and m == 1:
+        fn = _cuda.function('arrow', 'arrow_factor_solve1_f32', [
+            _P, _P, _P, _P, _I, ctypes.c_uint, ctypes.POINTER(CPart), _P])
+        rc = fn(A.data_ptr(), b.data_ptr(), F.data_ptr(), x.data_ptr(), Bn,
+                _cuda.bulk_mask((A, b, F, x)), ctypes.byref(c_part(part)),
+                _cuda.stream())
+        _cuda.raise_on(rc, 'arrow_factor_solve1_f32')
+    else:
+        fn = _cuda.function('arrow', 'arrow_factor_solve_f32', [
+            _P, _P, _P, _P, _I, _I, _I, ctypes.POINTER(CPart), _P])
+        rc = fn(A.data_ptr(), b.data_ptr(), F.data_ptr(), x.data_ptr(), Bn,
+                int(dense), m, ctypes.byref(c_part(part)), _cuda.stream())
+        _cuda.raise_on(rc, 'arrow_factor_solve_f32')
     launches += 1
     return F, x
+
+
+def record_phases(fn, batch: int, stride: int, device):
+    """Runs fn() (K3 launches on a packed A with one right-hand side, on
+    `batch` envs) with arrow_fs1_kernel's phase clocks on: every stride-th
+    env's cycles in each phase of PHASES, an int64 tensor (ceil(batch /
+    stride), len(PHASES)) on the CPU."""
+    return _cuda.record_phases('arrow', 'arrow_phase_clock', len(PHASES),
+                               fn, batch, stride, device)
+
+
+def kernel_info(part: Part, batch: int) -> dict:
+    """Registers a thread, shared memory a block, blocks an SM and grid
+    blocks of arrow_fs1_kernel (K3, packed, one right-hand side) for this
+    partition at this batch."""
+    out = (ctypes.c_int * 4)()
+    fn = _cuda.function('arrow', 'arrow_fs1_info', [
+        ctypes.POINTER(CPart), _I, ctypes.POINTER(ctypes.c_int * 4)])
+    _cuda.raise_on(fn(ctypes.byref(c_part(part)), batch, ctypes.byref(out)),
+                   'arrow_fs1_info')
+    return _cuda.info_dict(out)
 
 
 def factor(part: Part, A):

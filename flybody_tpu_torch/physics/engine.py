@@ -167,14 +167,9 @@ def _sensors(model, data, efc, f_c):
     """sensordata: kernel K4, or the plain version when Cartesian applied
     forces are present (the kernel does not take them)."""
     if data.xfrc_applied is None:
-        cb12 = torch.stack([efc.con_body1, efc.con_body2], 1).to(
-            data.qacc.dtype)
         # The plain force chain of the dense path leaves some of these as
         # strided views; the kernel takes contiguous operands.
-        return _ss.sens_stage(model, *(t.contiguous() for t in (
-            data.qacc, data.qvel, data.cvel, data.cdof, data.cdof_dot,
-            data.cinert, data.site_xpos, data.site_xmat, data.subtree_com,
-            efc.con_xpos, efc.con_normal, cb12, efc.con_active, f_c)))
+        return _ss.sens_stage(model, *_ss.operands(data, efc, f_c))
     from flybody_tpu_torch.physics import sensors as _sens
     return _sens.sensordata(
         model, data.qacc, data.qvel, data.cvel, data.cdof, data.cdof_dot,

@@ -1,12 +1,13 @@
-"""K1, K2 and rows 6 and 11 against an earlier tree's kernels on the card.
+"""K1-K4 and rows 6 and 11 against an earlier tree's kernels on the card.
 
     python -m flybody_tpu_torch.tools.kernel_ab --parent DIR [--batch 8192]
 
 DIR is the root of an unpacked earlier tree (for example `git archive` of
 the parent commit into a directory that .gitignore lists). Its
-csrc/pos_stage.cu, csrc/mpr.cu, csrc/force_stage.cu and csrc/noslip.cu are
-built into separate libraries and driven through its own wrappers
-(ops/pos_stage.py, ops/mpr_kernel.py, ops/force_stage.py, ops/noslip_gs.py,
+csrc/pos_stage.cu, csrc/mpr.cu, csrc/force_stage.cu, csrc/noslip.cu,
+csrc/arrow.cu and csrc/sens_stage.cu are built into separate libraries and
+driven through its own wrappers (ops/pos_stage.py, ops/mpr_kernel.py,
+ops/force_stage.py, ops/noslip_gs.py, ops/arrow.py, ops/sens_stage.py,
 loaded under other module names), beside this tree's kernels, on the same
 operands: the position stage (K1) on the walk state of
 tools/profile_newton.py, on walk_imitation's state after a control step at
@@ -18,7 +19,13 @@ and of the two-fly state at P 128, and on edge candidates
 pass's position-stage outputs and on the ellipsoid-fluid variant of the
 model (ops/force_stage.ellipsoid_variant); the fused noslip (row 11) on both
 presets' noslip operands (64 and 16 slots; and with the first envs made
-edge cases of the slot lists and the guard, `edge_envs`). Per case it
+edge cases of the slot lists and the guard, `edge_envs`); the arrow
+factor+solve (K3, packed, one right-hand side) on the operands the last
+substep of each preset's control step gave it (the free acceleration and
+Euler's damped solve) and on edge envs (`arrow_edge_envs`), with rows 18
+and 19 and K3's four-right-hand-side form on the first of them; the
+sensor stage (K4) on the operands of that substep and of the two-fly
+scene's second substep, and on edge envs (`sens_edge_envs`). Per case it
 prints whether every output is the earlier kernel's bit for bit
 (torch.equal, NaN in the same places) and both kernels' times (CUDA events
 over --reps calls, tools/profile_engine's timer), taken in turns: earlier,
@@ -37,6 +44,7 @@ import json
 import os
 import subprocess
 import sys
+import types
 
 import torch
 
@@ -147,10 +155,34 @@ def pos_edge_envs(qpos) -> torch.Tensor:
     return q
 
 
+@contextlib.contextmanager
+def recorded(mod, name: str, last: int):
+    """Calls of mod.<name> in the block: `n`, how many, and `args`,
+    clones of the arguments of the last `last` of them in call order."""
+    orig = getattr(mod, name)
+    got = types.SimpleNamespace(n=0, args=[])
+
+    def wrapped(*a):
+        got.n += 1
+        got.args = (got.args + [tuple(x.clone() if torch.is_tensor(x)
+                                      else x for x in a)])[-last:]
+        return orig(*a)
+
+    setattr(mod, name, wrapped)
+    try:
+        yield got
+    finally:
+        setattr(mod, name, orig)
+
+
 def walk_states(batch: int, seed: int) -> dict:
-    """{preset: qpos} of walk_imitation after one control step from reset
-    at each preset (seeded uniform actions)."""
+    """{preset: (qpos, K3 operands, K4 operands)} of walk_imitation after
+    one control step from reset at each preset (seeded uniform actions):
+    the qpos it ends at, the (part, A, b) of the last substep's two K3
+    launches (the free acceleration, Euler's damped solve) and the
+    operands (after the model) of its K4 launch."""
     from flybody_tpu_torch.envs import fly_envs
+    from flybody_tpu_torch.ops import arrow, sens_stage
     out = {}
     for preset in ('default', 'bench'):
         env = fly_envs.walk_imitation(functional=True, preset=preset)
@@ -160,14 +192,50 @@ def walk_states(batch: int, seed: int) -> dict:
         state, _ = env.reset(batch, generator=g)
         a = (lo + (hi - lo) * torch.rand(batch, len(lo), generator=g)).to(
             state.data.qpos.device)
-        state, _ = env.step(state, a)
-        out[preset] = state.data.qpos.contiguous()
+        with recorded(arrow, 'factor_solve', 2) as k3, \
+                recorded(sens_stage, 'sens_stage', 1) as k4:
+            state, _ = env.step(state, a)
+        # Two K3 launches and one K4 launch a substep.
+        assert (k3.n, k4.n) == (2 * env.n_sub, env.n_sub), (k3.n, k4.n)
+        out[preset] = (state.data.qpos.contiguous(), tuple(k3.args),
+                       k4.args[0][1:])
     return out
 
 
+def arrow_edge_envs(A, b) -> tuple:
+    """K3's packed operands with the first envs made edge cases: a NaN
+    entry of a limb block; a negative pivot of a limb block and a zero
+    one of the root block (both floored at 1e-30)."""
+    A = A.clone()
+    nl = A.shape[1] - 1
+    A[0, 0, 2, 1] = float('nan')
+    A[1, 1, 0, 0] = -1.0
+    A[2, nl, 0, 0] = 0.0
+    return A, b
+
+
+def sens_edge_envs(args) -> tuple:
+    """K4's operands (after the model) with the first envs made edge
+    cases: an inactive contact with a NaN force; contacts on the world
+    body (either side); both sides of an active contact on one body."""
+    args = [t.clone() for t in args]
+    cb12, act, fc = args[11], args[12], args[13]
+    act[0, 1] = 0.0
+    fc[0, 1] = float('nan')
+    cb12[1, 0, 0:2] = 0.0
+    cb12[1, 1, 2] = 0.0
+    act[1, 0:3] = 1.0
+    cb12[2, 0, 3] = cb12[2, 1, 3]
+    act[2, 3] = 1.0
+    fc[2, 3] = torch.tensor([0.5, 0.1, -0.2], device=fc.device)
+    return tuple(args)
+
+
 def two_fly_state(batch: int, seed: int, device='cuda'):
-    """(model, data) of the two-fly scene two default-preset substeps
-    from reset with qvel ~ N(0, 1), ctrl ~ U(-1, 1) (numpy, `seed`)."""
+    """(model, data, K4 operands) of the two-fly scene two default-preset
+    substeps from reset with qvel ~ N(0, 1), ctrl ~ U(-1, 1) (numpy,
+    `seed`); the operands (after the model) of the second substep's K4
+    launch."""
     import numpy as np
     from flybody_tpu_torch.model import spec
     from flybody_tpu_torch.physics import engine
@@ -180,9 +248,12 @@ def two_fly_state(batch: int, seed: int, device='cuda'):
                              device=model.device),
         ctrl=torch.as_tensor(rng.uniform(-1.0, 1.0, (batch, meta.nu)),
                              dtype=model.dtype, device=model.device))
-    for _ in range(2):
-        d = engine.step(model, d, engine.PRESETS['default']).strip()
-    return model, d
+    from flybody_tpu_torch.ops import sens_stage
+    with recorded(sens_stage, 'sens_stage', 1) as k4:
+        for _ in range(2):
+            d = engine.step(model, d, engine.PRESETS['default']).strip()
+    assert k4.n == 2, k4.n  # one K4 launch a substep
+    return model, d, k4.args[0][1:]
 
 
 def mpr_edge_candidates(c1, c2, prm) -> tuple:
@@ -225,22 +296,26 @@ def mpr_edge_candidates(c1, c2, prm) -> tuple:
     return tuple(t.reshape(B, P, -1).contiguous() for t in (c1, c2, prm))
 
 
-KERNELS = ('pos_stage', 'mpr', 'force_stage', 'noslip')
+KERNELS = ('pos_stage', 'mpr', 'force_stage', 'noslip', 'arrow',
+           'sens_stage')
 
 
 def cases(batch: int, seed: int, root: str):
     """[(name, lib name, earlier fn, this fn)], each fn() one launch."""
     from flybody_tpu_torch.model import spec
+    from flybody_tpu_torch.ops import arrow as ar
     from flybody_tpu_torch.ops import force_stage as fs
     from flybody_tpu_torch.ops import mpr_kernel as mk
     from flybody_tpu_torch.ops import noslip_gs as ng
     from flybody_tpu_torch.ops import pos_stage as ps
+    from flybody_tpu_torch.ops import sens_stage as ss
     from flybody_tpu_torch.physics import collision, kinematics
     from flybody_tpu_torch.tools import profile_newton as pn
     pfs, png = parent_module(root, 'force_stage'), parent_module(
         root, 'noslip_gs')
     pps, pmk = parent_module(root, 'pos_stage'), parent_module(
         root, 'mpr_kernel')
+    par, pss = parent_module(root, 'arrow'), parent_module(root, 'sens_stage')
     model, part, passes = pn.walk_passes(batch, seed)
     dev, dt = model.device, model.dtype
 
@@ -256,11 +331,12 @@ def cases(batch: int, seed: int, root: str):
         return collision.merged_candidates(m, d, P)[:3]
 
     out = []
-    tf_model, tf_data = two_fly_state(batch // 2, seed)
+    tf_model, tf_data, tf_sens = two_fly_state(batch // 2, seed)
     walk = passes['default'][0].qpos.contiguous()
+    stepped = walk_states(batch, seed)
     qs = [('walk state', walk, spec.WALK_IMITATION_NPZ)]
     qs += [(f'walk_imitation after a {p} step', q, spec.WALK_IMITATION_NPZ)
-           for p, q in walk_states(batch, seed).items()]
+           for p, (q, _, _) in stepped.items()]
     qs += [('two_fly', tf_data.qpos.contiguous(), spec.TWO_FLY_NPZ),
            ('edge envs', pos_edge_envs(walk), spec.WALK_IMITATION_NPZ)]
     for tag, q, path in qs:
@@ -291,6 +367,36 @@ def cases(batch: int, seed: int, root: str):
             out.append((f'noslip_fused[{K} slots{tag}]', 'noslip',
                         lambda a=a: png.noslip_fused(part, *a, 3),
                         lambda a=a: ng.noslip_fused(part, *a, 3)))
+    k3 = []
+    for preset, (_, (a_free, euler), _) in stepped.items():
+        k3 += [(f'a_free after a {preset} step', a_free),
+               (f'euler after a {preset} step', euler)]
+    k3.append(('edge envs', (k3[0][1][0],) + arrow_edge_envs(*k3[0][1][1:])))
+    for tag, (part3, A, b) in k3:
+        out.append((f'arrow_factor_solve[{tag}]', 'arrow',
+                    lambda p=part3, A=A, b=b: par.factor_solve(p, A, b),
+                    lambda p=part3, A=A, b=b: ar.factor_solve(p, A, b)))
+    part3, A, b = k3[0][1]
+    F = ar.factor(part3, A)
+    b4 = torch.stack([b, 2.0 * b, -b, b + 1.0], -1).contiguous()
+    out += [('arrow_factor (row 18)', 'arrow',
+             lambda: (par.factor(part3, A),), lambda: (ar.factor(part3, A),)),
+            ('arrow_solve (row 19, m 4)', 'arrow',
+             lambda: (par.solve(part3, F, b4),),
+             lambda: (ar.solve(part3, F, b4),)),
+            ('arrow_factor_solve[m 4]', 'arrow',
+             lambda: par.factor_solve(part3, A, b4),
+             lambda: ar.factor_solve(part3, A, b4))]
+    sargs = [(f'after a {p} step', s, spec.WALK_IMITATION_NPZ)
+             for p, (_, _, s) in stepped.items()]
+    sargs += [('two_fly', tf_sens, spec.TWO_FLY_NPZ),
+              ('edge envs', sens_edge_envs(sargs[0][1]),
+               spec.WALK_IMITATION_NPZ)]
+    for tag, s, path in sargs:
+        old_m, new_m = fresh(path=path), fresh(path=path)
+        out.append((f'sens_stage[{tag}]', 'sens_stage',
+                    lambda m=old_m, s=s: (pss.sens_stage(m, *s),),
+                    lambda m=new_m, s=s: (ss.sens_stage(m, *s),)))
     return out
 
 

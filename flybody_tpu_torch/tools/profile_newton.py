@@ -21,9 +21,14 @@ position stage (K1) on that state's qpos (ops/pos_stage.PHASES); the
 force stage (K2) on that default forward pass's position-stage outputs
 (ops/force_stage.PHASES); the fused noslip (row 11) on each forward
 pass's noslip operands, 64 slots (default) and 16 (bench)
-(ops/noslip_gs.PHASES), with the histogram of slots each env sweeps.
---modes picks some of block, block_full, whole, pos_stage, force_stage,
-noslip_fused. Per mode it prints the registers, shared memory, blocks an
+(ops/noslip_gs.PHASES), with the histogram of slots each env sweeps;
+the arrow factor+solve (K3, its packed one-right-hand-side kernel) on
+that default forward pass's free-acceleration operand, qM and
+qfrc_smooth (ops/arrow.PHASES); the sensor stage (K4) on that forward
+pass's sensor operands (ops/sens_stage.PHASES). --modes picks some of
+block, block_full, whole, pos_stage, force_stage, noslip_fused,
+arrow_factor_solve, sens_stage. Per mode it prints the registers, shared
+memory, blocks an
 SM and grid of the kernel, its time, and the cycles of each phase per
 env, averaged over every --stride-th env, with their shares; it writes
 the tables to chiprun_out/profile_newton_phases.json.
@@ -41,7 +46,7 @@ from flybody_tpu_torch.tools import profile_engine as pe
 
 
 MODES = ('block', 'block_full', 'whole', 'pos_stage', 'force_stage',
-         'noslip_fused')
+         'noslip_fused', 'arrow_factor_solve', 'sens_stage')
 
 
 def walk_passes(batch: int, seed: int):
@@ -122,10 +127,12 @@ def kernel_runs(batch: int, seed: int, modes=MODES) -> dict:
     """{table: (fn, phases module, resources, histogram)} for the kernels
     of `modes` on the walk_imitation presets' forward passes; fn()
     launches the kernel once; histogram: envs by listed slots (row 11)."""
+    from flybody_tpu_torch.ops import arrow as ar
     from flybody_tpu_torch.ops import force_stage as fs
     from flybody_tpu_torch.ops import newton_fused as nf
     from flybody_tpu_torch.ops import noslip_gs as ng
     from flybody_tpu_torch.ops import pos_stage as ps
+    from flybody_tpu_torch.ops import sens_stage as ss
     model, part, passes = walk_passes(batch, seed)
     out = {}
     for mode, (kern, args, ls, it) in newton_operands(part, passes).items():
@@ -156,6 +163,17 @@ def kernel_runs(batch: int, seed: int, modes=MODES) -> dict:
             out[f'noslip_fused[{ns} slots]'] = (
                 lambda nargs=nargs: ng.noslip_fused(part, *nargs, 3), ng,
                 dict(ng.kernel_info(part, batch, ns), K=ns, sweeps=3), hist)
+    if 'arrow_factor_solve' in modes:
+        d = passes['default'][0]
+        A, b = d.qM.contiguous(), d.qfrc_smooth.contiguous()
+        out['arrow_factor_solve'] = (lambda: ar.factor_solve(part, A, b),
+                                     ar, ar.kernel_info(part, batch), None)
+    if 'sens_stage' in modes:
+        sargs = ss.operands(*passes['default'])
+        K = sargs[-1].shape[1]
+        out['sens_stage'] = (lambda: ss.sens_stage(model, *sargs), ss,
+                             dict(ss.kernel_info(model, K, batch), K=K),
+                             None)
     return out
 
 

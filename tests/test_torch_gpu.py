@@ -501,3 +501,50 @@ def test_mpr_uniform_and_mixed_blocks_match_one_candidate_at_a_time(env):
     for i in range(384):
         for o, a in zip(out, alone[i]):
             assert kernel_ab.same(o[:, i:i + 1], a), i
+
+
+@pytest.mark.gpu
+def test_arrow_and_sens_stage_hold_on_ragged_and_misaligned_operands(env):
+    """K3 (its packed one-right-hand-side kernel) on a default-preset
+    forward pass's free-acceleration operands and K4 on its sensor
+    operands (tools/profile_newton.py's walk state): at 8,193 envs against
+    their plain versions (chip_smoke's gates: K3's residual ||M x - b|| /
+    ||b|| and K4's per-index relative error, each 1e-4), at 1 and 133 envs
+    exactly the 8,193-env launch's first envs, and with
+    every operand moved off 16-byte alignment (element loads in place of
+    the bulk copies) exactly the aligned launch."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from flybody_tpu_torch.ops import arrow as ar
+    from flybody_tpu_torch.ops import sens_stage as ss
+    from flybody_tpu_torch.tools import profile_newton
+    model, part, passes = profile_newton.walk_passes(8193, chip_smoke.SEED)
+    d, efc, f_c = passes['default']
+
+    def misaligned(x):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        y = buf[1:].view(x.shape)
+        y.copy_(x)
+        assert y.data_ptr() % 16 and y.is_contiguous()
+        return y
+    runs = (('arrow_factor_solve', lambda *a: ar.factor_solve(part, *a),
+             lambda *a: ar.factor_solve_ref(part, *a),
+             (d.qM.contiguous(), d.qfrc_smooth.contiguous()), ('F', 'x')),
+            ('sens_stage', lambda *a: (ss.sens_stage(model, *a),),
+             lambda *a: (ss.sens_stage_ref(model, *a),),
+             ss.operands(d, efc, f_c), ('sensordata',)))
+    for name, kern, plain, args, names in runs:
+        full = kern(*args)
+        if name == 'arrow_factor_solve':
+            M, b = args
+            res = ((ar.matvec_packed(part, M, full[1]) - b).norm(dim=-1)
+                   / b.norm(dim=-1)).max().item()
+            assert res <= 1e-4, res
+        else:
+            _, rel = chip_smoke.compare(name, full, plain(*args), names)
+            assert rel <= 1e-4, name
+        for n in (1, 133):
+            for o, f in zip(kern(*(a[:n].contiguous() for a in args)), full):
+                assert torch.equal(o, f[:n]), (name, n)
+        for o, f in zip(kern(*(misaligned(a) for a in args)), full):
+            assert torch.equal(o, f), name

@@ -18,6 +18,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 import chip_smoke  # noqa: E402
 from flybody_tpu_torch.envs import fly_envs  # noqa: E402
+from flybody_tpu_torch.model import spec  # noqa: E402
 from flybody_tpu_torch.ops import sens_stage  # noqa: E402
 from flybody_tpu_torch.physics import engine, sensors  # noqa: E402
 
@@ -25,7 +26,8 @@ B = 4
 
 
 @pytest.fixture(scope='module')
-def sensordata():
+def sens_operands():
+    """The model and K4's operands of a real forward pass (float64)."""
     env = fly_envs.walk_imitation(device='cpu', dtype=torch.float64)
     model = env.model
     g = torch.Generator().manual_seed(0)
@@ -36,12 +38,13 @@ def sensordata():
     qvel = torch.randn(B, model.meta.nv, generator=g, dtype=torch.float64)
     d, efc, f_c = engine.fwd_acc(model, state.data.replace(qpos=qpos,
                                                            qvel=qvel))
-    cb12 = torch.stack([efc.con_body1, efc.con_body2], 1).double()
-    sd = sens_stage.sens_stage(
-        model, d.qacc, d.qvel, d.cvel, d.cdof, d.cdof_dot, d.cinert,
-        d.site_xpos, d.site_xmat, d.subtree_com, efc.con_xpos,
-        efc.con_normal, cb12, efc.con_active, f_c)
-    return model, sd
+    return model, sens_stage.operands(d, efc, f_c)
+
+
+@pytest.fixture(scope='module')
+def sensordata(sens_operands):
+    model, sargs = sens_operands
+    return model, sens_stage.sens_stage(model, *sargs)
 
 
 def test_compare_of_equal_outputs_is_zero(sensordata):
@@ -139,3 +142,73 @@ def test_gs_cases_well_conditioned_sweeps_every_slot():
     assert 0 < at_radius.double().mean() < 1
     for o, r in ((x, x64), (ft, ft64)):
         assert chip_smoke.env_err([o], [r]).max() < 1e-4
+
+
+
+def _contacts_on_sensors(model, sargs):
+    """K4's operands with every contact slot made active, side 0 on a
+    touch sensor's body or one of the first bodies of a force sensor's
+    subtree in turn, with seeded random forces."""
+    sargs = [t.clone() for t in sargs]
+    rows = sensors.sensor_rows(model.meta)
+    pl = sens_stage.plan(model.meta, rows)
+    touch = [model.meta.site_bodyid[r['objid']] for r in rows
+             if r['type'] == spec.SENS_TOUCH]
+    ids = torch.as_tensor(touch + pl['need'].tolist()[:3],
+                          dtype=sargs[11].dtype)
+    K = sargs[12].shape[1]
+    sargs[11][:, 0] = ids[torch.arange(K) % len(ids)]
+    sargs[12][:] = 1.0
+    sargs[13][:] = torch.randn(sargs[13].shape, dtype=sargs[13].dtype,
+                               generator=torch.Generator().manual_seed(2))
+    return sargs
+
+
+@pytest.mark.parametrize('with_contacts', [False, True])
+def test_sens_reads_hold_every_entry_sensordata_depends_on(sens_operands,
+                                                           with_contacts):
+    """K4's bound counts only the entries chip_smoke.sens_reads keeps:
+    every other entry of every operand, set to seeded random values (finite,
+    so that the plain version's masked sums stay exact), leaves the plain
+    sensordata bit for bit as it was. with_contacts: the contact slots are
+    first put on the sensors' bodies (_contacts_on_sensors), so that the
+    kept contact rows are exercised."""
+    model, sargs = sens_operands
+    if with_contacts:
+        sargs = _contacts_on_sensors(model, sargs)
+    want = sens_stage.sens_stage_ref(model, *sargs)
+    masks = chip_smoke.sens_reads(model, sargs)
+    g = torch.Generator().manual_seed(1)
+    noisy = [torch.where(m, t, 1e3 * torch.randn(t.shape, dtype=t.dtype,
+                                                 generator=g))
+             for m, t in zip(masks, sargs)]
+    noisy[11] = sargs[11]  # every contact's bodies are read
+    got = sens_stage.sens_stage_ref(model, *noisy)
+    assert torch.equal(got, want)
+    kept = sum(int(m.sum()) for m in masks[:11] + masks[12:])
+    assert 0 < kept < sum(m.numel() for m in masks[:11] + masks[12:])
+    byts, ops = chip_smoke.sens_work(model, sargs)
+    assert byts == 8 * (sum(int(m.sum()) for m in masks)
+                        + sargs[0].shape[0] * model.meta.nsensordata)
+    assert ops > 0
+
+
+def test_sens_reads_keep_only_entries_sensordata_depends_on(sens_operands):
+    """And each entry sens_reads keeps matters: in env 0 of the operands
+    of _contacts_on_sensors, each kept entry (the contacts' bodies aside)
+    raised by 1e3 alone, one copy of the env each, changes the plain
+    sensordata."""
+    model, sargs = sens_operands
+    sargs = [t[:1] for t in _contacts_on_sensors(model, sargs)]
+    want = sens_stage.sens_stage_ref(model, *sargs)
+    masks = chip_smoke.sens_reads(model, sargs)
+    for i, m in enumerate(masks):
+        idx = torch.nonzero(m.reshape(-1))[:, 0]
+        if i == 11 or len(idx) == 0:
+            continue
+        n = len(idx)
+        envs = [t.expand(n, *t.shape[1:]).clone() for t in sargs]
+        envs[i].view(n, -1)[torch.arange(n), idx] += 1e3
+        got = sens_stage.sens_stage_ref(model, *envs)
+        moved = (got != want).any(1)
+        assert bool(moved.all()), (i, idx[~moved].tolist())
