@@ -44,9 +44,11 @@ Phases (any failure exits non-zero):
      forward pass through newton_checks beside three wrong controls that
      must fail (a bf16-rounded Hessian, one iteration more, one fewer).
      Each Newton mode's, K1's, K2's, K3's (its packed
-     one-right-hand-side kernel), K4's, the merged MPR's and the fused
-     noslip's registers a thread, shared memory a block, blocks an SM and
-     grid are printed (kernel_resources), with the share of the merged
+     one-right-hand-side kernel), K4's, the narrowphase's (compact and
+     dense), the merged MPR's, the contact rows' (each preset's and the
+     dense widths) and the fused noslip's registers a thread, shared
+     memory a block, blocks an SM and grid are printed
+     (kernel_resources), with the share of the merged
      MPR's warps whose lanes share one type-pair key at each preset's P
      and its pre-pass order held against the plain one
      (mpr_order_readings), and the noslip operands' path work: envs by the
@@ -789,6 +791,8 @@ def collision_kernels(model, data_in, entry, report):
     entry('narrowphase', err, ms, pms, byts, fl)
     log(f'narrowphase: {ms:.3f} ms kernel, {pms:.3f} ms plain '
         f'({out[0].shape[1]} slots)')
+    kernel_resources('narrowphase', nk.kernel_info(segs, batch),
+                     batch, report)
 
     for preset in PRESETS:
         cfg = engine.PRESETS[preset]
@@ -860,19 +864,14 @@ def mpr_order_readings(tag, prm, batch, report):
                              f'not the plain type_order')
 
 
-def efc_check(model, d, cand, K, tag, entry, report):
-    """Row 7 against its plain version on the candidates `cand`: the slot
-    and body ids exactly, every other field within EFC_REL_TOL of its
-    largest value; timed. `entry`: the kernels' JSON entry to fill, or
-    None."""
+def efc_errors(out, ref, tag):
+    """Row 7's outputs (con_J, rows) against the plain version's: the slot
+    and body ids exactly (raises otherwise); the largest absolute error
+    and the worst error of a field relative to its largest value, which
+    must be within EFC_REL_TOL (raises otherwise)."""
     import torch
-    from flybody_tpu_torch.ops import efc_stage as ef
-    batch, meta = d.qpos.shape[0], model.meta
-    out = ef.contact_rows(model, d, *cand, K)
-    ref = ef.contact_rows_ref(model, d, *cand, K)
-    outs, refs = [out[0]] + out[1], [ref[0]] + ref[1]
     err, worst = 0.0, 0.0
-    for i, (o, r) in enumerate(zip(outs, refs)):
+    for i, (o, r) in enumerate(zip([out[0]] + out[1], [ref[0]] + ref[1])):
         if i - 1 in (14, 15, 18):  # body1, body2, slot id: exactly
             if not torch.equal(o, r):
                 raise AssertionError(f'efc_contacts [{tag}]: row {i - 1} '
@@ -881,19 +880,33 @@ def efc_check(model, d, cand, K, tag, entry, report):
         e = (o - r).abs().max().item()
         err = max(err, e)
         worst = max(worst, e / max(r.abs().max().item(), 1e-6))
-    log(f'  efc_contacts[{tag}]: max abs {err:.3e}, worst field rel '
-        f'{worst:.3e}; slot and body ids equal')
     if not worst <= EFC_REL_TOL:
         raise AssertionError(f'efc_contacts [{tag}] disagrees: {worst:.3e}')
+    return err, worst
+
+
+def efc_check(model, d, cand, K, tag, entry, report):
+    """Row 7 against its plain version on the candidates `cand`: the slot
+    and body ids exactly, every other field within EFC_REL_TOL of its
+    largest value; timed. `entry`: the kernels' JSON entry to fill, or
+    None."""
+    from flybody_tpu_torch.ops import efc_stage as ef
+    batch, meta = d.qpos.shape[0], model.meta
+    out = ef.contact_rows(model, d, *cand, K)
+    ref = ef.contact_rows_ref(model, d, *cand, K)
+    outs = [out[0]] + out[1]
+    err, worst = efc_errors(out, ref, tag)
+    log(f'  efc_contacts[{tag}]: max abs {err:.3e}, worst field rel '
+        f'{worst:.3e}; slot and body ids equal')
     ms = cuda_ms(lambda: ef.contact_rows(model, d, *cand, K), 20)
     pms = cuda_ms(lambda: ef.contact_rows_ref(model, d, *cand, K), 5)
     # Bytes the kernel reads: each candidate's score operands (dist,
     # includemargin), the whole row of the K selected ones (7 + 14 + 1
-    # floats), qvel, cdof, the subtree CoM, the body-mask and limb tables;
-    # it writes con_J and the 19 rows.
+    # floats), qvel, cdof, the subtree CoM, the body masks' bits and the
+    # limb table; it writes con_J and the 19 rows.
     C = cand[0].shape[1]
     byts = (batch * (2 * C + 22 * K) * 4 + nbytes([d.qvel, d.cdof])
-            + batch * 12 + nbytes([model.body_dof_mask])
+            + batch * 12 + nbytes([ef.mask_bits(model)])
             + 4 * meta.nbody + nbytes(outs))
     fl = batch * efc_flops(K, meta.nv, C)
     report[f'efc_{tag}'] = dict(candidates=C, slots=K, ms=ms, plain_ms=pms,
@@ -905,6 +918,8 @@ def efc_check(model, d, cand, K, tag, entry, report):
         f'{pms:.3f} ms plain, bound '
         f'{max(byts / HBM_BYTES_PER_S, fl / FP32_FLOPS) * 1e3:.4f} ms; '
         f'active contacts per env {out[1][1].sum(1).mean().item():.2f}')
+    kernel_resources(f'efc_contacts[{tag}]',
+                     ef.kernel_info(batch, C, K, meta), batch, report)
 
 
 def mpr_gate(rd, name) -> bool:
@@ -955,6 +970,8 @@ def dense_collision_kernels(model, data_in, entry, report):
         ms=ms, plain_ms=pms, bound_ms=bound, max_abs_err=err, rel_err=rel)
     log(f'narrowphase (dense, {out[0].shape[1]} slots): {ms:.3f} ms kernel, '
         f'{pms:.3f} ms plain, bound {bound:.4f} ms')
+    kernel_resources('narrowphase[dense]',
+                     nk.kernel_info(segs, batch), batch, report)
 
     # Row 20 on each MPR group's candidates.
     tb = collision.pair_tables(meta)

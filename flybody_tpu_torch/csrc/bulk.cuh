@@ -8,7 +8,10 @@
 // every thread that wrote the slabs fences (fence_proxy_async), the block
 // synchronises, one thread issues the stores and commits them, and waits
 // for their reads of shared memory before the block ends. Addresses and
-// sizes must be multiples of 16 bytes.
+// sizes must be multiples of 16 bytes; load_floats and store_floats move
+// a slab at any 4-byte alignment, its aligned middle in bulk (the contact
+// rows; the older kernels take _cuda.bulk_mask and fall back to element
+// copies instead).
 #pragma once
 
 #include <cstdint>
@@ -89,4 +92,62 @@ __device__ __forceinline__ void bulk_commit() {
 // shared memory (the writes to global memory may still be in flight).
 __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Floats a shared staging buffer leaves before a slab bound for (or from)
+// `g`, so that the two agree modulo 16 bytes: the slab then starts at
+// stage + stage_shift(g), stage 16-byte aligned with 3 floats of room.
+__device__ __forceinline__ int stage_shift(const float* g) {
+  return (int)((reinterpret_cast<uintptr_t>(g) >> 2) & 3);
+}
+
+// The 16-byte aligned middle of n floats at g: the floats before it
+// (head) and its length (body, a multiple of 4).
+struct Span {
+  int head, body;
+};
+
+__device__ __forceinline__ Span aligned_span(const float* g, int n) {
+  Span s;
+  s.head = (4 - stage_shift(g)) & 3;
+  if (s.head > n) s.head = n;
+  s.body = (n - s.head) & ~3;
+  return s;
+}
+
+// n floats at global src into a staged slab (dst = stage +
+// stage_shift(src)), at any 4-byte alignment: thread 0 issues the bulk
+// copy of the aligned middle on bar (whose expected bytes it announced:
+// 4 * aligned_span(src, n).body), threads t of nt load the at most 3 + 3
+// floats around it.
+__device__ __forceinline__ void load_floats(float* dst, const float* src,
+                                            int n, int t, int nt,
+                                            uint64_t* bar) {
+  const Span sp = aligned_span(src, n);
+  if (t == 0 && sp.body > 0)
+    bulk_load(dst + sp.head, src + sp.head, 4u * sp.body, bar);
+  for (int i = t; i < n - sp.body; i += nt) {
+    const int j = i < sp.head ? i : i + sp.body;
+    dst[j] = src[j];
+  }
+}
+
+// Thread t of nt stores n floats of a staged slab (src = stage +
+// stage_shift(dst)) to global dst, at any 4-byte alignment: the 16-byte
+// aligned middle by one bulk store, issued and committed by thread 0, and
+// the at most 3 + 3 floats around it by plain stores. Every thread that
+// wrote src has fenced (fence_proxy_async) and the nt threads have
+// synchronised; thread 0 waits (bulk_wait_read) before src is reused or
+// the block ends.
+__device__ __forceinline__ void store_floats(float* dst, const float* src,
+                                             int n, int t, int nt) {
+  const Span sp = aligned_span(dst, n);
+  if (t == 0 && sp.body > 0) {
+    bulk_store(dst + sp.head, src + sp.head, 4u * sp.body);
+    bulk_commit();
+  }
+  for (int i = t; i < n - sp.body; i += nt) {
+    const int j = i < sp.head ? i : i + sp.body;
+    dst[j] = src[j];
+  }
 }

@@ -221,3 +221,19 @@ FB_API int narrowphase_f32(const float* xpos, const float* xmat,
       normal, B, ngeom, P, S);
   return launch_status();
 }
+
+// Resources of the kernel for P pairs: out = registers a thread, shared
+// bytes a block (none), blocks an SM, grid blocks for B envs.
+FB_API int narrowphase_info(int B, int P, int* out) {
+  if (B < 1 || P < 1) return -1;
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, narrowphase_kernel);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, narrowphase_kernel, kThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = fa.numRegs, out[1] = 0, out[2] = blocks;
+  out[3] = (int)(((long long)B * P + kThreads - 1) / kThreads);
+  return 0;
+}

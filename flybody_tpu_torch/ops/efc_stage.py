@@ -14,8 +14,10 @@ efc_slot_table rows, cand_g (B, C) global slot ids as floats, and the
 forward pass's qvel, cdof and subtree_com. Returns con_J (B, k, 3, nv) and
 19 (B, k) rows: dist, active, frictional, mu, D, aref (3), pos (3),
 normal (3), body1, body2, self, break, slot id. `contact_rows` launches
-csrc/efc_stage.cu on CUDA tensors (float32, contiguous; anything else
-raises) and runs the plain version `contact_rows_ref` on CPU tensors.
+csrc/efc_stage.cu on CUDA tensors (float32, contiguous, a body_dof_mask of
+zeros and ones; anything else raises) and runs the plain version
+`contact_rows_ref` on CPU tensors. PHASES, `record_phases` and
+`kernel_info` read the kernel's phase clocks and resources.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ from flybody_tpu_torch.physics.math import cross
 
 launches = 0
 NROWS = 19
+PHASES = ('stage-in and keys', 'selection', 'features and frames',
+          'con_J and velocities', 'row scalars')
 
 
 def impedance(solimp, r):
@@ -150,6 +154,25 @@ def limb_of_body(model):
                        lambda: np.array(part.limb_of_body, np.float64))
 
 
+def mask_bits(model):
+    """body_dof_mask as the kernel takes it: (nbody, ceil(nv / 64)) int64
+    words, bit v % 64 of word v // 64 set where dof v moves the body. The
+    mask holds only 0 and 1 (a dof is in a body's chain or not); the
+    kernel refuses any other mask."""
+    def build():
+        m = np.asarray(model.np_arrays['body_dof_mask'])
+        if not np.isin(m, (0.0, 1.0)).all():
+            raise ValueError('contact_rows: the kernel takes a body_dof_mask '
+                             'of zeros and ones')
+        nb, nv = m.shape
+        bits = np.zeros((nb, (nv + 63) // 64), np.uint64)
+        for v in range(nv):
+            bits[:, v // 64] |= (m[:, v] == 1.0).astype(np.uint64) << \
+                np.uint64(v % 64)
+        return bits.view(np.int64)
+    return model.const('body_dof_mask_bits', build)
+
+
 def contact_rows(model, data, cand_b, cand_u, cand_g, k):
     """Kernel 7 on CUDA tensors, `contact_rows_ref` on CPU tensors."""
     if cand_b.device.type == 'cpu':
@@ -159,16 +182,17 @@ def contact_rows(model, data, cand_b, cand_u, cand_g, k):
     B, C = cand_b.shape[:2]
     nv, nb = meta.nv, meta.nbody
     com = data.subtree_com[:, tree_root(meta)].contiguous()
-    mask, limb = model.body_dof_mask, limb_of_body(model)
+    mask, limb = mask_bits(model), limb_of_body(model)
     for t, shape, name in ((cand_b, (B, C, 7), 'cand_b'),
                            (cand_u, (B, C, 14), 'cand_u'),
                            (cand_g, (B, C), 'cand_g'),
                            (data.qvel, (B, nv), 'qvel'),
                            (data.cdof, (B, nv, 6), 'cdof'),
                            (com, (B, 3), 'subtree_com[root]'),
-                           (mask, (nb, nv), 'body_dof_mask'),
                            (limb, (nb,), 'limb_of_body')):
         _cuda.check(t, shape, name)
+    _cuda.check(mask, (nb, (nv + 63) // 64), 'body_dof_mask bits',
+                torch.int64)
     if not 0 < k <= C:
         raise ValueError(f'contact_rows: k = {k} of {C} candidates')
     con_J = torch.empty((B, k, 3, nv), dtype=torch.float32,
@@ -185,3 +209,24 @@ def contact_rows(model, data, cand_b, cand_u, cand_g, k):
     _cuda.raise_on(rc, 'efc_contacts_f32')
     launches += 1
     return con_J, list(scal.unbind(0))
+
+
+def record_phases(fn, batch: int, stride: int, device):
+    """Runs fn() (contact_rows launches on `batch` envs) with the kernel's
+    phase clocks on: every stride-th env's cycles in each phase of PHASES,
+    an int64 tensor (ceil(batch / stride), len(PHASES)) on the CPU."""
+    return _cuda.record_phases('efc_stage', 'efc_contacts_phase_clock',
+                               len(PHASES), fn, batch, stride, device)
+
+
+def kernel_info(batch: int, C: int, k: int, meta) -> dict:
+    """Registers a thread, shared memory a block, blocks an SM (the
+    occupancy calculator) and grid blocks of the kernel for C candidates,
+    k slots and the model's dofs and bodies at this batch."""
+    out = (ctypes.c_int * 4)()
+    I = ctypes.c_int
+    fn = _cuda.function('efc_stage', 'efc_contacts_info',
+                        [I] * 5 + [ctypes.POINTER(ctypes.c_int * 4)])
+    _cuda.raise_on(fn(batch, C, k, meta.nv, meta.nbody, ctypes.byref(out)),
+                   'efc_contacts_info')
+    return _cuda.info_dict(out)

@@ -229,10 +229,9 @@ def narrowphase_ref(segs, geom_xpos, geom_xmat, size_table):
     return torch.cat(dists, 1), torch.cat(poss, 1), torch.cat(normals, 1)
 
 
-@functools.lru_cache(maxsize=8)
-def _pair_table(segs, device: str) -> torch.Tensor:
+def pair_table(segs) -> np.ndarray:
     """(P, 4) int32 [type code, geom1, geom2, first slot] per pair, pairs
-    in slot order."""
+    in slot order: the kernel's pair table."""
     rows, slot = [], 0
     for key, g1, g2, k in segs:
         if key not in KERNEL_KEYS:
@@ -241,7 +240,12 @@ def _pair_table(segs, device: str) -> torch.Tensor:
         for a, b in zip(g1, g2):
             rows.append((code, a, b, slot))
             slot += k
-    return torch.as_tensor(np.array(rows, np.int32), device=device)
+    return np.array(rows, np.int32)
+
+
+@functools.lru_cache(maxsize=8)
+def _pair_table(segs, device: str) -> torch.Tensor:
+    return torch.as_tensor(pair_table(segs), device=device)
 
 
 def narrowphase(segs, geom_xpos, geom_xmat, size_table):
@@ -268,3 +272,16 @@ def narrowphase(segs, geom_xpos, geom_xmat, size_table):
     _cuda.raise_on(rc, 'narrowphase_f32')
     launches += 1
     return dist, pos, normal
+
+
+def kernel_info(segs, batch: int) -> dict:
+    """Registers a thread, shared memory a block, blocks an SM (the
+    occupancy calculator) and grid blocks of the kernel for this segment
+    table at this batch."""
+    out = (ctypes.c_int * 4)()
+    I = ctypes.c_int
+    fn = _cuda.function('narrowphase', 'narrowphase_info',
+                        [I] * 2 + [ctypes.POINTER(ctypes.c_int * 4)])
+    P = sum(len(g1) for _, g1, _, _ in segs)
+    _cuda.raise_on(fn(batch, P, ctypes.byref(out)), 'narrowphase_info')
+    return _cuda.info_dict(out)

@@ -1,23 +1,31 @@
-"""K1-K4 and rows 6 and 11 against an earlier tree's kernels on the card.
+"""K1-K4 and rows 5, 6, 7 and 11 against an earlier tree's kernels on the card.
 
     python -m flybody_tpu_torch.tools.kernel_ab --parent DIR [--batch 8192]
 
 DIR is the root of an unpacked earlier tree (for example `git archive` of
 the parent commit into a directory that .gitignore lists). Its
-csrc/pos_stage.cu, csrc/mpr.cu, csrc/force_stage.cu, csrc/noslip.cu,
-csrc/arrow.cu and csrc/sens_stage.cu are built into separate libraries and
-driven through its own wrappers (ops/pos_stage.py, ops/mpr_kernel.py,
-ops/force_stage.py, ops/noslip_gs.py, ops/arrow.py, ops/sens_stage.py,
-loaded under other module names), beside this tree's kernels, on the same
-operands: the position stage (K1) on the walk state of
-tools/profile_newton.py, on walk_imitation's state after a control step at
-each preset, on the two-fly scene two substeps from its flailing start
-(batch / 2 scenes) and on edge envs (`pos_edge_envs`); the merged MPR
-(row 6) on the broadphase candidates of the walk state at P 128 and P 32
-and of the two-fly state at P 128, and on edge candidates
-(`mpr_edge_candidates`); the force stage (K2) on a default-preset forward
-pass's position-stage outputs and on the ellipsoid-fluid variant of the
-model (ops/force_stage.ellipsoid_variant); the fused noslip (row 11) on both
+csrc/pos_stage.cu, csrc/narrowphase.cu, csrc/mpr.cu, csrc/efc_stage.cu,
+csrc/force_stage.cu, csrc/noslip.cu, csrc/arrow.cu and csrc/sens_stage.cu
+(`KERNELS`) are built into separate libraries and
+driven through its own wrappers (ops/pos_stage.py, ops/narrowphase.py,
+ops/mpr_kernel.py, ops/efc_stage.py, ops/force_stage.py, ops/noslip_gs.py,
+ops/arrow.py, ops/sens_stage.py, loaded under other module names), beside
+this tree's kernels, on the same operands: the position stage (K1) on the
+walk state of tools/profile_newton.py, on walk_imitation's state after a
+control step at each preset, on the two-fly scene two substeps from its
+flailing start (batch / 2 scenes) and on edge envs (`pos_edge_envs`); the
+analytic narrowphase (row 5) on the geometry the last substep of each
+preset's control step handed it (the compact segments), on the dense
+segments of the walk state, on the two-fly scene's second substep and on
+edge envs (`narrow_edge_envs`); the merged MPR (row 6) on the broadphase
+candidates of the walk state at P 128 and P 32 and of the two-fly state at
+P 128, and on edge candidates (`mpr_edge_candidates`); the contact rows
+(row 7) on the candidates of that last substep at each preset (C 430, K 64;
+C 222, K 24), on the dense make_efc's (C 2,048, K 64) and on edge scores
+(`efc_edge_scores`: ties, -0 / +0, +-inf, NaN and 1e10 at K 1, 24, 64 and
+C); the force stage (K2) on a default-preset forward pass's
+position-stage outputs and on the ellipsoid-fluid variant of the model
+(ops/force_stage.ellipsoid_variant); the fused noslip (row 11) on both
 presets' noslip operands (64 and 16 slots; and with the first envs made
 edge cases of the slot lists and the guard, `edge_envs`); the arrow
 factor+solve (K3, packed, one right-hand side) on the operands the last
@@ -39,6 +47,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import dataclasses
 import importlib.util
 import json
 import os
@@ -162,10 +171,19 @@ def recorded(mod, name: str, last: int):
     orig = getattr(mod, name)
     got = types.SimpleNamespace(n=0, args=[])
 
+    def copy(x):
+        if torch.is_tensor(x):
+            return x.clone()
+        if type(x).__name__ == 'Data':  # physics/state.Data
+            return dataclasses.replace(x, **{
+                f.name: getattr(x, f.name).clone()
+                for f in dataclasses.fields(x)
+                if torch.is_tensor(getattr(x, f.name))})
+        return x
+
     def wrapped(*a):
         got.n += 1
-        got.args = (got.args + [tuple(x.clone() if torch.is_tensor(x)
-                                      else x for x in a)])[-last:]
+        got.args = (got.args + [tuple(copy(x) for x in a)])[-last:]
         return orig(*a)
 
     setattr(mod, name, wrapped)
@@ -176,13 +194,15 @@ def recorded(mod, name: str, last: int):
 
 
 def walk_states(batch: int, seed: int) -> dict:
-    """{preset: (qpos, K3 operands, K4 operands)} of walk_imitation after
-    one control step from reset at each preset (seeded uniform actions):
-    the qpos it ends at, the (part, A, b) of the last substep's two K3
-    launches (the free acceleration, Euler's damped solve) and the
-    operands (after the model) of its K4 launch."""
+    """{preset: (qpos, K3 operands, K4 operands, row 5 operands, row 7
+    operands)} of walk_imitation after one control step from reset at each
+    preset (seeded uniform actions): the qpos it ends at, the (part, A, b)
+    of the last substep's two K3 launches (the free acceleration, Euler's
+    damped solve) and the operands (after the model) of its K4 launch, and
+    the operands of its row 5 and row 7 launches (row 7's with the model)."""
     from flybody_tpu_torch.envs import fly_envs
-    from flybody_tpu_torch.ops import arrow, sens_stage
+    from flybody_tpu_torch.ops import arrow, efc_stage, narrowphase
+    from flybody_tpu_torch.ops import sens_stage
     out = {}
     for preset in ('default', 'bench'):
         env = fly_envs.walk_imitation(functional=True, preset=preset)
@@ -193,13 +213,65 @@ def walk_states(batch: int, seed: int) -> dict:
         a = (lo + (hi - lo) * torch.rand(batch, len(lo), generator=g)).to(
             state.data.qpos.device)
         with recorded(arrow, 'factor_solve', 2) as k3, \
-                recorded(sens_stage, 'sens_stage', 1) as k4:
+                recorded(sens_stage, 'sens_stage', 1) as k4, \
+                recorded(narrowphase, 'narrowphase', 1) as r5, \
+                recorded(efc_stage, 'contact_rows', 1) as r7:
             state, _ = env.step(state, a)
-        # Two K3 launches and one K4 launch a substep.
-        assert (k3.n, k4.n) == (2 * env.n_sub, env.n_sub), (k3.n, k4.n)
+        # Two K3 launches and one K4, row 5 and row 7 launch a substep.
+        n = env.n_sub
+        assert (k3.n, k4.n, r5.n, r7.n) == (2 * n, n, n, n), (
+            k3.n, k4.n, r5.n, r7.n)
         out[preset] = (state.data.qpos.contiguous(), tuple(k3.args),
-                       k4.args[0][1:])
+                       k4.args[0][1:], r5.args[0], r7.args[0])
     return out
+
+
+def narrow_edge_envs(nargs) -> tuple:
+    """Row 5's operands (segs, geom_xpos, geom_xmat, size) with the first
+    envs made edge cases: a NaN position of a pair's second geom; every
+    cylinder lying on its plane (its axis in the plane, |cos| < 1e-4);
+    every capsule-capsule pair's second capsule on its first one's axis
+    (coincident axes: the 1e-12 nudge), where the table has that type; a
+    sphere exactly on its plane (the plane's frame the identity at the
+    origin, the sphere's centre at height r)."""
+    from flybody_tpu_torch.model import spec as _s
+    segs, xpos, xmat, size = nargs
+    xpos, xmat = xpos.clone(), xmat.clone()
+    by_key = {key: (g1, g2) for key, g1, g2, _ in segs}
+    g2 = segs[0][2][0]
+    xpos[0, g2, 0] = float('nan')
+    side = torch.tensor([[0.0, 0.0, 1.0], [0.0, 1.0, 0.0],
+                         [-1.0, 0.0, 0.0]], device=xmat.device)
+    for a, b in zip(*by_key.get((_s.GEOM_PLANE, _s.GEOM_CYLINDER),
+                                ((), ()))):
+        xmat[1, a] = torch.eye(3, device=xmat.device)
+        xmat[1, b] = side
+    for a, b in zip(*by_key.get((_s.GEOM_CAPSULE, _s.GEOM_CAPSULE),
+                                ((), ()))):
+        xpos[2, b], xmat[2, b] = xpos[2, a], xmat[2, a]
+    sph = by_key.get((_s.GEOM_PLANE, _s.GEOM_SPHERE))
+    if sph:
+        pl, sp = sph[0][0], sph[1][0]
+        xpos[3, pl] = 0.0
+        xmat[3, pl] = torch.eye(3, device=xmat.device)
+        xpos[3, sp, 2] = size[sp, 0]
+    return segs, xpos.contiguous(), xmat.contiguous(), size
+
+
+def efc_edge_scores(args, seed: int) -> tuple:
+    """Row 7's operands (model, data, cand_b, cand_u, cand_g) with every
+    score drawn from 0, -0, +-1e-3, +-inf, NaN and 1e10 (includemargin 0):
+    ties, signed zeros, infinities and NaN, as tests/test_torch_gpu.py
+    draws them."""
+    model, d, cand_b, cand_u, cand_g = args[:5]
+    g = torch.Generator(device='cpu').manual_seed(seed)
+    choice = torch.tensor([0.0, -0.0, 1e-3, -1e-3, float('inf'),
+                           float('-inf'), float('nan'), 1e10])
+    cand_b, cand_u = cand_b.clone(), cand_u.clone()
+    cand_b[..., 0] = choice[torch.randint(0, len(choice), cand_b.shape[:2],
+                                          generator=g)].to(cand_b.device)
+    cand_u[..., 0] = 0.0
+    return model, d, cand_b, cand_u, cand_g
 
 
 def arrow_edge_envs(A, b) -> tuple:
@@ -232,10 +304,10 @@ def sens_edge_envs(args) -> tuple:
 
 
 def two_fly_state(batch: int, seed: int, device='cuda'):
-    """(model, data, K4 operands) of the two-fly scene two default-preset
-    substeps from reset with qvel ~ N(0, 1), ctrl ~ U(-1, 1) (numpy,
-    `seed`); the operands (after the model) of the second substep's K4
-    launch."""
+    """(model, data, K4 operands, row 5 operands) of the two-fly scene two
+    default-preset substeps from reset with qvel ~ N(0, 1), ctrl ~ U(-1,
+    1) (numpy, `seed`); the operands (after the model) of the second
+    substep's K4 launch and the operands of its row 5 launch."""
     import numpy as np
     from flybody_tpu_torch.model import spec
     from flybody_tpu_torch.physics import engine
@@ -248,12 +320,13 @@ def two_fly_state(batch: int, seed: int, device='cuda'):
                              device=model.device),
         ctrl=torch.as_tensor(rng.uniform(-1.0, 1.0, (batch, meta.nu)),
                              dtype=model.dtype, device=model.device))
-    from flybody_tpu_torch.ops import sens_stage
-    with recorded(sens_stage, 'sens_stage', 1) as k4:
+    from flybody_tpu_torch.ops import narrowphase, sens_stage
+    with recorded(sens_stage, 'sens_stage', 1) as k4, \
+            recorded(narrowphase, 'narrowphase', 1) as r5:
         for _ in range(2):
             d = engine.step(model, d, engine.PRESETS['default']).strip()
-    assert k4.n == 2, k4.n  # one K4 launch a substep
-    return model, d, k4.args[0][1:]
+    assert (k4.n, r5.n) == (2, 2), (k4.n, r5.n)  # one of each a substep
+    return model, d, k4.args[0][1:], r5.args[0]
 
 
 def mpr_edge_candidates(c1, c2, prm) -> tuple:
@@ -296,8 +369,49 @@ def mpr_edge_candidates(c1, c2, prm) -> tuple:
     return tuple(t.reshape(B, P, -1).contiguous() for t in (c1, c2, prm))
 
 
-KERNELS = ('pos_stage', 'mpr', 'force_stage', 'noslip', 'arrow',
-           'sens_stage')
+KERNELS = ('pos_stage', 'narrowphase', 'mpr', 'efc_stage', 'force_stage',
+           'noslip', 'arrow', 'sens_stage')
+
+
+def collision_cases(model, d, root: str, stepped, tf_r5, seed: int):
+    """Row 5's and row 7's cases (see the module's docstring); d: the walk
+    state's forward pass."""
+    from flybody_tpu_torch.ops import efc_stage as ef
+    from flybody_tpu_torch.ops import narrowphase as nk
+    from flybody_tpu_torch.physics import collision, solver
+    pnk, pef = parent_module(root, 'narrowphase'), parent_module(
+        root, 'efc_stage')
+    out = []
+    nargs = [(f'after a {p} step', r5)
+             for p, (*_, r5, _) in stepped.items()]
+    dense = (collision.analytic_segments(model.meta, False), d.geom_xpos,
+             d.geom_xmat, model.geom_size)
+    nargs += [('dense segments', dense), ('two_fly', tf_r5),
+              ('edge envs', narrow_edge_envs(nargs[0][1])),
+              ('dense segments, edge envs', narrow_edge_envs(dense))]
+    for tag, a in nargs:
+        out.append((f'narrowphase[{tag}]', 'narrowphase',
+                    lambda a=a: pnk.narrowphase(*a),
+                    lambda a=a: nk.narrowphase(*a)))
+
+    def rows(mod, a):
+        con_J, scal = mod.contact_rows(*a)
+        return (con_J,) + tuple(scal)
+    eargs = [(f'after a {p} step, C {r7[2].shape[1]}, K {r7[5]}', r7)
+             for p, (*_, r7) in stepped.items()]
+    con = collision.collide(model, d, compact=False)
+    eargs.append(('dense, C 2048, K 64',
+                  (model, d) + solver.contact_candidates(model, con, 64)
+                  + (64,)))
+    bench = stepped['bench'][4]
+    edge = efc_edge_scores(bench, seed)
+    C = edge[2].shape[1]
+    eargs += [(f'edge scores, C {C}, K {k}', edge + (k,))
+              for k in (1, 24, 64, C)]
+    for tag, a in eargs:
+        out.append((f'efc_contacts[{tag}]', 'efc_stage',
+                    lambda a=a: rows(pef, a), lambda a=a: rows(ef, a)))
+    return out
 
 
 def cases(batch: int, seed: int, root: str):
@@ -331,12 +445,14 @@ def cases(batch: int, seed: int, root: str):
         return collision.merged_candidates(m, d, P)[:3]
 
     out = []
-    tf_model, tf_data, tf_sens = two_fly_state(batch // 2, seed)
+    tf_model, tf_data, tf_sens, tf_r5 = two_fly_state(batch // 2, seed)
     walk = passes['default'][0].qpos.contiguous()
     stepped = walk_states(batch, seed)
+    out += collision_cases(model, passes['default'][0], root, stepped,
+                           tf_r5, seed)
     qs = [('walk state', walk, spec.WALK_IMITATION_NPZ)]
     qs += [(f'walk_imitation after a {p} step', q, spec.WALK_IMITATION_NPZ)
-           for p, (q, _, _) in stepped.items()]
+           for p, (q, *_) in stepped.items()]
     qs += [('two_fly', tf_data.qpos.contiguous(), spec.TWO_FLY_NPZ),
            ('edge envs', pos_edge_envs(walk), spec.WALK_IMITATION_NPZ)]
     for tag, q, path in qs:
@@ -368,7 +484,7 @@ def cases(batch: int, seed: int, root: str):
                         lambda a=a: png.noslip_fused(part, *a, 3),
                         lambda a=a: ng.noslip_fused(part, *a, 3)))
     k3 = []
-    for preset, (_, (a_free, euler), _) in stepped.items():
+    for preset, (_, (a_free, euler), *_) in stepped.items():
         k3 += [(f'a_free after a {preset} step', a_free),
                (f'euler after a {preset} step', euler)]
     k3.append(('edge envs', (k3[0][1][0],) + arrow_edge_envs(*k3[0][1][1:])))
@@ -388,7 +504,7 @@ def cases(batch: int, seed: int, root: str):
              lambda: par.factor_solve(part3, A, b4),
              lambda: ar.factor_solve(part3, A, b4))]
     sargs = [(f'after a {p} step', s, spec.WALK_IMITATION_NPZ)
-             for p, (_, _, s) in stepped.items()]
+             for p, (_, _, s, *_) in stepped.items()]
     sargs += [('two_fly', tf_sens, spec.TWO_FLY_NPZ),
               ('edge envs', sens_edge_envs(sargs[0][1]),
                spec.WALK_IMITATION_NPZ)]

@@ -25,13 +25,16 @@ pass's noslip operands, 64 slots (default) and 16 (bench)
 the arrow factor+solve (K3, its packed one-right-hand-side kernel) on
 that default forward pass's free-acceleration operand, qM and
 qfrc_smooth (ops/arrow.PHASES); the sensor stage (K4) on that forward
-pass's sensor operands (ops/sens_stage.PHASES). --modes picks some of
-block, block_full, whole, pos_stage, force_stage, noslip_fused,
-arrow_factor_solve, sens_stage. Per mode it prints the registers, shared
-memory, blocks an
-SM and grid of the kernel, its time, and the cycles of each phase per
-env, averaged over every --stride-th env, with their shares; it writes
-the tables to chiprun_out/profile_newton_phases.json.
+pass's sensor operands (ops/sens_stage.PHASES); the contact rows (row
+7) on each preset's candidates of that forward pass's geometry (C 430, K
+64; C 222, K 24) and on the dense make_efc's (C 2,048, K 64)
+(ops/efc_stage.PHASES).
+--modes picks some of block, block_full, whole, pos_stage, force_stage,
+noslip_fused, arrow_factor_solve, sens_stage, efc_contacts.
+Per mode it prints the registers, shared memory, blocks an SM and grid of
+the kernel, its time, and the cycles of each phase per env, averaged over
+every --stride-th env, with their shares; it writes the tables to
+chiprun_out/profile_newton_phases.json.
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ from flybody_tpu_torch.tools import profile_engine as pe
 
 
 MODES = ('block', 'block_full', 'whole', 'pos_stage', 'force_stage',
-         'noslip_fused', 'arrow_factor_solve', 'sens_stage')
+         'noslip_fused', 'arrow_factor_solve', 'sens_stage', 'efc_contacts')
 
 
 def walk_passes(batch: int, seed: int):
@@ -174,6 +177,31 @@ def kernel_runs(batch: int, seed: int, modes=MODES) -> dict:
         out['sens_stage'] = (lambda: ss.sens_stage(model, *sargs), ss,
                              dict(ss.kernel_info(model, K, batch), K=K),
                              None)
+    out.update(efc_runs(model, passes['default'][0], batch, modes))
+    return out
+
+
+def efc_runs(model, d, batch: int, modes) -> dict:
+    """kernel_runs' entries of row 7 on the geometry of d."""
+    from flybody_tpu_torch.ops import efc_stage as ef
+    from flybody_tpu_torch.physics import collision, engine, solver
+    out = {}
+    if 'efc_contacts' in modes:
+        runs = []
+        for preset in ('default', 'bench'):
+            cfg = engine.PRESETS[preset]
+            con = collision.collide(model, d, cfg['mpr_top_p'],
+                                    cfg['cc_top_p'])
+            runs.append((solver.contact_candidates(model, con),
+                         cfg['ncon_max']))
+        con = collision.collide(model, d, compact=False)
+        runs.append((solver.contact_candidates(model, con, 64), 64))
+        for cand, K in runs:
+            C = cand[0].shape[1]
+            out[f'efc_contacts[C {C}, K {K}]'] = (
+                lambda cand=cand, K=K: ef.contact_rows(model, d, *cand, K),
+                ef, dict(ef.kernel_info(batch, C, K, model.meta), C=C,
+                         K=K), None)
     return out
 
 
@@ -201,7 +229,7 @@ def phase_tables(batch: int, seed: int, stride: int, iters: int,
 
 def print_tables(tables: dict, batch: int):
     for mode, r in tables.items():
-        shape = ', '.join(f'{k} {r[k]}' for k in ('K', 'SB3', 'ls',
+        shape = ', '.join(f'{k} {r[k]}' for k in ('C', 'K', 'SB3', 'ls',
                                                   'iterations', 'sweeps')
                           if k in r)
         print(f'{mode}: {shape + "; " if shape else ""}{r["ms"]:.3f} ms at '

@@ -356,28 +356,34 @@ def test_collision_wrappers_refuse_what_their_kernels_do_not_take(env):
 @pytest.mark.gpu
 def test_contact_selection_orders_ties_and_nan_as_a_stable_sort(env):
     """The contact-row kernel selects what collision.smallest (a stable
-    sort) selects when scores tie, are -0.0 / +0.0, infinite or NaN."""
+    sort) selects when scores tie, are -0.0 / +0.0, infinite or NaN: on
+    the bench preset's compact candidates (C 222) and on the dense
+    make_efc's (C 2,048), at K 1, 24, 64 and C."""
     from flybody_tpu_torch.ops import efc_stage
     from flybody_tpu_torch.physics import collision, kinematics, solver
     from flybody_tpu_torch.physics.state import make_data
     model = env.model
     d, _, _ = kinematics.fwd_position_smooth(model, make_data(model, 4))
-    cand_b, cand_u, cand_g = solver.contact_candidates(
-        model, collision.collide(model, d, 32, 16))
-    C = cand_b.shape[1]
+    cands = (solver.contact_candidates(model,
+                                       collision.collide(model, d, 32, 16)),
+             solver.contact_candidates(
+                 model, collision.collide(model, d, compact=False), 64))
     g = torch.Generator(device='cpu').manual_seed(0)
     choice = torch.tensor([0.0, -0.0, 1e-3, -1e-3, float('inf'),
                            float('-inf'), float('nan'), 1e10])
-    dist = choice[torch.randint(0, len(choice), (4, C), generator=g)]
-    cand_b = cand_b.clone()
-    cand_b[..., 0] = dist.cuda()
-    cand_u = cand_u.clone()
-    cand_u[..., 0] = 0.0
-    for k in (24, 64, C):
-        got = efc_stage.contact_rows(model, d, cand_b, cand_u, cand_g, k)
-        want = efc_stage.contact_rows_ref(model, d, cand_b, cand_u, cand_g,
-                                          k)
-        assert torch.equal(got[1][18], want[1][18]), k
+    for cand_b, cand_u, cand_g in cands:
+        C = cand_b.shape[1]
+        dist = choice[torch.randint(0, len(choice), (4, C), generator=g)]
+        cand_b = cand_b.clone()
+        cand_b[..., 0] = dist.cuda()
+        cand_u = cand_u.clone()
+        cand_u[..., 0] = 0.0
+        for k in (1, 24, 64, C):
+            got = efc_stage.contact_rows(model, d, cand_b, cand_u, cand_g, k)
+            want = efc_stage.contact_rows_ref(model, d, cand_b, cand_u,
+                                              cand_g, k)
+            assert torch.equal(got[1][18], want[1][18]), (C, k)
+    assert [c[0].shape[1] for c in cands] == [222, 2048]
 
 
 @pytest.mark.gpu
@@ -520,13 +526,6 @@ def test_arrow_and_sens_stage_hold_on_ragged_and_misaligned_operands(env):
     from flybody_tpu_torch.tools import profile_newton
     model, part, passes = profile_newton.walk_passes(8193, chip_smoke.SEED)
     d, efc, f_c = passes['default']
-
-    def misaligned(x):
-        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
-        y = buf[1:].view(x.shape)
-        y.copy_(x)
-        assert y.data_ptr() % 16 and y.is_contiguous()
-        return y
     runs = (('arrow_factor_solve', lambda *a: ar.factor_solve(part, *a),
              lambda *a: ar.factor_solve_ref(part, *a),
              (d.qM.contiguous(), d.qfrc_smooth.contiguous()), ('F', 'x')),
@@ -548,3 +547,75 @@ def test_arrow_and_sens_stage_hold_on_ragged_and_misaligned_operands(env):
                 assert torch.equal(o, f[:n]), (name, n)
         for o, f in zip(kern(*(misaligned(a) for a in args)), full):
             assert torch.equal(o, f), name
+
+
+def misaligned(x):
+    """A copy of x that starts 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    assert y.data_ptr() % 16 and y.is_contiguous()
+    return y
+
+
+@pytest.mark.gpu
+def test_narrowphase_and_contact_rows_hold_on_ragged_and_misaligned_operands(
+        env):
+    """Row 5 on the compact and dense segment tables and row 7 on each
+    preset's compact candidates and the dense make_efc's, of
+    tools/profile_newton.py's walk state at 8,193 envs: against their
+    plain versions (chip_smoke's gates: row 5 per slot within
+    NARROW_REL_TOL, row 7 by efc_errors: slot and body ids exactly, every
+    other field within EFC_REL_TOL), at 1 and 133 envs exactly the
+    8,193-env launch's first envs, and with every operand moved off
+    16-byte alignment exactly the aligned launch."""
+    import dataclasses
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from flybody_tpu_torch.ops import efc_stage as ef
+    from flybody_tpu_torch.ops import narrowphase as nk
+    from flybody_tpu_torch.physics import collision, engine, solver
+    from flybody_tpu_torch.tools import profile_newton
+    model, _, passes = profile_newton.walk_passes(8193, chip_smoke.SEED)
+    d = passes['default'][0]
+    for cc in (True, False):
+        segs = collision.analytic_segments(model.meta, cc)
+        args = (d.geom_xpos.contiguous(), d.geom_xmat.contiguous(),
+                model.geom_size)
+        full = nk.narrowphase(segs, *args)
+        _, rel = chip_smoke.compare('narrowphase', full,
+                                    nk.narrowphase_ref(segs, *args),
+                                    ('dist', 'pos', 'normal'))
+        assert rel <= chip_smoke.NARROW_REL_TOL, (cc, rel)
+        for n in (1, 133):
+            part = nk.narrowphase(segs, *(a[:n].contiguous()
+                                          for a in args[:2]), args[2])
+            for o, f in zip(part, full):
+                assert torch.equal(o, f[:n]), (cc, n)
+        moved = nk.narrowphase(segs, *(misaligned(a) for a in args))
+        for o, f in zip(moved, full):
+            assert torch.equal(o, f), cc
+    runs = []
+    for preset in ('default', 'bench'):
+        cfg = engine.PRESETS[preset]
+        con = collision.collide(model, d, cfg['mpr_top_p'], cfg['cc_top_p'])
+        runs.append((solver.contact_candidates(model, con),
+                     cfg['ncon_max']))
+    runs.append((solver.contact_candidates(
+        model, collision.collide(model, d, compact=False), 64), 64))
+    for cand, K in runs:
+        full = ef.contact_rows(model, d, *cand, K)
+        chip_smoke.efc_errors(full, ef.contact_rows_ref(model, d, *cand, K),
+                              f'C {cand[0].shape[1]}')
+        flat = [full[0]] + full[1]
+        for n in (1, 133):
+            dn = d.index(slice(0, n))
+            part = ef.contact_rows(model, dn, *(c[:n].contiguous()
+                                                for c in cand), K)
+            for o, f in zip([part[0]] + part[1], flat):
+                assert torch.equal(o, f[:n]), (K, n)
+        dm = dataclasses.replace(d, qvel=misaligned(d.qvel),
+                                 cdof=misaligned(d.cdof))
+        moved = ef.contact_rows(model, dm, *(misaligned(c) for c in cand), K)
+        for o, f in zip([moved[0]] + moved[1], flat):
+            assert torch.equal(o, f), K
