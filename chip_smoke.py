@@ -34,7 +34,8 @@ Phases (any failure exits non-zero):
      path's kernels on the operands of a two-fly step at batch 4096
      (dense_kernels): the fused factor+solve (row 17, per env beside two
      wrong controls) on M, a Newton Hessian and the damped Euler matrix,
-     the substitutions (rows 15, 16), the noslip sweeps (row 12) and the
+     the substitutions (rows 15, 16; row 16 also on a bench substep's 32
+     right-hand sides), the noslip sweeps (row 12) and the
      line search (row 13, per search beside one refinement step fewer);
      and the last slice's (dense_collision_kernels, block_full_check): row
      5 on the dense collide's 1,213 slots (capsule-capsule included), row
@@ -92,6 +93,10 @@ Each phase's seconds are printed.
 The last line is {"ok": true, "device": {...}}; the two lines before it
 hold the per-kernel JSON and the card's name and power limit, and details
 go to chiprun_out/chip_smoke.json.
+
+    python3 chip_smoke.py --gate-seeds N
+
+only reads phase 6's two-fly gate at seeds 0..N-1 (gate_seeds).
 """
 
 from __future__ import annotations
@@ -1633,10 +1638,10 @@ def dense_kernels(batch, seed, report):
     """Rows 12, 13, 15, 16 and 17 against their plain versions on the
     operands of a real dense step of the two-fly scene at batch `batch`:
     the mass matrix, the damped Euler matrix and a Newton Hessian (row
-    17), the noslip's factor and M^-1 J_t^T columns (rows 16, 12), the
-    search planes of every Newton step (row 13) and a reuse step's
-    substitution (row 15, bench preset, 8 substeps in, where half the envs
-    are in contact). Row 12 also on gs_cases' operands, since the path's
+    17), the noslip's factor and M^-1 J_t^T columns (rows 16, 12; row 16
+    also on the bench preset's, m 32, 8 substeps in), the search planes of
+    every Newton step (row 13) and a reuse step's substitution (row 15,
+    bench preset, 8 substeps in, where half the envs are in contact). Row 12 also on gs_cases' operands, since the path's
     contacts are frictionless. Rows 13 and 17 are held per env beside
     wrong controls."""
     import torch
@@ -1664,7 +1669,8 @@ def dense_kernels(batch, seed, report):
     deeper = data
     for _ in range(6):
         deeper = engine.step(model, deeper, bench).strip()
-    with recording(ch, 'cho_solve', {0}) as c15:
+    with recording(ch, 'cho_solve', {0}) as c15, \
+            recording(ch, 'cho_solve_multi', {0}) as c16b:
         engine.step(model, deeper, bench)
     _, efc, _ = engine.fwd_acc(model, deeper, bench)
     log('two-fly kernel operands (row 15, 8 substeps in): '
@@ -1688,6 +1694,7 @@ def dense_kernels(batch, seed, report):
     byts = batch * 4 * (n * (n + 1) // 2 + n * n + 2 * n)
     fl = batch * (n ** 3 / 3 + 2 * n * n)
     entries.append(kernel_entry('chol_solve', err, ms, pms, byts, fl, lms))
+    kernel_resources('chol_solve', ch.kernel_info(batch, n), batch, report)
     report['chol_solve_readings'] = rd17
     log(f'chol_solve (n {n}): {ms:.3f} ms kernel, {pms:.3f} ms plain, '
         f'{lms:.3f} ms torch.linalg.cholesky + torch.cholesky_solve')
@@ -1719,22 +1726,27 @@ def dense_kernels(batch, seed, report):
     log(f'cho_solve: {ms:.3f} ms kernel, {pms:.3f} ms plain, {lms:.3f} ms '
         f'torch.cholesky_solve')
 
-    # Row 16 (the noslip's M^-1 J_t^T, default preset: m = 2K).
-    L, R = c16[0]
-    m = R.shape[2]
-    X, Xr = ch.cho_solve_multi(L, R), ch.cho_solve_multi_ref(L, R)
-    err, rel = compare('cho_solve_multi', (X,), (Xr,), ('X',))
-    if not rel <= SUBST_REL_TOL:
-        raise AssertionError(f'cho_solve_multi disagrees: rel {rel:.3e}')
-    ms = cuda_ms(lambda: ch.cho_solve_multi(L, R), 20)
-    pms = cuda_ms(lambda: ch.cho_solve_multi_ref(L, R), 3)
-    lms = cuda_ms(lambda: torch.cholesky_solve(R, L), 5)
-    entries.append(kernel_entry(
-        'cho_solve_multi', err, ms, pms,
-        batch * 4 * (n * (n + 1) // 2 + 2 * n * m), batch * 2 * n * n * m,
-        lms))
-    log(f'cho_solve_multi (m {m}): {ms:.3f} ms kernel, {pms:.3f} ms plain, '
-        f'{lms:.3f} ms torch.cholesky_solve')
+    # Row 16 (the noslip's M^-1 J_t^T, m = 2K: the default preset's m 128
+    # and a bench substep's m 32), an entry each.
+    for L, R in (c16[0], c16b[0]):
+        m = R.shape[2]
+        X, Xr = ch.cho_solve_multi(L, R), ch.cho_solve_multi_ref(L, R)
+        err, rel = compare(f'cho_solve_multi[m {m}]', (X,), (Xr,), ('X',))
+        if not rel <= SUBST_REL_TOL:
+            raise AssertionError(f'cho_solve_multi [m {m}] disagrees: rel '
+                                 f'{rel:.3e}')
+        ms = cuda_ms(lambda: ch.cho_solve_multi(L, R), 20)
+        pms = cuda_ms(lambda: ch.cho_solve_multi_ref(L, R), 3)
+        lms = cuda_ms(lambda: torch.cholesky_solve(R, L), 5)
+        entries.append(kernel_entry(
+            'cho_solve_multi', err, ms, pms,
+            batch * 4 * (n * (n + 1) // 2 + 2 * n * m), batch * 2 * n * n * m,
+            lms))
+        kernel_resources(f'cho_solve_multi[m {m}]',
+                         ch.kernel_info(batch, n, m), batch, report)
+        log(f'cho_solve_multi (m {m}): {ms:.3f} ms kernel, {pms:.3f} ms '
+            f'plain, {lms:.3f} ms torch.cholesky_solve')
+    del c16b
 
     # Row 12 (the sweeps, default preset: all 64 slots). The path's own
     # operands are frictionless in this state, so its sweeps change
@@ -2522,11 +2534,49 @@ def tools_phase(batch, seed, report):
     return total
 
 
+def gate_seeds(count: int) -> None:
+    """The two-fly substep gate of two_fly_phase (f64_anchored at the
+    default preset) at seeds 0..count-1 in place of SEED: per seed, the
+    state after TWO_FLY_STEPS substeps at TWO_FLY_BATCH and the gate over
+    its first TWO_FLY_CPU_ENVS envs, printed (whether it holds, and each
+    quantity's worst-env ratio card / CPU float32). It shows how far the
+    gate's verdict follows the state that the card's roundings lead to."""
+    import torch
+    from flybody_tpu_torch.model import spec
+    from flybody_tpu_torch.physics import engine
+    cfg = engine.PRESETS['default']
+    cfg30 = dict(cfg, ls_iterations=30)
+    model = spec.load(spec.TWO_FLY_NPZ, device='cuda')
+    cpu_m = spec.load(spec.TWO_FLY_NPZ, device='cpu')
+    cpu64_m = spec.load(spec.TWO_FLY_NPZ, device='cpu', dtype=torch.float64)
+    for seed in range(count):
+        data = two_fly_data(model, TWO_FLY_BATCH, seed)
+        for _ in range(TWO_FLY_STEPS):
+            data = engine.step(model, data, cfg).strip()
+        sub = data.index(slice(0, TWO_FLY_CPU_ENVS))
+        gate = f64_anchored(
+            two_fly_substep_outputs(model, sub, cfg30),
+            two_fly_substep_outputs(cpu_m, sub.to('cpu'), cfg30),
+            two_fly_substep_outputs(cpu64_m, sub.to('cpu',
+                                                    dtype=torch.float64),
+                                    cfg30))
+        log(f'two_fly gate at seed {seed}: '
+            f'{"holds" if all(v["ok"] for v in gate.values()) else "fails"}'
+            '; worst-env ratio card / CPU float32: ' + json.dumps(
+                {k: round(v['ratio'][1], 2) for k, v in gate.items()}))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ['--gate-seeds']:  # a reading, not the smoke run
+        from flybody_tpu_torch.ops import _cuda
+        _cuda.build_all()
+        log(f'card: {card_line()}')
+        gate_seeds(int(sys.argv[2]))
+        return 0
     from flybody_tpu_torch.ops import _cuda  # fails outside the repository
     # float32 matmuls in full precision (the solver's Hessian assembly
     # expects it; TF32 is off by default, set here explicitly).

@@ -1,10 +1,11 @@
 // Dense Cholesky factor and substitutions on one env's matrix in shared
-// memory: the device functions of rows 15, 16 and 17 (csrc/cholesky.cu),
-// the counterparts of flybody_tpu/ops/cholesky.py's _chol_kernel and
-// _solve_kernel / _solve_multi_kernel. Semantics: chol_ref, subst_ref in
+// memory (csrc/cholesky.cu), the counterparts of
+// flybody_tpu/ops/cholesky.py's _chol_kernel and _solve_kernel /
+// _solve_multi_kernel. Semantics: chol_ref, subst_ref in
 // flybody_tpu_torch/ops/cholesky.py.
 //
-// Layout: only the lower triangle is kept, packed by columns: column j
+// Rows 14 and 15 (below, to the row-packed section): only the lower
+// triangle is kept, packed by columns: column j
 // holds rows j..n-1 at S[tri_col(n, j) + i - j]. At n = 216 that is 93.7 KB
 // of float32 (the full matrix would be 187 KB), so two blocks fit on an SM.
 // Packing by columns makes a column contiguous, so threads that own
@@ -13,6 +14,7 @@
 // conflicts.
 #pragma once
 
+#include "bulk.cuh"
 #include "common.cuh"
 
 __device__ __forceinline__ int tri_col(int n, int j) {
@@ -130,74 +132,91 @@ __device__ void chol_subst_block(const float* S, float* x, int n) {
   __syncthreads();
 }
 
-// Solves L L^T X = B for the m columns of X (n rows, row stride m, in
-// shared memory), one column per thread; X holds B on entry. The columns
-// are independent, so no barrier is needed. Both substitutions go in blocks
-// of kRowBlock rows: the block's sums over the rows already solved share
-// each load of X (one load of X and kRowBlock broadcast loads of L for
-// kRowBlock products, in kRowBlock independent sums), then the block's own
-// triangle is solved in order. Every lane reads the same entry of L (a
-// broadcast) and its own column of X (consecutive words).
-constexpr int kRowBlock = 8;
+// ---------------------------------------------------------------------------
+// Rows 16 and 17: the lower triangle packed by rows.
+//
+// Row i holds columns 0..i at S[row_off(i) + j], then padding up to a
+// multiple of 4 floats, so every row starts 16-byte aligned (at n = 216 the
+// triangle takes 95.0 KB: two blocks fit on an SM beside their other
+// buffers). Row i of a row-major (n, n) matrix is contiguous in global
+// memory, so with n % 4 == 0 each row comes in by one 1-D bulk copy of
+// pad4(i + 1) floats, and four consecutive columns of a row from a column
+// that is a multiple of 4 are one 16-byte shared access. The padding may
+// hold anything: no entry above the diagonal is ever read as a value.
 
-__device__ void chol_subst_cols(const float* S, float* X, int n, int m) {
-  for (int c = threadIdx.x; c < m; c += blockDim.x) {
-    // Forward: y_k = (b_k - sum_{j<k} L[k][j] y_j) / L[k][k].
-    for (int k0 = 0; k0 < n; k0 += kRowBlock) {
-      const int nk = min(kRowBlock, n - k0);
-      float s[kRowBlock];
-#pragma unroll
-      for (int r = 0; r < kRowBlock; ++r) s[r] = 0.f;
-      int cj = 0;  // tri_col(n, j)
-      for (int j = 0; j < k0; ++j) {
-        const float xj = X[j * m + c];
-#pragma unroll
-        for (int r = 0; r < kRowBlock; ++r)
-          if (r < nk) s[r] += S[cj + k0 + r - j] * xj;
-        cj += n - j;
-      }
-      // cj == tri_col(n, k0)
-#pragma unroll
-      for (int r = 0; r < kRowBlock; ++r) {
-        if (r < nk) {
-          const int k = k0 + r;
-          float acc = s[r];
-          int cq = cj;  // tri_col(n, k0 + q)
-          for (int q = 0; q < r; ++q) {
-            acc += S[cq + r - q] * X[(k0 + q) * m + c];
-            cq += n - k0 - q;
-          }
-          X[k * m + c] = (X[k * m + c] - acc) / S[cq];  // cq: tri_col(n, k)
+__host__ __device__ __forceinline__ int pad4(int x) { return (x + 3) & ~3; }
+
+// Floats before row i: sum_{r < i} pad4(r + 1) = 4 (a + 1)(2 a + b) for
+// i = 4 a + b; row_off(n) is the whole triangle.
+__host__ __device__ __forceinline__ int row_off(int i) {
+  const int a = i >> 2, b = i & 3;
+  return 4 * (a + 1) * (2 * a + b);
+}
+
+// S <- the lower triangle of the row-major (n, n) matrix A (global), and
+// v <- the n floats at b (global; none when b is null). Bulk: when n % 4 == 0
+// and A, b start 16-byte aligned, warp 0 issues one bulk copy a row (and
+// one for b) on bar and every thread waits for them; else the block loads
+// them by elements. Ends with the block synchronised.
+__device__ __forceinline__ void rows_load(const float* __restrict__ A,
+                                          const float* __restrict__ b,
+                                          float* S, float* v, int n,
+                                          uint64_t* bar) {
+  const int t = threadIdx.x, nt = blockDim.x, lane = t & 31, w = t >> 5;
+  const bool bulk = (n & 3) == 0 &&
+                    (reinterpret_cast<uintptr_t>(A) & 15) == 0 &&
+                    (reinterpret_cast<uintptr_t>(b) & 15) == 0;
+  if (bulk) {
+    if (t == 0) {
+      mbar_init(bar, 1);
+      mbar_expect_bytes(bar, 4u * (row_off(n) + (b ? n : 0)));
+    }
+    __syncwarp();
+    if (w == 0) {
+      for (int i = lane; i < n; i += 32)
+        bulk_load(S + row_off(i), A + (size_t)i * n, 4u * pad4(i + 1), bar);
+      if (b && lane == 0) bulk_load(v, b, 4u * n, bar);
+    }
+    __syncthreads();
+    mbar_wait(bar, 0);
+  } else {
+    for (int i = w; i < n; i += nt >> 5)
+      for (int j = lane; j <= i; j += 32)
+        S[row_off(i) + j] = A[(size_t)i * n + j];
+    if (b)
+      for (int i = t; i < n; i += nt) v[i] = b[i];
+    __syncthreads();
+  }
+}
+
+// L (global, row-major (n, n)) <- S with zeros above the diagonal, a warp
+// a row: with n % 4 == 0 and L 16-byte aligned each lane stores four
+// columns at a time (a warp 512 contiguous bytes; the zeros above the
+// diagonal without reading shared memory), else one.
+__device__ __forceinline__ void rows_store(const float* S,
+                                           float* __restrict__ L, int n) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5,
+            nw = blockDim.x >> 5;
+  if ((n & 3) == 0 && (reinterpret_cast<uintptr_t>(L) & 15) == 0) {
+    const int n4 = n >> 2;
+    for (int i = w; i < n; i += nw) {
+      const float* row = S + row_off(i);
+      float4* out = reinterpret_cast<float4*>(L + (size_t)i * n);
+      for (int c = lane; c < n4; c += 32) {
+        const int j = 4 * c;
+        float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (j <= i) {
+          q = *reinterpret_cast<const float4*>(row + j);
+          if (j + 1 > i) q.y = 0.f;
+          if (j + 2 > i) q.z = 0.f;
+          if (j + 3 > i) q.w = 0.f;
         }
+        out[c] = q;
       }
     }
-    // Backward: x_k = (y_k - sum_{j>k} L[j][k] x_j) / L[k][k].
-    for (int k0 = ((n - 1) / kRowBlock) * kRowBlock; k0 >= 0;
-         k0 -= kRowBlock) {
-      const int nk = min(kRowBlock, n - k0);
-      int cc[kRowBlock];  // tri_col(n, k0 + r)
-      float s[kRowBlock];
-      cc[0] = tri_col(n, k0);
-#pragma unroll
-      for (int r = 0; r < kRowBlock; ++r) {
-        if (r) cc[r] = cc[r - 1] + n - (k0 + r - 1);
-        s[r] = 0.f;
-      }
-      for (int j = k0 + nk; j < n; ++j) {
-        const float xj = X[j * m + c];
-#pragma unroll
-        for (int r = 0; r < kRowBlock; ++r)
-          if (r < nk) s[r] += S[cc[r] + j - k0 - r] * xj;
-      }
-#pragma unroll
-      for (int r = kRowBlock - 1; r >= 0; --r) {
-        if (r < nk) {
-          float acc = s[r];
-          for (int q = r + 1; q < nk; ++q)
-            acc += S[cc[r] + q - r] * X[(k0 + q) * m + c];
-          X[(k0 + r) * m + c] = (X[(k0 + r) * m + c] - acc) / S[cc[r]];
-        }
-      }
-    }
+  } else {
+    for (int i = w; i < n; i += nw)
+      for (int j = lane; j < n; j += 32)
+        L[(size_t)i * n + j] = j <= i ? S[row_off(i) + j] : 0.f;
   }
 }

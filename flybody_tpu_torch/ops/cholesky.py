@@ -13,12 +13,17 @@ step on an unpacked mass matrix (the Woodbury capacitance):
     L L^T X = R for R (B, n, m).
 
 Shapes are batch-leading: A, L (B, n, n), b (B, n). CUDA tensors launch
-csrc/cholesky.cu (float32, contiguous; anything else raises); CPU tensors
-run the plain versions `*_ref`, which repeat the kernels' algorithm: a
-column-by-column factor that reads the lower triangle and clamps each
-pivot at 1e-30 (the TPU kernel's rsqrt(max(d, 1e-30))), forward
-substitution by columns and backward substitution by dot products. No
-jitter is added here: callers add their own.
+csrc/cholesky.cu (float32, contiguous; anything else raises; row 17 takes
+n <= 256, row 16 n <= MULTI_ROWS); CPU tensors run the plain versions `*_ref`, which repeat the
+kernels' algorithm: a column-by-column factor that reads the lower
+triangle and clamps each pivot at 1e-30 (the TPU kernel's rsqrt(max(d,
+1e-30))), forward substitution by columns and backward substitution by dot
+products. Row 17 factors by panels of `PANEL` columns in the first
+design's order (four partial sums an entry) and gives its outputs bit for
+bit; row 16 sweeps by panels of `MULTI_PANEL` rows, each term a fused
+multiply-add (csrc/cholesky.cu). No jitter is
+added here: callers add their own. PHASES, `record_phases` and
+`kernel_info` read rows 16 and 17's phase clocks and resources.
 """
 
 from __future__ import annotations
@@ -28,6 +33,19 @@ import ctypes
 import torch
 
 from flybody_tpu_torch.ops import _cuda
+
+PANEL = 16  # row 17: panel width (csrc/cholesky.cu kNb)
+MULTI_PANEL = 12  # row 16: panel height (kMultiNb)
+MULTI_ROWS = 224  # row 16: the largest n (32 kMultiU)
+
+
+def multi_cols(m: int) -> int:
+    """Row 16: right-hand sides a block (8 kTC)."""
+    return 32 if m <= 32 else 64
+# Phases of rows 16 and 17's clock instantiations (record_phases), in
+# order: row 17's factor phase includes the forward substitution.
+PHASES = ('stage-in', 'factor / forward sweep',
+          'substitution / backward sweep', 'store')
 
 chol_launches = 0  # row 14
 chol_solve_launches = 0  # row 17
@@ -158,3 +176,22 @@ def cho_solve_multi(L, R):
     _cuda.raise_on(rc, 'cho_solve_multi_f32')
     cho_solve_multi_launches += 1
     return X
+
+
+def record_phases(fn, batch: int, stride: int, device):
+    """Runs fn() (row 16 or row 17 launches on `batch` envs) with their
+    phase clocks on: every stride-th env's cycles in each phase of PHASES,
+    an int64 tensor (ceil(batch / stride), len(PHASES)) on the CPU (row 16:
+    summed over the env's blocks, one a chunk of multi_cols(m) columns)."""
+    return _cuda.record_phases('cholesky', 'cholesky_phase_clock',
+                               len(PHASES), fn, batch, stride, device)
+
+
+def kernel_info(batch: int, n: int, m: int = 0) -> dict:
+    """Registers a thread, shared memory a block, blocks an SM and grid of
+    row 17's kernel (m 0) or row 16's (m right-hand sides) at n."""
+    out = (ctypes.c_int * 4)()
+    fn = _cuda.function('cholesky', 'cholesky_info',
+                        [_I, _I, _I, ctypes.POINTER(ctypes.c_int * 4)])
+    _cuda.raise_on(fn(batch, n, m, ctypes.byref(out)), 'cholesky_info')
+    return _cuda.info_dict(out)

@@ -1,15 +1,16 @@
-"""K1-K4 and rows 5, 6, 7 and 11 against an earlier tree's kernels on the card.
+"""K1-K4 and rows 5, 6, 7, 11 and 14-17 against an earlier tree's kernels on the card.
 
     python -m flybody_tpu_torch.tools.kernel_ab --parent DIR [--batch 8192]
 
 DIR is the root of an unpacked earlier tree (for example `git archive` of
 the parent commit into a directory that .gitignore lists). Its
 csrc/pos_stage.cu, csrc/narrowphase.cu, csrc/mpr.cu, csrc/efc_stage.cu,
-csrc/force_stage.cu, csrc/noslip.cu, csrc/arrow.cu and csrc/sens_stage.cu
-(`KERNELS`) are built into separate libraries and
+csrc/force_stage.cu, csrc/noslip.cu, csrc/arrow.cu, csrc/sens_stage.cu and
+csrc/cholesky.cu (`KERNELS`) are built into separate libraries and
 driven through its own wrappers (ops/pos_stage.py, ops/narrowphase.py,
 ops/mpr_kernel.py, ops/efc_stage.py, ops/force_stage.py, ops/noslip_gs.py,
-ops/arrow.py, ops/sens_stage.py, loaded under other module names), beside
+ops/arrow.py, ops/sens_stage.py, ops/cholesky.py, loaded under other module
+names), beside
 this tree's kernels, on the same operands: the position stage (K1) on the
 walk state of tools/profile_newton.py, on walk_imitation's state after a
 control step at each preset, on the two-fly scene two substeps from its
@@ -33,13 +34,28 @@ substep of each preset's control step gave it (the free acceleration and
 Euler's damped solve) and on edge envs (`arrow_edge_envs`), with rows 18
 and 19 and K3's four-right-hand-side form on the first of them; the
 sensor stage (K4) on the operands of that substep and of the two-fly
-scene's second substep, and on edge envs (`sens_edge_envs`). Per case it
+scene's second substep, and on edge envs (`sens_edge_envs`); the dense
+Cholesky family (`cholesky_cases`, on the two-fly scene two substeps from
+its flailing start, batch / 2 scenes): the fused factor+solve (row 17) on
+a default substep's M, first Newton Hessian and damped Euler matrix, the
+many-right-hand-side solve (row 16) on the default and bench noslip's M^-1
+J_t^T (m 128 and 32), the single-right-hand-side solve (row 15) on a bench
+substep 8 substeps in, and the factor (row 14) on the capacitance (n 24)
+and the dense M (n 108) of tools/profile_engine.py's chain. Per case it
 prints whether every output is the earlier kernel's bit for bit
 (torch.equal, NaN in the same places) and both kernels' times (CUDA events
 over --reps calls, tools/profile_engine's timer), taken in turns: earlier,
 this, this, earlier. For an output that differs it prints how many entries
-do and the largest difference. It writes chiprun_out/kernel_ab.json and
-exits 1 if an output differs.
+do and the largest difference. Rows 16 and 17 were redesigned to sum in
+another order, so their cases are judged by `env_share` instead: the share
+of envs whose outputs all lie within CHOL_ENV_TOL (row 17) or
+SUBST_REL_TOL (row 16) of each index's scale, against the earlier kernel
+and against the plain version at float64 (printed beside the earlier
+kernel's own share against float64); a case fails when its share against
+the earlier kernel is below CHOL_ENV_SHARE, or its share against float64
+below both CHOL_ENV_SHARE and the earlier kernel's. Every other case fails
+when an output differs. It writes chiprun_out/kernel_ab.json and exits 1
+if a case fails.
 """
 
 from __future__ import annotations
@@ -165,11 +181,12 @@ def pos_edge_envs(qpos) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def recorded(mod, name: str, last: int):
-    """Calls of mod.<name> in the block: `n`, how many, and `args`,
-    clones of the arguments of the last `last` of them in call order."""
+def recorded(mod, name: str, last: int, keep=()):
+    """Calls of mod.<name> in the block: `n`, how many, `args`, clones of
+    the arguments of the last `last` of them in call order, and `kept`,
+    {call index: clones of its arguments} for the indices in `keep`."""
     orig = getattr(mod, name)
-    got = types.SimpleNamespace(n=0, args=[])
+    got = types.SimpleNamespace(n=0, args=[], kept={})
 
     def copy(x):
         if torch.is_tensor(x):
@@ -182,6 +199,8 @@ def recorded(mod, name: str, last: int):
         return x
 
     def wrapped(*a):
+        if got.n in keep:
+            got.kept[got.n] = tuple(copy(x) for x in a)
         got.n += 1
         got.args = (got.args + [tuple(copy(x) for x in a)])[-last:]
         return orig(*a)
@@ -370,7 +389,107 @@ def mpr_edge_candidates(c1, c2, prm) -> tuple:
 
 
 KERNELS = ('pos_stage', 'narrowphase', 'mpr', 'efc_stage', 'force_stage',
-           'noslip', 'arrow', 'sens_stage')
+           'noslip', 'arrow', 'sens_stage', 'cholesky')
+# chip_smoke.py's limits for rows 16 and 17 (CHOL_ENV_TOL, SUBST_REL_TOL,
+# CHOL_ENV_SHARE).
+CHOL_ENV_TOL = 1e-3
+SUBST_REL_TOL = 1e-3
+CHOL_ENV_SHARE = 0.98
+
+
+def env_share(outs, refs, tol) -> float:
+    """Share of envs (axis 0) whose outputs all lie within tol of the
+    largest |ref| at their index on axis 1 over the batch (floored at 1e-6
+    of the output's largest), outputs flattened past axis 1: chip_smoke.py's
+    env_err and share."""
+    worst = None
+    for o, r in zip(outs, refs):
+        if r.dim() == 2:
+            o, r = o[..., None], r[..., None]
+        o = o.double().flatten(2)
+        r = r.double().flatten(2)
+        scale = r.abs().amax(dim=(0, 2))
+        scale = scale.clamp(min=max(1e-6 * scale.max().item(), 1e-30))
+        e = ((o - r).abs() / scale[None, :, None]).flatten(1).amax(1)
+        worst = e if worst is None else torch.maximum(worst, e)
+    return (worst <= tol).double().mean().item()
+
+
+def judged(tol, f64_fn):
+    """A judge for a redesigned kernel's case: (passes, readings) from its
+    outputs and the earlier kernel's, against each other and against
+    f64_fn(), the plain version at float64."""
+    def judge(got, ref):
+        r64 = f64_fn()
+        rd = dict(share_vs_earlier=env_share(got, ref, tol),
+                  share_vs_float64=env_share(got, r64, tol),
+                  earlier_share_vs_float64=env_share(ref, r64, tol))
+        ok = (rd['share_vs_earlier'] >= CHOL_ENV_SHARE
+              and rd['share_vs_float64'] >= min(
+                  CHOL_ENV_SHARE, rd['earlier_share_vs_float64']))
+        return ok, rd
+    return judge
+
+
+def dense_operands(tf_model, tf_data) -> dict:
+    """Rows 15-17's operands on the two-fly scene from tf_data:
+    {'chol_solve': [(what, A, b)] of a default substep (its M, first Newton
+    Hessian and damped Euler matrix), 'cho_solve_multi': [(L, R)] of the
+    default and the bench noslip (M^-1 J_t^T, m 128 and 32), 'cho_solve':
+    (L, g) of a bench substep 8 substeps in (where half the envs are in
+    contact)}."""
+    from flybody_tpu_torch.ops import cholesky as ch
+    from flybody_tpu_torch.physics import engine
+    default, bench = engine.PRESETS['default'], engine.PRESETS['bench']
+    calls = default['solver_iterations'] + 2
+    with recorded(ch, 'chol_solve', 1, keep={0, 1, calls - 1}) as c17, \
+            recorded(ch, 'cho_solve_multi', 1) as c16:
+        engine.step(tf_model, tf_data, default)
+    deeper = tf_data
+    for _ in range(6):
+        deeper = engine.step(tf_model, deeper, bench).strip()
+    with recorded(ch, 'cho_solve', 1, keep={0}) as c15, \
+            recorded(ch, 'cho_solve_multi', 1) as c16b:
+        engine.step(tf_model, deeper, bench)
+    return {'chol_solve': [(what, *c17.kept[i]) for what, i in (
+                ('M', 0), ('Newton Hessian', 1),
+                ('M + dt damping', calls - 1))],
+            'cho_solve_multi': [c16.args[0], c16b.args[0]],
+            'cho_solve': c15.kept[0]}
+
+
+def cholesky_cases(tf_model, tf_data, batch: int, seed: int, root: str):
+    """Rows 14-17's cases (see the module's docstring); rows 16 and 17
+    with a judge."""
+    from flybody_tpu_torch.ops import cholesky as ch
+    from flybody_tpu_torch.tools import profile_engine as pe
+    pch = parent_module(root, 'cholesky')
+    ops = dense_operands(tf_model, tf_data)
+    out = []
+    for what, A, b in ops['chol_solve']:
+        out.append((f'chol_solve (row 17)[{what}]', 'cholesky',
+                    lambda A=A, b=b: pch.chol_solve(A, b),
+                    lambda A=A, b=b: ch.chol_solve(A, b),
+                    judged(CHOL_ENV_TOL, lambda A=A, b=b: ch.chol_solve_ref(
+                        A.double(), b.double()))))
+    for L, R in ops['cho_solve_multi']:
+        out.append((f'cho_solve_multi (row 16)[m {R.shape[2]}]', 'cholesky',
+                    lambda L=L, R=R: (pch.cho_solve_multi(L, R),),
+                    lambda L=L, R=R: (ch.cho_solve_multi(L, R),),
+                    judged(SUBST_REL_TOL, lambda L=L, R=R: (
+                        ch.cho_solve_multi_ref(L.double(), R.double()),))))
+    L, g = ops['cho_solve']
+    out.append(('cho_solve (row 15)[bench, 8 substeps in]', 'cholesky',
+                lambda: (pch.cho_solve(L, g),), lambda: (ch.cho_solve(L, g),)))
+    args = pe.parser().parse_args(['--batch', str(batch), '--seed',
+                                   str(seed)])
+    model, d0 = pe.setup(args)
+    with recorded(ch, 'chol', 1, keep={0}) as c14:
+        d = pe.chain(model, d0, args)[0]
+    for A in (c14.kept[0][0], d.qM.contiguous()):
+        out.append((f'chol (row 14)[n {A.shape[1]}]', 'cholesky',
+                    lambda A=A: (pch.chol(A),), lambda A=A: (ch.chol(A),)))
+    return out
 
 
 def collision_cases(model, d, root: str, stepped, tf_r5, seed: int):
@@ -415,7 +534,8 @@ def collision_cases(model, d, root: str, stepped, tf_r5, seed: int):
 
 
 def cases(batch: int, seed: int, root: str):
-    """[(name, lib name, earlier fn, this fn)], each fn() one launch."""
+    """[(name, lib name, earlier fn, this fn[, judge])], each fn() one
+    launch; a judge (judged) replaces the bit-for-bit rule."""
     from flybody_tpu_torch.model import spec
     from flybody_tpu_torch.ops import arrow as ar
     from flybody_tpu_torch.ops import force_stage as fs
@@ -513,6 +633,7 @@ def cases(batch: int, seed: int, root: str):
         out.append((f'sens_stage[{tag}]', 'sens_stage',
                     lambda m=old_m, s=s: (pss.sens_stage(m, *s),),
                     lambda m=new_m, s=s: (ss.sens_stage(m, *s),)))
+    out += cholesky_cases(tf_model, tf_data, batch, seed, root)
     return out
 
 
@@ -537,7 +658,8 @@ def main(argv=None) -> int:
                           text=True).stdout.strip()
     print(f'card: {card}')
     report, ok = dict(card=card, batch=args.batch, cases={}), True
-    for name, lib, old, new in cases(args.batch, args.seed, args.parent):
+    for name, lib, old, new, *judge in cases(args.batch, args.seed,
+                                            args.parent):
         with library(lib, libs[lib]):
             ref = old()
         got = new()
@@ -559,11 +681,19 @@ def main(argv=None) -> int:
                       f'{float(diff.max()):.3e} at {tuple(at)}')
         nan = sum(int(torch.isnan(t).sum()) for t in got)
         report['cases'][name] = dict(bit_equal=eq, nan_entries=nan, **times)
-        ok &= all(eq)
+        passes, judgement = all(eq), ''
+        if judge:
+            passes, rd = judge[0](got, ref)
+            report['cases'][name].update(judged=rd, passes=passes)
+            judgement = ('; shares of envs within the limit: ' + ', '.join(
+                f'{k} {v:.4f}' for k, v in rd.items())
+                + f' -> {"pass" if passes else "FAIL"}')
+        ok &= passes
         print(f'{name}: outputs bit for bit the earlier kernel\'s: {eq} '
               f'(NaN entries {nan}); ms earlier '
               f'{times["earlier"][0]:.3f} / {times["earlier"][1]:.3f}, '
-              f'this {times["this"][0]:.3f} / {times["this"][1]:.3f}')
+              f'this {times["this"][0]:.3f} / {times["this"][1]:.3f}'
+              + judgement)
     os.makedirs('chiprun_out', exist_ok=True)
     with open(os.path.join('chiprun_out', 'kernel_ab.json'), 'w') as f:
         json.dump(report, f, indent=1)

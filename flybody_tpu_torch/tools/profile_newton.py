@@ -28,9 +28,15 @@ qfrc_smooth (ops/arrow.PHASES); the sensor stage (K4) on that forward
 pass's sensor operands (ops/sens_stage.PHASES); the contact rows (row
 7) on each preset's candidates of that forward pass's geometry (C 430, K
 64; C 222, K 24) and on the dense make_efc's (C 2,048, K 64)
-(ops/efc_stage.PHASES).
+(ops/efc_stage.PHASES); the dense factor+solve (row 17) and the
+many-right-hand-side solve (row 16) on the two-fly scene's operands two
+substeps from its flailing start at batch / 2 scenes (tools/kernel_ab.py's
+two_fly_state and dense_operands): row 17 on a default substep's M, first
+Newton Hessian and damped Euler matrix, row 16 on the default and bench
+noslip's M^-1 J_t^T, m 128 and 32 (ops/cholesky.PHASES).
 --modes picks some of block, block_full, whole, pos_stage, force_stage,
-noslip_fused, arrow_factor_solve, sens_stage, efc_contacts.
+noslip_fused, arrow_factor_solve, sens_stage, efc_contacts, chol_solve,
+cho_solve_multi.
 Per mode it prints the registers, shared memory, blocks an SM and grid of
 the kernel, its time, and the cycles of each phase per env, averaged over
 every --stride-th env, with their shares; it writes the tables to
@@ -49,7 +55,9 @@ from flybody_tpu_torch.tools import profile_engine as pe
 
 
 MODES = ('block', 'block_full', 'whole', 'pos_stage', 'force_stage',
-         'noslip_fused', 'arrow_factor_solve', 'sens_stage', 'efc_contacts')
+         'noslip_fused', 'arrow_factor_solve', 'sens_stage', 'efc_contacts',
+         'chol_solve', 'cho_solve_multi')
+DENSE_MODES = ('chol_solve', 'cho_solve_multi')  # the two-fly scene's
 
 
 def walk_passes(batch: int, seed: int):
@@ -128,16 +136,19 @@ def phase_operands(batch: int, seed: int):
 
 def kernel_runs(batch: int, seed: int, modes=MODES) -> dict:
     """{table: (fn, phases module, resources, histogram)} for the kernels
-    of `modes` on the walk_imitation presets' forward passes; fn()
-    launches the kernel once; histogram: envs by listed slots (row 11)."""
+    of `modes` on the walk_imitation presets' forward passes (and the
+    two-fly scene's, dense_runs); fn() launches the kernel once;
+    histogram: envs by listed slots (row 11)."""
     from flybody_tpu_torch.ops import arrow as ar
     from flybody_tpu_torch.ops import force_stage as fs
     from flybody_tpu_torch.ops import newton_fused as nf
     from flybody_tpu_torch.ops import noslip_gs as ng
     from flybody_tpu_torch.ops import pos_stage as ps
     from flybody_tpu_torch.ops import sens_stage as ss
+    out = dense_runs(batch // 2, seed, modes)
+    if not set(modes) - set(DENSE_MODES):
+        return out
     model, part, passes = walk_passes(batch, seed)
-    out = {}
     for mode, (kern, args, ls, it) in newton_operands(part, passes).items():
         if mode not in modes:
             continue
@@ -181,6 +192,32 @@ def kernel_runs(batch: int, seed: int, modes=MODES) -> dict:
     return out
 
 
+def dense_runs(batch: int, seed: int, modes) -> dict:
+    """kernel_runs' entries of rows 17 and 16 on the two-fly scene at
+    `batch` scenes (info['batch'])."""
+    from flybody_tpu_torch.ops import cholesky as ch
+    from flybody_tpu_torch.tools import kernel_ab as ab
+    if not set(modes) & set(DENSE_MODES):
+        return {}
+    model, data = ab.two_fly_state(batch, seed)[:2]
+    ops = ab.dense_operands(model, data)
+    out = {}
+    if 'chol_solve' in modes:
+        for what, A, b in ops['chol_solve']:
+            n = A.shape[1]
+            out[f'chol_solve[{what}]'] = (
+                lambda A=A, b=b: ch.chol_solve(A, b), ch,
+                dict(ch.kernel_info(batch, n), n=n, batch=batch), None)
+    if 'cho_solve_multi' in modes:
+        for L, R in ops['cho_solve_multi']:
+            n, m = R.shape[1:]
+            out[f'cho_solve_multi[m {m}]'] = (
+                lambda L=L, R=R: ch.cho_solve_multi(L, R), ch,
+                dict(ch.kernel_info(batch, n, m), n=n, m=m, batch=batch),
+                None)
+    return out
+
+
 def efc_runs(model, d, batch: int, modes) -> dict:
     """kernel_runs' entries of row 7 on the geometry of d."""
     from flybody_tpu_torch.ops import efc_stage as ef
@@ -212,7 +249,7 @@ def phase_tables(batch: int, seed: int, stride: int, iters: int,
     for name, (fn, mod, info, hist) in kernel_runs(batch, seed,
                                                    modes).items():
         ms = pe._time(fn, iters, True) * 1e3
-        clk = mod.record_phases(fn, batch, stride,
+        clk = mod.record_phases(fn, info.get('batch', batch), stride,
                                 torch.device('cuda')).double()
         cyc = clk.mean(0)
         total = float(cyc.sum())
@@ -230,10 +267,11 @@ def phase_tables(batch: int, seed: int, stride: int, iters: int,
 def print_tables(tables: dict, batch: int):
     for mode, r in tables.items():
         shape = ', '.join(f'{k} {r[k]}' for k in ('C', 'K', 'SB3', 'ls',
-                                                  'iterations', 'sweeps')
+                                                  'iterations', 'sweeps', 'n',
+                                                  'm')
                           if k in r)
         print(f'{mode}: {shape + "; " if shape else ""}{r["ms"]:.3f} ms at '
-              f'batch {batch}; {r["registers"]} registers, '
+              f'batch {r.get("batch", batch)}; {r["registers"]} registers, '
               f'{r["smem_bytes"]} B shared a block, {r["blocks_per_sm"]} '
               f'blocks an SM, grid {r["grid"]}; {r["cycles_per_env"]:.0f} '
               f'cycles an env ({r["sampled_envs"]} envs sampled)')

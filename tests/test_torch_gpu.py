@@ -51,8 +51,9 @@ def test_kernels_match_plain_versions_on_the_card(env):
         ['--batch', str(chip_smoke.UNPACKED_BATCH)])
     kernels += chip_smoke.unpacked_kernels(
         env.model, args, chip_smoke.UNPACKED_BATCH, chip_smoke.SEED, {})
-    assert sorted(k['name'] for k in kernels) == sorted(chip_smoke.SOURCES)
+    assert sorted({k['name'] for k in kernels}) == sorted(chip_smoke.SOURCES)
     assert len(chip_smoke.SOURCES) == 21
+    assert len(kernels) == 22  # row 16 at m 128 and at m 32
 
 
 @pytest.mark.gpu
@@ -619,3 +620,73 @@ def test_narrowphase_and_contact_rows_hold_on_ragged_and_misaligned_operands(
         moved = ef.contact_rows(model, dm, *(misaligned(c) for c in cand), K)
         for o, f in zip([moved[0]] + moved[1], flat):
             assert torch.equal(o, f), K
+
+
+def spd_batch(B, n, seed):
+    """B random SPD matrices G G^T / n + I scaled by a diagonal spanning
+    two decades, and b (B, n), on the card."""
+    g = torch.Generator(device='cpu').manual_seed(seed)
+    G = torch.randn(B, n, n, generator=g)
+    A = G @ G.transpose(1, 2) / n + torch.eye(n)
+    s = 10.0 ** (-2.0 * torch.rand(B, n, generator=g))
+    A = A * s[:, :, None] * s[:, None, :]
+    return A.cuda().contiguous(), torch.randn(B, n, generator=g).cuda()
+
+
+def hold_beside(outs, refs, tol):
+    """NaN and +-inf where the plain version has them, and every other
+    entry within tol of the largest finite |ref| at its index on axis 1."""
+    for o, r in zip(outs, refs):
+        assert torch.equal(torch.isnan(o), torch.isnan(r))
+        assert torch.equal(torch.isposinf(o), torch.isposinf(r))
+        assert torch.equal(torch.isneginf(o), torch.isneginf(r))
+        fin = torch.isfinite(r)
+        o, r = torch.where(fin, o, 0.0), torch.where(fin, r, 0.0)
+        if r.dim() == 2:
+            o, r = o[..., None], r[..., None]
+        scale = r.double().abs().amax(dim=(0, 2)).clamp(min=1e-30)
+        err = ((o.double() - r.double()).abs() / scale[None, :, None]).max()
+        assert err <= tol, float(err)
+
+
+@pytest.mark.gpu
+def test_cholesky_kernels_hold_on_ragged_batches_pivots_and_nan(env):
+    """The fused factor+solve (row 17) and the many-right-hand-side solve
+    (row 16) against their plain versions at ragged batches (1, 33 and 130
+    envs), n 1, 24 and 216, and (row 16) m 1, 32, 128 and 200, each entry
+    within chip_smoke's CHOL_ENV_TOL / SUBST_REL_TOL of its index's scale;
+    env 1 with a pivot below zero and env 2 with a zero pivot (both
+    clamped at 1e-30) and env 3 with a NaN below the diagonal of A: NaN
+    and +-inf exactly where the plain version has them. With every operand
+    moved off 16-byte alignment (element loads and stores in place of the
+    bulk copies and 16-byte accesses) the outputs are the aligned
+    launch's."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from flybody_tpu_torch.ops import cholesky as ch
+    from flybody_tpu_torch.tools.kernel_ab import same
+    for n in (1, 24, 216):
+        for B in (1, 33, 130):
+            A, b = spd_batch(B, n, 100 * n + B)
+            k = n // 2
+            for e, d in ((1, -1.0), (2, 0.0)):
+                if e < B:
+                    A[e, k, :] = 0.0
+                    A[e, :, k] = 0.0
+                    A[e, k, k] = d
+            if B > 3 and n > 1:
+                A[3, n - 1, k // 2] = float('nan')
+            L, x = ch.chol_solve(A, b)
+            Lp, xp = ch.chol_solve_ref(A, b)
+            hold_beside((L, x), (Lp, xp), chip_smoke.CHOL_ENV_TOL)
+            assert (torch.triu(L, 1) == 0).all()
+            Lm, xm = ch.chol_solve(misaligned(A), misaligned(b))
+            assert same(Lm, L) and same(xm, x)
+            for m in (1, 32, 128, 200):
+                g = torch.Generator(device='cpu').manual_seed(m)
+                R = torch.randn(B, n, m, generator=g).cuda()
+                X = ch.cho_solve_multi(Lp, R)
+                hold_beside((X,), (ch.cho_solve_multi_ref(Lp, R),),
+                            chip_smoke.SUBST_REL_TOL)
+                assert same(ch.cho_solve_multi(misaligned(Lp), misaligned(R)),
+                            X)
