@@ -85,8 +85,10 @@ Phases (any failure exits non-zero):
      K4 once); then on a flailing state's operands the new kernels against
      their plain versions (rows 18, 19, 14 and K3's dense form per env by
      each dof's scale and residual, beside a bf16-rounded-A control that
-     must fail; row 10 through newton_checks beside one iteration more,
-     which must fail) and solver.solve on the dense M for 64 envs, card
+     must fail; row 15 at n 24 and 108 against its plain version, each
+     shape timed beside its bound and torch.cholesky_solve; row 10
+     through newton_checks beside one iteration more, which must fail)
+     and solver.solve on the dense M for 64 envs, card
      against CPU, by primal cost and net normal force; then the tool's
      stage table.
 Each phase's seconds are printed.
@@ -2142,7 +2144,8 @@ def unpacked_kernels(model, args, batch, seed, report, path=None):
     fresh Newton step: the Hessian with 1 + 3 SB right-hand sides) per env
     by each dof's scale and residual, beside a bf16-rounded-A control that
     must fail; row 14 on that step's capacitance (n 24) and on M (n 108)
-    the same way. Row 10 on the first reuse launch's operands of the
+    the same way; row 15 on the capacitance's solve (n 24) and on M's
+    factor with qfrc_smooth (n 108) against its plain version. Row 10 on the first reuse launch's operands of the
     tool's own state (`path`: (the launch's arguments, M, efc, a_free) of
     the counted chain; None: a chain is run from it here) through
     newton_checks with row 8's limits, beside one iteration more, a control
@@ -2274,6 +2277,31 @@ def unpacked_kernels(model, args, batch, seed, report, path=None):
         log(f'chol (n {n}): {ms:.3f} ms kernel, {pms:.3f} ms plain, '
             f'{lms:.3f} ms torch.linalg.cholesky')
     report['unpacked_readings'] = rd
+
+    # Row 15 at the chain's shapes, each with its own time, bound and
+    # torch.cholesky_solve time (the kernels line keeps the two-fly n 216):
+    # the capacitance's solve (n 24, its factor and U t) and M's factor
+    # with the smooth force (n 108).
+    for what, L15, rhs in (('capacitance', *c15[0]),
+                           ('M', ch.chol(M), b)):
+        x, xr = ch.cho_solve(L15, rhs), ch.cho_solve_ref(L15, rhs)
+        n = L15.shape[1]
+        err, rel = compare(f'cho_solve[{what}, n {n}]', (x,), (xr,), ('x',))
+        if not rel <= SUBST_REL_TOL:
+            raise AssertionError(f'cho_solve [{what}] disagrees: rel '
+                                 f'{rel:.3e}')
+        ms = cuda_ms(lambda: ch.cho_solve(L15, rhs), 20)
+        pms = cuda_ms(lambda: ch.cho_solve_ref(L15, rhs), 3)
+        lms = cuda_ms(lambda: torch.cholesky_solve(rhs[..., None], L15), 5)
+        byts = batch * 4 * (n * (n + 1) // 2 + 2 * n)
+        report[f'cho_solve_{what}'] = dict(
+            n=n, ms=ms, plain_ms=pms, library_ms=lms, max_abs_err=err,
+            bound_ms=max(byts / HBM_BYTES_PER_S,
+                         batch * 2 * n * n / FP32_FLOPS) * 1e3)
+        log(f'cho_solve (n {n}): {ms:.3f} ms kernel, {pms:.3f} ms plain, '
+            f'{lms:.3f} ms torch.cholesky_solve, bound '
+            f'{report[f"cho_solve_{what}"]["bound_ms"]:.4f} ms')
+    del L15, rhs, x, xr
 
     # Row 10: the flailing state's first reuse launch, then the tool's.
     def stats_of(efc_, M_, af_):

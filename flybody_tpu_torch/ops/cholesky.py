@@ -13,17 +13,22 @@ step on an unpacked mass matrix (the Woodbury capacitance):
     L L^T X = R for R (B, n, m).
 
 Shapes are batch-leading: A, L (B, n, n), b (B, n). CUDA tensors launch
-csrc/cholesky.cu (float32, contiguous; anything else raises; row 17 takes
-n <= 256, row 16 n <= MULTI_ROWS); CPU tensors run the plain versions `*_ref`, which repeat the
-kernels' algorithm: a column-by-column factor that reads the lower
-triangle and clamps each pivot at 1e-30 (the TPU kernel's rsqrt(max(d,
-1e-30))), forward substitution by columns and backward substitution by dot
-products. Row 17 factors by panels of `PANEL` columns in the first
-design's order (four partial sums an entry) and gives its outputs bit for
-bit; row 16 sweeps by panels of `MULTI_PANEL` rows, each term a fused
-multiply-add (csrc/cholesky.cu). No jitter is
-added here: callers add their own. PHASES, `record_phases` and
-`kernel_info` read rows 16 and 17's phase clocks and resources.
+csrc/cholesky.cu (float32, contiguous; anything else raises; rows 14 and
+15 take n <= MAX_N, row 17 n <= 256, row 16 n <= MULTI_ROWS); CPU tensors
+run the plain versions `*_ref`, which repeat the kernels' algorithm: a
+column-by-column factor that reads the lower triangle and clamps each pivot
+at 1e-30 (the TPU kernel's rsqrt(max(d, 1e-30))), forward substitution by
+columns and backward substitution by dot products. Every factor sums in
+the first design's order (four partial sums an entry, csrc/cholesky.cu):
+row 14 a warp an env at n <= WARP_ROWS, else by panels of `PANEL` columns
+as row 17 does (the triangle in shared memory at n <= SMEM_ROWS, else in a
+workspace the wrapper allocates); rows 14, 15 and 17 give that design's
+outputs bit for bit. Row 15 runs a warp an env, lane l owning rows l + 32
+u, L staged whole at n <= WARP_ROWS, else streamed by TILE x TILE tiles;
+row 16 sweeps by panels of `MULTI_PANEL` rows, each term a fused
+multiply-add. No jitter is added here: callers add their own.
+PHASES, `record_phases` and `kernel_info` read the four rows' phase clocks
+and resources.
 """
 
 from __future__ import annotations
@@ -34,16 +39,28 @@ import torch
 
 from flybody_tpu_torch.ops import _cuda
 
-PANEL = 16  # row 17: panel width (csrc/cholesky.cu kNb)
+PANEL = 16  # rows 14 and 17: panel width (csrc/cholesky.cu kNb)
 MULTI_PANEL = 12  # row 16: panel height (kMultiNb)
 MULTI_ROWS = 224  # row 16: the largest n (32 kMultiU)
+MAX_N = 512  # rows 14 and 15: the largest n (kMaxN)
+WARP_ROWS = 32  # rows 14 and 15: a warp an env up to this n
+SMEM_ROWS = 256  # row 14: the triangle in shared memory up to this n
+TILE = 32  # row 15 above WARP_ROWS: L's tiles are TILE x TILE (kTile)
+
+
+def chol_threads(n: int) -> int:
+    """Row 14: threads a block (a block an env) above WARP_ROWS."""
+    return 32 if n <= 128 else 256
 
 
 def multi_cols(m: int) -> int:
     """Row 16: right-hand sides a block (8 kTC)."""
     return 32 if m <= 32 else 64
-# Phases of rows 16 and 17's clock instantiations (record_phases), in
-# order: row 17's factor phase includes the forward substitution.
+
+
+# Phases of the clock instantiations (record_phases), in order: row 17's
+# factor phase includes the forward substitution; row 14 has no
+# substitution (zero cycles there).
 PHASES = ('stage-in', 'factor / forward sweep',
           'substitution / backward sweep', 'store')
 
@@ -120,8 +137,13 @@ def chol(A):
     global chol_launches
     Bn, n = _check_square(A, 'A')
     L = torch.empty_like(A)
-    fn = _cuda.function('cholesky', 'chol_f32', [_P, _P, _I, _I, _P])
-    rc = fn(A.data_ptr(), L.data_ptr(), Bn, n, _cuda.stream())
+    W = None  # the factor's workspace where the triangle is too large for
+    if n > SMEM_ROWS:  # shared memory: rows padded to 16 bytes
+        W = torch.empty(Bn, n, (n + 3) // 4 * 4, device=A.device,
+                        dtype=A.dtype)
+    fn = _cuda.function('cholesky', 'chol_f32', [_P, _P, _P, _I, _I, _P])
+    rc = fn(A.data_ptr(), L.data_ptr(), None if W is None else W.data_ptr(),
+            Bn, n, _cuda.stream())
     _cuda.raise_on(rc, 'chol_f32')
     chol_launches += 1
     return L
@@ -179,7 +201,7 @@ def cho_solve_multi(L, R):
 
 
 def record_phases(fn, batch: int, stride: int, device):
-    """Runs fn() (row 16 or row 17 launches on `batch` envs) with their
+    """Runs fn() (launches of rows 14-17 on `batch` envs) with their
     phase clocks on: every stride-th env's cycles in each phase of PHASES,
     an int64 tensor (ceil(batch / stride), len(PHASES)) on the CPU (row 16:
     summed over the env's blocks, one a chunk of multi_cols(m) columns)."""
@@ -187,11 +209,14 @@ def record_phases(fn, batch: int, stride: int, device):
                                len(PHASES), fn, batch, stride, device)
 
 
-def kernel_info(batch: int, n: int, m: int = 0) -> dict:
+def kernel_info(batch: int, n: int, m: int = 0, row: int | None = None
+                ) -> dict:
     """Registers a thread, shared memory a block, blocks an SM and grid of
-    row 17's kernel (m 0) or row 16's (m right-hand sides) at n."""
+    row `row`'s kernel at n (14, 15, 16 or 17; by default row 17 for m 0,
+    else row 16 with m right-hand sides)."""
+    row = row or (16 if m else 17)
     out = (ctypes.c_int * 4)()
     fn = _cuda.function('cholesky', 'cholesky_info',
-                        [_I, _I, _I, ctypes.POINTER(ctypes.c_int * 4)])
-    _cuda.raise_on(fn(batch, n, m, ctypes.byref(out)), 'cholesky_info')
+                        [_I] * 4 + [ctypes.POINTER(ctypes.c_int * 4)])
+    _cuda.raise_on(fn(row, batch, n, m, ctypes.byref(out)), 'cholesky_info')
     return _cuda.info_dict(out)

@@ -40,10 +40,14 @@ its flailing start, batch / 2 scenes): the fused factor+solve (row 17) on
 a default substep's M, first Newton Hessian and damped Euler matrix, the
 many-right-hand-side solve (row 16) on the default and bench noslip's M^-1
 J_t^T (m 128 and 32), the single-right-hand-side solve (row 15) on a bench
-substep 8 substeps in, and the factor (row 14) on the capacitance (n 24)
-and the dense M (n 108) of tools/profile_engine.py's chain. Per case it
+substep 8 substeps in and on the default substep's M factored (row 17)
+with qfrc_smooth (n 216), and on tools/profile_engine.py's chain
+(`unpacked_operands`: the capacitance's solve, n 24, and the dense M's
+factor with qfrc_smooth, n 108), and the factor (row 14) on that chain's
+capacitance (n 24) and dense M (n 108) and on the two-fly M (n 216, as
+smooth.factor_m would factor it). Per case it
 prints whether every output is the earlier kernel's bit for bit
-(torch.equal, NaN in the same places) and both kernels' times (CUDA events
+(`same`: the same bits, NaN in the same places) and both kernels' times (CUDA events
 over --reps calls, tools/profile_engine's timer), taken in turns: earlier,
 this, this, earlier. For an output that differs it prints how many entries
 do and the largest difference. Rows 16 and 17 were redesigned to sum in
@@ -139,11 +143,17 @@ def library(name: str, lib: ctypes.CDLL):
 
 
 def same(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """torch.equal with NaN in the same places."""
+    """Bit for bit: NaN in the same places, every other entry the same
+    bits (so -0 and +0 differ; NaN payloads are not compared)."""
     na, nb = torch.isnan(a), torch.isnan(b)
-    return bool(torch.equal(na, nb)) and bool(torch.equal(
-        torch.where(na, torch.zeros_like(a), a),
-        torch.where(nb, torch.zeros_like(b), b)))
+    if not torch.equal(na, nb):
+        return False
+    a = torch.where(na, torch.zeros_like(a), a)
+    b = torch.where(nb, torch.zeros_like(b), b)
+    if a.dtype in (torch.float32, torch.float64) and a.dtype == b.dtype:
+        bits = torch.int32 if a.dtype == torch.float32 else torch.int64
+        a, b = a.contiguous().view(bits), b.contiguous().view(bits)
+    return bool(torch.equal(a, b))
 
 
 def edge_envs(nargs) -> tuple:
@@ -458,11 +468,30 @@ def dense_operands(tf_model, tf_data) -> dict:
             'cho_solve': c15.kept[0]}
 
 
+def unpacked_operands(batch: int, seed: int) -> dict:
+    """Rows 14 and 15's operands on tools/profile_engine.py's chain (the
+    walking model's dense M, `batch` envs): {'chol': [(what, A)] of the
+    capacitance (n 24) and M (n 108), 'cho_solve': [(what, (L, b))] of the
+    capacitance's solve (its factor, U t) and M's factor with
+    qfrc_smooth}."""
+    from flybody_tpu_torch.ops import cholesky as ch
+    from flybody_tpu_torch.tools import profile_engine as pe
+    args = pe.parser().parse_args(['--batch', str(batch), '--seed',
+                                   str(seed)])
+    model, d0 = pe.setup(args)
+    with recorded(ch, 'chol', 1, keep={0}) as c14, \
+            recorded(ch, 'cho_solve', 1, keep={0}) as c15:
+        d = pe.chain(model, d0, args)[0]
+    M, b = d.qM.contiguous(), d.qfrc_smooth.contiguous()
+    return {'chol': [('capacitance', c14.kept[0][0]), ('M', M)],
+            'cho_solve': [('capacitance', c15.kept[0]),
+                          ('M, qfrc_smooth', (ch.chol(M), b))]}
+
+
 def cholesky_cases(tf_model, tf_data, batch: int, seed: int, root: str):
     """Rows 14-17's cases (see the module's docstring); rows 16 and 17
     with a judge."""
     from flybody_tpu_torch.ops import cholesky as ch
-    from flybody_tpu_torch.tools import profile_engine as pe
     pch = parent_module(root, 'cholesky')
     ops = dense_operands(tf_model, tf_data)
     out = []
@@ -478,16 +507,16 @@ def cholesky_cases(tf_model, tf_data, batch: int, seed: int, root: str):
                     lambda L=L, R=R: (ch.cho_solve_multi(L, R),),
                     judged(SUBST_REL_TOL, lambda L=L, R=R: (
                         ch.cho_solve_multi_ref(L.double(), R.double()),))))
-    L, g = ops['cho_solve']
-    out.append(('cho_solve (row 15)[bench, 8 substeps in]', 'cholesky',
-                lambda: (pch.cho_solve(L, g),), lambda: (ch.cho_solve(L, g),)))
-    args = pe.parser().parse_args(['--batch', str(batch), '--seed',
-                                   str(seed)])
-    model, d0 = pe.setup(args)
-    with recorded(ch, 'chol', 1, keep={0}) as c14:
-        d = pe.chain(model, d0, args)[0]
-    for A in (c14.kept[0][0], d.qM.contiguous()):
-        out.append((f'chol (row 14)[n {A.shape[1]}]', 'cholesky',
+    _, M, qfrc = ops['chol_solve'][0]
+    un = unpacked_operands(batch, seed)
+    for what, (L, g) in [('bench, 8 substeps in', ops['cho_solve']),
+                         ('M, qfrc_smooth', (ch.chol_solve(M, qfrc)[0], qfrc))
+                         ] + un['cho_solve']:
+        out.append((f'cho_solve (row 15)[n {L.shape[1]}, {what}]', 'cholesky',
+                    lambda L=L, g=g: (pch.cho_solve(L, g),),
+                    lambda L=L, g=g: (ch.cho_solve(L, g),)))
+    for what, A in un['chol'] + [('two-fly M', M)]:
+        out.append((f'chol (row 14)[n {A.shape[1]}, {what}]', 'cholesky',
                     lambda A=A: (pch.chol(A),), lambda A=A: (ch.chol(A),)))
     return out
 

@@ -33,10 +33,14 @@ many-right-hand-side solve (row 16) on the two-fly scene's operands two
 substeps from its flailing start at batch / 2 scenes (tools/kernel_ab.py's
 two_fly_state and dense_operands): row 17 on a default substep's M, first
 Newton Hessian and damped Euler matrix, row 16 on the default and bench
-noslip's M^-1 J_t^T, m 128 and 32 (ops/cholesky.PHASES).
+noslip's M^-1 J_t^T, m 128 and 32, row 15 on a bench substep 8 substeps in
+(n 216); the factor (row 14) and row 15 on tools/profile_engine.py's chain
+at --batch (kernel_ab.unpacked_operands: row 14 on the capacitance, n 24,
+and the dense M, n 108; row 15 on the capacitance's solve and on M's
+factor with qfrc_smooth) (ops/cholesky.PHASES).
 --modes picks some of block, block_full, whole, pos_stage, force_stage,
 noslip_fused, arrow_factor_solve, sens_stage, efc_contacts, chol_solve,
-cho_solve_multi.
+cho_solve_multi, chol, cho_solve.
 Per mode it prints the registers, shared memory, blocks an SM and grid of
 the kernel, its time, and the cycles of each phase per env, averaged over
 every --stride-th env, with their shares; it writes the tables to
@@ -56,8 +60,9 @@ from flybody_tpu_torch.tools import profile_engine as pe
 
 MODES = ('block', 'block_full', 'whole', 'pos_stage', 'force_stage',
          'noslip_fused', 'arrow_factor_solve', 'sens_stage', 'efc_contacts',
-         'chol_solve', 'cho_solve_multi')
-DENSE_MODES = ('chol_solve', 'cho_solve_multi')  # the two-fly scene's
+         'chol_solve', 'cho_solve_multi', 'chol', 'cho_solve')
+DENSE_MODES = ('chol_solve', 'cho_solve_multi', 'cho_solve')  # two flies'
+UNPACKED_MODES = ('chol', 'cho_solve')  # tools/profile_engine.py's chain
 
 
 def walk_passes(batch: int, seed: int):
@@ -146,7 +151,8 @@ def kernel_runs(batch: int, seed: int, modes=MODES) -> dict:
     from flybody_tpu_torch.ops import pos_stage as ps
     from flybody_tpu_torch.ops import sens_stage as ss
     out = dense_runs(batch // 2, seed, modes)
-    if not set(modes) - set(DENSE_MODES):
+    out.update(unpacked_runs(batch, seed, modes))
+    if not set(modes) - set(DENSE_MODES) - set(UNPACKED_MODES):
         return out
     model, part, passes = walk_passes(batch, seed)
     for mode, (kern, args, ls, it) in newton_operands(part, passes).items():
@@ -193,7 +199,7 @@ def kernel_runs(batch: int, seed: int, modes=MODES) -> dict:
 
 
 def dense_runs(batch: int, seed: int, modes) -> dict:
-    """kernel_runs' entries of rows 17 and 16 on the two-fly scene at
+    """kernel_runs' entries of rows 17, 16 and 15 on the two-fly scene at
     `batch` scenes (info['batch'])."""
     from flybody_tpu_torch.ops import cholesky as ch
     from flybody_tpu_torch.tools import kernel_ab as ab
@@ -215,6 +221,36 @@ def dense_runs(batch: int, seed: int, modes) -> dict:
                 lambda L=L, R=R: ch.cho_solve_multi(L, R), ch,
                 dict(ch.kernel_info(batch, n, m), n=n, m=m, batch=batch),
                 None)
+    if 'cho_solve' in modes:
+        L, g = ops['cho_solve']
+        n = L.shape[1]
+        out[f'cho_solve[n {n}, bench, 8 substeps in]'] = (
+            lambda: ch.cho_solve(L, g), ch,
+            dict(ch.kernel_info(batch, n, row=15), n=n, batch=batch), None)
+    return out
+
+
+def unpacked_runs(batch: int, seed: int, modes) -> dict:
+    """kernel_runs' entries of rows 14 and 15 on tools/profile_engine.py's
+    chain (kernel_ab.unpacked_operands: n 24 and 108)."""
+    from flybody_tpu_torch.ops import cholesky as ch
+    from flybody_tpu_torch.tools import kernel_ab as ab
+    if not set(modes) & set(UNPACKED_MODES):
+        return {}
+    ops = ab.unpacked_operands(batch, seed)
+    out = {}
+    if 'chol' in modes:
+        for what, A in ops['chol']:
+            n = A.shape[1]
+            out[f'chol[n {n}, {what}]'] = (
+                lambda A=A: ch.chol(A), ch,
+                dict(ch.kernel_info(batch, n, row=14), n=n), None)
+    if 'cho_solve' in modes:
+        for what, (L, b) in ops['cho_solve']:
+            n = L.shape[1]
+            out[f'cho_solve[n {n}, {what}]'] = (
+                lambda L=L, b=b: ch.cho_solve(L, b), ch,
+                dict(ch.kernel_info(batch, n, row=15), n=n), None)
     return out
 
 

@@ -65,7 +65,8 @@ HAND_KERNELS = {
     'sens_stage_kernel': ('sensors',),
     'chol_solve_kernel': ('factor_solve', 'newton', 'euler'),
     'cho_solve_multi_kernel': ('noslip',),
-    'cho_solve_kernel': ('newton',),
+    'cho_solve_tiles_kernel': ('newton',),  # row 15 (n > 32)
+    'cho_solve_warp32_kernel': ('newton',),  # row 15 (n <= 32)
     'linesearch_kernel': ('newton',),
     'noslip_gs_kernel': ('noslip',),
 }

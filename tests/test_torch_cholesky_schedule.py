@@ -2,12 +2,14 @@
 side Cholesky solve (row 16) in plain torch, on the CPU.
 
 csrc/cholesky.cu's row 17 kernel factors by panels of PANEL columns,
-left-looking, in the first design's order (cholesky.cuh chol_factor: each
+left-looking, in the first design's order (its chol_factor: each
 entry's terms in four partial sums, term j in partial j mod 4, ascending,
 the last k mod 4 in partial 0; combined as (s0 + s1) + (s2 + s3)): thread
-t forms row k0 + t's partial sums over the columns left of the panel,
-warp 0 adds the diagonal block's own columns and takes its pivots (lane r
-holds row r), then every row below adds the panel's columns and takes
+t holds row k0 + t's partial sums over the columns left of the panel
+(thread pair (t, t ^ 1) forms rows k0 + t and k0 + (t ^ 1) together, each
+over half the panel's columns, and the pair swaps halves), warp 0 adds
+the diagonal block's own columns and takes its pivots (lane r holds row
+r), then every row below adds the panel's columns and takes
 them, and subtracts its forward-substitution terms. The backward
 substitution goes by panels from the
 last: warp 0 solves the panel's rows from the last up, then every row above
@@ -90,7 +92,7 @@ def part_of(jc, kc):
 
 
 def chol_factor_part(j, k):
-    """The first design's left-looking factor (cholesky.cuh chol_factor):
+    """The first design's left-looking factor (chol_factor, since removed):
     the partial sum of term j of an entry in column k."""
     return j % 4 if j < 4 * (k // 4) else 0
 
@@ -189,9 +191,9 @@ def close(out, ref, what, tol):
 def test_row17_panels_assign_each_term_as_the_first_design(n):
     """Every term j < k of every entry (i, k), i >= k, goes to the partial
     sum that chol_factor gives it, exactly once: the terms left of the
-    panel by j mod 4 (in the rows' own threads, ascending), the panel's own
-    columns by part_of; and each row of the panel's columns goes to one
-    thread (row k0 + t to thread t, the diagonal block's to warp 0)."""
+    panel by j mod 4 (ascending), the panel's own columns by part_of; and
+    each row of the panel's columns goes to one thread (row k0 + t to
+    thread t, the diagonal block's to warp 0)."""
     for k0 in range(0, n, NB):
         kb = min(NB, n - k0)
         rows = {k0 + t: t for t in range(THREADS) if k0 + t < n}

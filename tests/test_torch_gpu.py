@@ -391,7 +391,7 @@ def test_contact_selection_orders_ties_and_nan_as_a_stable_sort(env):
 def test_dense_wrappers_refuse_what_their_kernels_do_not_take(env):
     """chol_solve, cho_solve, cho_solve_multi, line_search and gs raise on
     a float64 or a non-contiguous CUDA operand instead of running their
-    plain versions."""
+    plain versions, and chol and cho_solve on n above MAX_N."""
     from flybody_tpu_torch.ops import cholesky, linesearch, noslip_gs
     dev = torch.device('cuda')
     B, n = 4, 24
@@ -409,6 +409,11 @@ def test_dense_wrappers_refuse_what_their_kernels_do_not_take(env):
     with pytest.raises(ValueError, match='contiguous'):
         cholesky.cho_solve_multi(L, torch.ones(B, 3, n, device=dev)
                                  .transpose(1, 2))
+    big = torch.eye(cholesky.MAX_N + 1, device=dev)[None].contiguous()
+    with pytest.raises(RuntimeError, match='chol_f32'):
+        cholesky.chol(big)
+    with pytest.raises(RuntimeError, match='cho_solve_f32'):
+        cholesky.cho_solve(big, big[:, 0].contiguous())
     lim = torch.zeros(B, 4, 8, device=dev)
     con = torch.zeros(B, 10, 5, device=dev)
     sc = torch.ones(B, 2, device=dev)
@@ -651,21 +656,25 @@ def hold_beside(outs, refs, tol):
 
 @pytest.mark.gpu
 def test_cholesky_kernels_hold_on_ragged_batches_pivots_and_nan(env):
-    """The fused factor+solve (row 17) and the many-right-hand-side solve
-    (row 16) against their plain versions at ragged batches (1, 33 and 130
-    envs), n 1, 24 and 216, and (row 16) m 1, 32, 128 and 200, each entry
-    within chip_smoke's CHOL_ENV_TOL / SUBST_REL_TOL of its index's scale;
-    env 1 with a pivot below zero and env 2 with a zero pivot (both
-    clamped at 1e-30) and env 3 with a NaN below the diagonal of A: NaN
-    and +-inf exactly where the plain version has them. With every operand
-    moved off 16-byte alignment (element loads and stores in place of the
-    bulk copies and 16-byte accesses) the outputs are the aligned
-    launch's."""
+    """The factor (row 14), the one-right-hand-side solve (row 15), the
+    fused factor+solve (row 17) and the many-right-hand-side solve (row 16)
+    against their plain versions at ragged batches (1, 33 and 130 envs),
+    n 1, 24, 37, 108, 216 and 300 (rows 17 and 16 to their largest n, 256
+    and MULTI_ROWS) and (row 16) m 1, 32, 128 and 200, each entry within
+    chip_smoke's CHOL_ENV_TOL / SUBST_REL_TOL of its index's scale; env 1
+    with a pivot below zero and env 2 with a zero pivot (both clamped at
+    1e-30) and env 3 with a NaN below the diagonal of A (and at 130 envs
+    a zero right-hand side in env 2, -0 in env 5): NaN and +-inf exactly
+    where the plain version has them. Rows 14 and 15 give the first
+    design's outputs, as row 17 does: row 14's L is row 17's bit for bit,
+    and row 15 on row 17's L gives its x. With every operand moved off
+    16-byte alignment (element loads and stores in place of the bulk
+    copies and 16-byte accesses) the outputs are the aligned launch's."""
     sys.path.insert(0, REPO)
     import chip_smoke
     from flybody_tpu_torch.ops import cholesky as ch
     from flybody_tpu_torch.tools.kernel_ab import same
-    for n in (1, 24, 216):
+    for n in (1, 24, 37, 108, 216, 300):
         for B in (1, 33, 130):
             A, b = spd_batch(B, n, 100 * n + B)
             k = n // 2
@@ -676,12 +685,28 @@ def test_cholesky_kernels_hold_on_ragged_batches_pivots_and_nan(env):
                     A[e, k, k] = d
             if B > 3 and n > 1:
                 A[3, n - 1, k // 2] = float('nan')
+            if B > 5:  # zero right-hand sides: over a zero pivot, and -0
+                b[2] = 0.0
+                b[5] = -0.0
+            L14, Lp = ch.chol(A), ch.chol_ref(A)
+            hold_beside((L14,), (Lp,), chip_smoke.CHOL_ENV_TOL)
+            assert (torch.triu(L14, 1) == 0).all()
+            assert same(ch.chol(misaligned(A)), L14)
+            x15 = ch.cho_solve(Lp, b)
+            hold_beside((x15,), (ch.cho_solve_ref(Lp, b),),
+                        chip_smoke.SUBST_REL_TOL)
+            assert same(ch.cho_solve(misaligned(Lp), misaligned(b)), x15)
+            if n > 256:
+                continue
             L, x = ch.chol_solve(A, b)
-            Lp, xp = ch.chol_solve_ref(A, b)
+            xp = ch.cho_solve_ref(Lp, b)
             hold_beside((L, x), (Lp, xp), chip_smoke.CHOL_ENV_TOL)
             assert (torch.triu(L, 1) == 0).all()
+            assert same(L14, L) and same(ch.cho_solve(L, b), x)
             Lm, xm = ch.chol_solve(misaligned(A), misaligned(b))
             assert same(Lm, L) and same(xm, x)
+            if n > ch.MULTI_ROWS:
+                continue
             for m in (1, 32, 128, 200):
                 g = torch.Generator(device='cpu').manual_seed(m)
                 R = torch.randn(B, n, m, generator=g).cuda()
