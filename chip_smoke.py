@@ -47,7 +47,8 @@ Phases (any failure exits non-zero):
      Each Newton mode's, K1's, K2's, K3's (its packed
      one-right-hand-side kernel), K4's, the narrowphase's (compact and
      dense), the merged MPR's, the contact rows' (each preset's and the
-     dense widths) and the fused noslip's registers a thread, shared
+     dense widths), the fused noslip's and the line search's (row 13,
+     two-fly widths) registers a thread, shared
      memory a block, blocks an SM and grid are printed
      (kernel_resources), with the share of the merged
      MPR's warps whose lanes share one type-pair key at each preset's P
@@ -85,8 +86,13 @@ Phases (any failure exits non-zero):
      K4 once); then on a flailing state's operands the new kernels against
      their plain versions (rows 18, 19, 14 and K3's dense form per env by
      each dof's scale and residual, beside a bf16-rounded-A control that
-     must fail; row 15 at n 24 and 108 against its plain version, each
-     shape timed beside its bound and torch.cholesky_solve; row 10
+     must fail, K3's dense form at m 25 and at m 1 (Euler's damped M),
+     each timed beside its bound and torch.linalg.solve, with its
+     resources; row 15 at n 24 and 108 against its plain version, each
+     shape timed beside its bound and torch.cholesky_solve; row 13 at the
+     chain's widths (L 204, K 32) per search against its plain version at
+     30 refinement steps (read at the path's 6), timed beside its bound,
+     with its resources; row 10
      through newton_checks beside one iteration more, which must fail)
      and solver.solve on the dense M for 64 envs, card
      against CPU, by primal cost and net normal force; then the tool's
@@ -1813,7 +1819,10 @@ def dense_kernels(batch, seed, report):
         nbytes((lim, con, sc)) + 4 * batch,
         batch * evals * (8 * L_ + 60 * K_)))
     log(f'line_search (L {L_}, K {K_}, {l_it} steps): {ms:.3f} ms kernel, '
-        f'{pms:.3f} ms plain')
+        f'{pms:.3f} ms plain; limit rows kept '
+        f'{lsm.live_rows(lim, e_it).double().mean().item():.4f}')
+    kernel_resources(f'line_search[L {L_}, K {K_}]',
+                     lsm.kernel_info(batch, L_, K_), batch, report)
     return entries
 
 
@@ -2137,15 +2146,18 @@ def reuse_flops(part, K, L, SB3, n_iters, ls_iters) -> float:
 
 
 def unpacked_kernels(model, args, batch, seed, report, path=None):
-    """Rows 14, 18, 19 and 10 and K3's dense form against their plain
+    """Rows 13, 14, 18, 19 and 10 and K3's dense form against their plain
     versions at the path's shapes, on the operands of one pass of the
     chain from the flailing state: rows 18 (factor_m on the dense M) and 19
     (solve_m, m 1; and m 25, the JAX tool's micro-bench) and K3 (the first
-    fresh Newton step: the Hessian with 1 + 3 SB right-hand sides) per env
+    fresh Newton step: the Hessian with 1 + 3 SB right-hand sides; euler:
+    the damped M, m 1) per env
     by each dof's scale and residual, beside a bf16-rounded-A control that
     must fail; row 14 on that step's capacitance (n 24) and on M (n 108)
     the same way; row 15 on the capacitance's solve (n 24) and on M's
-    factor with qfrc_smooth (n 108) against its plain version. Row 10 on the first reuse launch's operands of the
+    factor with qfrc_smooth (n 108) against its plain version; row 13 on
+    the first search (L 204, K 32) per search at 30 refinement steps.
+    Row 10 on the first reuse launch's operands of the
     tool's own state (`path`: (the launch's arguments, M, efc, a_free) of
     the counted chain; None: a chain is run from it here) through
     newton_checks with row 8's limits, beside one iteration more, a control
@@ -2160,6 +2172,7 @@ def unpacked_kernels(model, args, batch, seed, report, path=None):
     import torch
     from flybody_tpu_torch.ops import arrow as ar
     from flybody_tpu_torch.ops import cholesky as ch
+    from flybody_tpu_torch.ops import linesearch as lsm
     from flybody_tpu_torch.ops import newton_fused as nf
     from flybody_tpu_torch.physics import engine, solver
     from flybody_tpu_torch.tools import profile_engine as pe
@@ -2167,10 +2180,12 @@ def unpacked_kernels(model, args, batch, seed, report, path=None):
     part = ar.build_partition(model.meta)
     nv = part.nv
     d0 = flail_data(model, batch, seed)
-    with recording(ar, 'factor_solve', {0}) as c3, \
+    euler_call = UNPACKED_PER_CHAIN['arrow_factor_solve'] - 1
+    with recording(ar, 'factor_solve', {0, euler_call}) as c3, \
             recording(ch, 'chol', {0}) as c14, \
             recording(ch, 'cho_solve', {0}) as c15, \
-            recording(nf, 'reuse', {0}) as c10:
+            recording(nf, 'reuse', {0}) as c10, \
+            recording(lsm, 'line_search', {0}) as c13:
         d, efc, a_free, qacc, _, _ = pe.chain(model, d0, args)
     ops = solver.operands(efc, engine.PRESETS['default']['sb_break'])
     log('unpacked kernel operands (flailing state): ' + contact_line(efc)
@@ -2249,7 +2264,71 @@ def unpacked_kernels(model, args, batch, seed, report, path=None):
     log(f'arrow_factor_solve (dense A, m {rhs.shape[2]}): {ms:.3f} ms '
         f'kernel, {pms:.3f} ms plain, {lms:.3f} ms torch.linalg.solve, '
         f'bound {report["arrow_factor_solve_dense"]["bound_ms"]:.4f} ms')
+    kernel_resources(f'arrow_factor_solve[dense, m {rhs.shape[2]}]',
+                     ar.kernel_info(part, batch, rhs.shape[2]), batch,
+                     report)
     del H, rhs, Fk, xk, Fr, xr
+
+    # K3's dense form at m 1: euler's damped M, a launch a chain.
+    _, Me, be = c3[euler_call]
+    Fk, xk = ar.factor_solve(part, Me, be)
+    Fr, xr = ar.factor_solve_ref(part, Me, be)
+    rd['arrow_factor_solve dense m 1'] = solve_gate(
+        'arrow_factor_solve[euler M, m 1]', Me, be, xk, xr,
+        ar.factor_solve_ref(part, bf16(Me), be)[1])
+    ms = cuda_ms(lambda: ar.factor_solve(part, Me, be), 20)
+    pms = cuda_ms(lambda: ar.factor_solve_ref(part, Me, be), 3)
+    lms = cuda_ms(lambda: torch.linalg.solve(Me, be), 5)
+    byts = a_bytes + nbytes((be, Fk, xk))
+    report['arrow_factor_solve_dense_m1'] = dict(
+        m=1, ms=ms, plain_ms=pms, library_ms=lms,
+        max_abs_err=(xk - xr).abs().max().item(),
+        bound_ms=max(byts / HBM_BYTES_PER_S, batch * arrow_flops(
+            part, 1, True) / FP32_FLOPS) * 1e3)
+    log(f'arrow_factor_solve (dense A, m 1): {ms:.3f} ms kernel, {pms:.3f} '
+        f'ms plain, {lms:.3f} ms torch.linalg.solve, bound '
+        f'{report["arrow_factor_solve_dense_m1"]["bound_ms"]:.4f} ms')
+    kernel_resources('arrow_factor_solve[dense, m 1]',
+                     ar.kernel_info(part, batch, 1), batch, report)
+    del Me, be, Fk, xk, Fr, xr
+
+    # Row 13 at the chain's widths (L 204, K 32), per search: held at 30
+    # refinement steps, where the bracket collapses (at the path's 6 steps
+    # on these flailing operands rounding picks which end of the bracket
+    # moves in a few percent of the searches: read, beside one refinement
+    # step fewer), and timed.
+    lim, con, sc, e_it, l_it = c13[0]
+    a13 = lsm.line_search(lim, con, sc, e_it, l_it)
+    r13 = lsm.line_search_ref(lim, con, sc, e_it, l_it)
+    rd13 = {'kernel_share at ls 30': ls_share(
+                lsm.line_search(lim, con, sc, e_it, 30),
+                lsm.line_search_ref(lim, con, sc, e_it, 30)),
+            'kernel_share at the path\'s steps (read)': ls_share(a13, r13),
+            'control one refinement step fewer (read)': ls_share(
+                lsm.line_search_ref(lim, con, sc, e_it, l_it - 1), r13),
+            'limit rows kept': lsm.live_rows(lim, e_it).double().mean(
+                ).item()}
+    log('  line_search readings, chain (share of searches within '
+        f'{LS_ATOL:.0e} + {LS_RTOL:.0e} |alpha|): ' + json.dumps(rd13))
+    if not rd13['kernel_share at ls 30'] >= LS_SHARE:
+        raise AssertionError(f'line_search (chain) disagrees: {rd13}')
+    rd['line_search'] = rd13
+    L_, K_ = lim.shape[2], con.shape[2]
+    ms = cuda_ms(lambda: lsm.line_search(lim, con, sc, e_it, l_it), 20)
+    pms = cuda_ms(lambda: lsm.line_search_ref(lim, con, sc, e_it, l_it), 3)
+    evals = e_it + 2 * l_it + 1
+    byts = nbytes((lim, con, sc)) + 4 * batch
+    fl = batch * evals * (8 * L_ + 60 * K_)
+    report['line_search_unpacked'] = dict(
+        L=L_, K=K_, ls=l_it, ms=ms, plain_ms=pms, library_ms=None,
+        max_abs_err=(a13 - r13).abs().max().item(),
+        bound_ms=max(byts / HBM_BYTES_PER_S, fl / FP32_FLOPS) * 1e3)
+    log(f'line_search (L {L_}, K {K_}, {l_it} steps): {ms:.3f} ms kernel, '
+        f'{pms:.3f} ms plain, bound '
+        f'{report["line_search_unpacked"]["bound_ms"]:.4f} ms')
+    kernel_resources(f'line_search[L {L_}, K {K_}]',
+                     lsm.kernel_info(batch, L_, K_), batch, report)
+    del lim, con, sc, a13, r13, c13
 
     # Row 14: the capacitance (n 24, with the rhs U t of its cho_solve) and
     # M (n 108).

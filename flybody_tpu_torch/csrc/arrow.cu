@@ -50,8 +50,27 @@
 // operations of the one-warp kernel this replaced in the same order, so F
 // and x are that kernel's bit for bit.
 //
-// The dense form, several right-hand sides (arrow_kernel) and rows 18 and
-// 19: the matrix is gathered into the packed layout in shared memory, the
+// K3 on a dense A (the unpacked chain's fresh arrow Newton step, m 1 + 3
+// SB = 25, and Euler's damped M, m 1): arrow_dense_kernel, the same block
+// and register tile. The live rows of A come in as 16-byte asynchronous
+// copies of each limb row's run widened to 16-byte bounds and of the root
+// rows, staged in the right-hand sides' room and packed from there (the
+// first design's 4-byte loads, each entry twice, lost most of its time to
+// the SM throttling their scattered requests); the limb blocks are
+// symmetrized as the factor loads its columns, in gather_dense's order,
+// and the factor is the fs1 kernel's. At m > 1 a lane takes a right-hand
+// side and each warp a set of limbs (dense_warps), with the lane's y in
+// registers and the factor read by broadcast; every entry takes
+// arrow_solve's terms in arrow_solve's order (two root right-hand sides a
+// warp side by side), so F and x are arrow_kernel's bit for bit. At m 1
+// the substitution is the fs1 kernel's. What holds it (PERF.md): at eight
+// blocks an SM the substitution's chains (each row's division waits for
+// the row below, in the back substitution) and the stage-in's reads of
+// scattered rows.
+//
+// Several right-hand sides on a packed A, a partition off the tile, and
+// rows 18 and 19 (arrow_kernel): the matrix is gathered into the packed
+// layout in shared memory, the
 // right-hand sides stored one after another, groups of threads factor the
 // limb blocks (with their root borders) in place, the block forms the root
 // Schur complement, one thread factors the small root block, and the
@@ -203,16 +222,24 @@ __device__ __forceinline__ Lane k3_lane(const Fs1Args& a) {
 // by row; each column j > k subtracts L[i, k] L[j, k] from its rows i >= j
 // and its border rows. Every entry sees the operations of the one-warp
 // kernel's column loop (arrow_factor) in the same order. All threads take
-// part (the broadcasts span each warp).
-template <int kDm, int kNr>
+// part (the broadcasts span each warp). kSym: D holds a dense matrix's
+// raw block, symmetrized as it loads, (D[i, j] + D[j, i]) / 2 in
+// gather_dense's order (only thread j reads row j above the diagonal).
+template <int kDm, int kNr, bool kSym = false>
 __device__ __forceinline__ void k3_limb_factor(float* A, const ArrowPart& p,
                                                const Lane& ln) {
   const int dm = p.dm, nr = p.nr, j = ln.j, d = ln.d;
   float* D = A + ln.l * (dm + nr) * dm;
   float c[kDm + kNr];
 #pragma unroll
-  for (int i = 0; i < kDm; ++i)
-    c[i] = (j >= 0 && i >= j && i < d) ? D[i * dm + j] : 0.f;
+  for (int i = 0; i < kDm; ++i) {
+    if constexpr (kSym)
+      c[i] = (j >= 0 && i >= j && i < d)
+                 ? 0.5f * (D[i * dm + j] + D[j * dm + i])
+                 : 0.f;
+    else
+      c[i] = (j >= 0 && i >= j && i < d) ? D[i * dm + j] : 0.f;
+  }
 #pragma unroll
   for (int r = 0; r < kNr; ++r)
     c[kDm + r] = (j >= 0 && r < nr) ? D[(dm + r) * dm + j] : 0.f;
@@ -576,6 +603,406 @@ cudaError_t fs1_run(const Fs1Args& a, int B, void* stream, int* blocks,
   return fs1_launch<false, kTileDm, kTileNr>(a, B, smem, stream, blocks);
 }
 
+// ---- K3's dense form (arrow_dense_kernel): a dense A, m right-hand
+// sides.
+
+struct DenseArgs : Fs1Args {
+  int m;       // right-hand sides
+  int sw[16];  // warp of each limb in the many-right-hand-side solve
+  int vec;     // dense_stage by 16-byte copies
+};
+
+// A staged limb row's room: its run widened to 16-byte bounds (at most 5
+// chunks at the register tile's 14 floats).
+constexpr int kSlot = 20;
+
+// A's live rows (global, row-major (nv, nv)) into the staging S: limb row
+// i (the i-th limb dof's row over its limb's columns) widened to 16-byte
+// bounds into S + kSlot i, then the root rows A[0:nr, :] whole; five lanes
+// a row, six rows a warp, by asynchronous copies (the caller waits). vec
+// (A 16-byte aligned, nv even): 16-byte copies; else the run's own floats
+// by 4-byte copies, which the SM issues slowly when there are many.
+__device__ __forceinline__ void dense_stage(const float* __restrict__ Ae,
+                                            float* S, const ArrowPart& p,
+                                            bool vec) {
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const int nv = p.nv, nr = p.nr, rows = nv - nr, piece = lane % 5;
+  for (int i = 6 * w + lane / 5; lane < 30 && i < rows;
+       i += 6 * (kFsThreads / 32)) {
+    int l = 0;
+    while (i + nr >= p.lo[l] + p.d[l]) ++l;
+    const int off = (i + nr) * nv + p.lo[l], s0 = (off & ~3) + 4 * piece;
+    if (s0 >= off + p.d[l]) continue;
+    float* dst = S + kSlot * i + 4 * piece;
+    if (vec) {
+      cp_async16(dst, Ae + s0);
+      continue;
+    }
+    for (int k = 0; k < 4; ++k)
+      if (s0 + k >= off && s0 + k < off + p.d[l])
+        cp_async4(dst + k, Ae + s0 + k);
+  }
+  float* R = S + kSlot * rows;
+  for (int c = t; c < (nr * nv + 3) / 4; c += kFsThreads) {
+    if (vec) {
+      cp_async16(R + 4 * c, Ae + 4 * c);
+      continue;
+    }
+    for (int k = 4 * c; k < 4 * c + 4 && k < nr * nv; ++k)
+      cp_async4(R + k, Ae + k);
+  }
+}
+
+// The packed layout from dense_stage's staging S, as gather_dense forms
+// it: the limb blocks' rows raw (k3_limb_factor<kSym> symmetrizes them as
+// it loads), the borders from the root rows, the root block's lower
+// triangle symmetrized, (R[r, c] + R[c, r]) / 2 in gather_dense's order
+// (its upper triangle stays zero: it only feeds Schur complement entries
+// that the root factor zeroes), the identity on padded limb diagonals; a
+// half-warp a row run, the runs dealt round robin over the eight
+// half-warps. A holds zeros. Needs dm <= 16 (the register tile's 14).
+__device__ __forceinline__ void dense_extract(const float* S, float* A,
+                                              const ArrowPart& p) {
+  const int t = threadIdx.x, h = t >> 4, c = t & 15;
+  const int dm = p.dm, nr = p.nr, nv = p.nv, rowlen = (dm + nr) * dm;
+  const float* Rs = S + kSlot * (nv - nr);
+  int base = 0;  // row runs dealt before limb l
+  for (int l = 0; l < p.nl; ++l) {
+    const int d = p.d[l], lo = p.lo[l];
+    float* D = A + l * rowlen;
+    for (int q = (h - base) & 7; q < d + nr; q += 8) {
+      if (c >= d) continue;
+      const int off = (lo + q) * nv + lo;  // limb row q's first float
+      if (q < d)
+        D[q * dm + c] = S[kSlot * (lo - nr + q) + (off & 3) + c];
+      else
+        D[(dm + q - d) * dm + c] = Rs[(q - d) * nv + lo + c];
+    }
+    base += d + nr;
+    if (t < dm - d) D[(d + t) * (dm + 1)] = 1.f;
+  }
+  float* R = A + p.nl * rowlen;
+  for (int q = (h - base) & 7; q < nr; q += 8)
+    if (c <= q) R[q * dm + c] = 0.5f * (Rs[q * nv + c] + Rs[c * nv + q]);
+}
+
+// The many-right-hand-side substitution (m > 1), X (nv, m) in shared
+// memory (b's and x's layout), a lane a right-hand side and the limbs
+// dealt to the warps (sw): each lane keeps its limb's y in registers and
+// reads the factor by broadcast. Every entry takes arrow_solve's terms in
+// arrow_solve's order (the forward rows, the root right-hand side over
+// the limbs and their dofs in order, the root solve, the border terms,
+// then the back rows), so x is arrow_kernel's bit for bit.
+template <int kDm, int kNr, bool kExact>
+__device__ __forceinline__ void dm_forward(const float* F, float* X, int m,
+                                           const ArrowPart& p,
+                                           const int* sw) {
+  const int dm = kExact ? kDm : p.dm, nr = kExact ? kNr : p.nr;
+  const int w = threadIdx.x >> 5, rowlen = (dm + nr) * dm;
+  for (int j = threadIdx.x & 31; j < m; j += 32)
+    for (int l = 0; l < p.nl; ++l) {
+      if (sw[l] != w) continue;
+      const float* D = F + l * rowlen;
+      float* y = X + p.lo[l] * m + j;
+      const int d = p.d[l];
+      float v[kDm];
+#pragma unroll
+      for (int k = 0; k < kDm; ++k) {
+        if (k < d) {
+          float s = y[k * m];
+#pragma unroll
+          for (int i = 0; i < k; ++i) s -= D[k * dm + i] * v[i];
+          v[k] = div_rn(s, D[k * dm + k]);
+          y[k * m] = v[k];
+        }
+      }
+    }
+}
+
+// The root right-hand sides x_r - sum_l LB_l y_l, a warp two root dofs r
+// and r + 4 side by side and a lane a right-hand side; then the root
+// solve, a thread a right-hand side with its x_r in registers.
+template <int kDm, int kNr, bool kExact>
+__device__ __forceinline__ void dm_root(const float* F, float* X, int m,
+                                        const ArrowPart& p) {
+  const int dm = kExact ? kDm : p.dm, nr = kExact ? kNr : p.nr;
+  const int t = threadIdx.x, nl = p.nl;
+  const int rowlen = (dm + nr) * dm, nw = kFsThreads / 32;
+  for (int r = t >> 5; r < nr; r += 2 * nw)
+    for (int j = t & 31; j < m; j += 32) {
+      const bool two = r + nw < nr;
+      float s0 = X[r * m + j], s1 = two ? X[(r + nw) * m + j] : 0.f;
+      for (int l = 0; l < nl; ++l) {
+        const float* LB = F + l * rowlen + (dm + r) * dm;
+        const float* y = X + p.lo[l] * m + j;
+        const int d = p.d[l];
+        if (two) {
+#pragma unroll 4
+          for (int k = 0; k < d; ++k) {
+            const float yk = y[k * m];
+            s0 -= LB[k] * yk;
+            s1 -= LB[nw * dm + k] * yk;
+          }
+        } else {
+#pragma unroll 4
+          for (int k = 0; k < d; ++k) s0 -= LB[k] * y[k * m];
+        }
+      }
+      X[r * m + j] = s0;
+      if (two) X[(r + nw) * m + j] = s1;
+    }
+  __syncthreads();
+  const float* LR = F + nl * rowlen;
+  for (int j = t; j < m; j += kFsThreads) {
+    float x[kNr];
+#pragma unroll
+    for (int i = 0; i < kNr; ++i) x[i] = i < nr ? X[i * m + j] : 0.f;
+#pragma unroll
+    for (int k = 0; k < kNr; ++k) {
+      if (k < nr) {
+        float s = x[k];
+#pragma unroll
+        for (int i = 0; i < k; ++i) s -= LR[k * dm + i] * x[i];
+        x[k] = div_rn(s, LR[k * dm + k]);
+      }
+    }
+#pragma unroll
+    for (int k = kNr - 1; k >= 0; --k) {
+      if (k < nr) {
+        float s = x[k];
+#pragma unroll
+        for (int i = k + 1; i < kNr; ++i)
+          if (i < nr) s -= LR[i * dm + k] * x[i];
+        x[k] = div_rn(s, LR[k * dm + k]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kNr; ++i)
+      if (i < nr) X[i * m + j] = x[i];
+  }
+}
+
+template <int kDm, int kNr, bool kExact>
+__device__ __forceinline__ void dm_back(const float* F, float* X, int m,
+                                        const ArrowPart& p, const int* sw) {
+  const int dm = kExact ? kDm : p.dm, nr = kExact ? kNr : p.nr;
+  const int w = threadIdx.x >> 5;
+  const int rowlen = (dm + nr) * dm;
+  for (int j = threadIdx.x & 31; j < m; j += 32) {
+    float xr[kNr];
+#pragma unroll
+    for (int r = 0; r < kNr; ++r) xr[r] = r < nr ? X[r * m + j] : 0.f;
+    for (int l = 0; l < p.nl; ++l) {
+      if (sw[l] != w) continue;
+      const float* D = F + l * rowlen;
+      float* y = X + p.lo[l] * m + j;
+      const int d = p.d[l];
+      float v[kDm];
+#pragma unroll
+      for (int a = 0; a < kDm; ++a) {
+        if (a < d) {
+          float s = y[a * m];
+#pragma unroll
+          for (int r = 0; r < kNr; ++r)
+            if (r < nr) s -= D[(dm + r) * dm + a] * xr[r];
+          v[a] = s;
+        }
+      }
+#pragma unroll
+      for (int k = kDm - 1; k >= 0; --k) {
+        if (k < d) {
+          float s = v[k];
+#pragma unroll
+          for (int i = k + 1; i < kDm; ++i)
+            if (i < d) s -= D[i * dm + k] * v[i];
+          v[k] = div_rn(s, D[k * dm + k]);
+          y[k * m] = v[k];
+        }
+      }
+    }
+  }
+}
+
+// Shared memory: the mbarrier, the matrix (factored in place), b -> x
+// (before b, dense_stage's staging).
+__host__ __device__ __forceinline__ int dense_floats(const ArrowPart& p,
+                                                     int m) {
+  const int stage = kSlot * (p.nv - p.nr) + up4(p.nr * p.nv);
+  return 4 + up4((p.nl + 1) * (p.dm + p.nr) * p.dm) +
+         up4(p.nv * m > stage ? p.nv * m : stage);
+}
+
+// A block of 128 threads an env. Stage-in: A's live rows staged
+// (dense_stage) while A's room is zeroed, then packed (dense_extract),
+// then b (a bulk copy, else by elements) into the staging's room. The
+// factor is arrow_fs1_kernel's (its limb blocks symmetrized as the columns
+// load, k3_limb_factor<kSym>), F leaving by a bulk store once final.
+// kMulti: the lane-a-right-hand-side substitution; else (m 1) the fs1
+// kernel's own. kExact: dm and nr are the tile's (the walk's 14 and 6),
+// so the substitution's offsets are constants. Phases: ops/arrow.PHASES.
+template <bool kClock, int kDm, int kNr, bool kMulti, bool kExact>
+__global__ void __launch_bounds__(kFsThreads, 8)
+    arrow_dense_kernel(const __grid_constant__ DenseArgs a) {
+  extern __shared__ __align__(16) float sm[];
+  const int t = threadIdx.x;
+  const size_t e = blockIdx.x;
+  long long ph[kFsPhases], c_last = 0;
+  if constexpr (kClock) {
+    for (int i = 0; i < kFsPhases; ++i) ph[i] = 0;
+    c_last = clock64();
+  }
+  const ArrowPart& p = a.p;
+  const int nv = p.nv, m = a.m, nb = nv * m;
+  const int msize = (p.nl + 1) * (p.dm + p.nr) * p.dm;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm);
+  float* A = sm + 4;
+  float* X = A + up4(msize);
+  const bool bb = a.bulk & 2u;
+  const Lane ln = k3_lane(a);
+
+  // ---- Stage-in: A's live rows staged in X, then packed; b into X once
+  // the staging is read.
+  dense_stage(a.A + e * nv * nv, X, p, a.vec);
+  if (t == 0 && bb) {
+    mbar_init(bar, 1);
+    mbar_expect_bytes(bar, 4u * nb);
+  }
+  float4* A4 = reinterpret_cast<float4*>(A);
+  for (int k = t; k < up4(msize) / 4; k += kFsThreads)
+    A4[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+  cp_async_wait_all();
+  __syncthreads();
+  dense_extract(X, A, p);
+  fence_proxy_async();
+  __syncthreads();
+  if (bb && t == 0) bulk_load(X, a.b + e * nb, 4u * nb, bar);
+  if (!bb)
+    for (int k = t; k < nb; k += kFsThreads) X[k] = a.b[e * nb + k];
+  PHASE(0);
+
+  // ---- The factor; F leaves as soon as it is final.
+  k3_limb_factor<kDm, kNr, true>(A, p, ln);
+  __syncthreads();
+  PHASE(1);
+  k3_root_factor<kNr>(A, p);
+  if (a.bulk & 4u) {
+    fence_proxy_async();
+    __syncthreads();
+    if (t == 0) {
+      bulk_store(a.F + e * msize, A, 4u * msize);
+      bulk_commit();
+    }
+  } else {
+    __syncthreads();
+    for (int k = t; k < msize; k += kFsThreads) a.F[e * msize + k] = A[k];
+  }
+  PHASE(2);
+
+  // ---- The substitution.
+  if (bb) mbar_wait(bar, 0);
+  if constexpr (kMulti) {
+    dm_forward<kDm, kNr, kExact>(A, X, m, p, a.sw);
+    __syncthreads();
+    PHASE(3);
+    dm_root<kDm, kNr, kExact>(A, X, m, p);
+    __syncthreads();
+    PHASE(4);
+    dm_back<kDm, kNr, kExact>(A, X, m, p, a.sw);
+  } else {
+    k3_forward<kDm>(A, X, p, ln);
+    __syncthreads();
+    PHASE(3);
+    k3_root_solve<kNr>(A, X, p);
+    __syncthreads();
+    PHASE(4);
+    k3_back<kDm>(A, X, p, ln);
+  }
+  if (a.bulk & 8u) {
+    fence_proxy_async();
+    __syncthreads();
+    PHASE(5);
+    if (t == 0) {
+      bulk_store(a.x + e * nb, X, 4u * nb);
+      bulk_commit();
+    }
+  } else {
+    __syncthreads();
+    PHASE(5);
+    for (int k = t; k < nb; k += kFsThreads) a.x[e * nb + k] = X[k];
+  }
+  if (t == 0 && (a.bulk & 12u)) bulk_wait_read();
+  PHASE(6);
+  if constexpr (kClock) {
+    if (t == 0 && e % a.clk_stride == 0)
+      for (int i = 0; i < kFsPhases; ++i)
+        a.clk[(e / a.clk_stride) * kFsPhases + i] += ph[i];
+  }
+}
+
+// Host: deals the limbs to the block's warps for the many-right-hand-side
+// substitution, the costliest first (d (d + nr) multiply-adds a
+// right-hand side) to the least loaded warp.
+void dense_warps(const ArrowPart& p, int* sw) {
+  int load[kFsThreads / 32] = {0};
+  bool done[16] = {false};
+  for (int n = 0; n < p.nl; ++n) {
+    int l = -1;
+    for (int q = 0; q < p.nl; ++q)
+      if (!done[q] && (l < 0 || p.d[q] > p.d[l])) l = q;
+    done[l] = true;
+    int w = 0;
+    for (int v = 1; v < kFsThreads / 32; ++v)
+      if (load[v] < load[w]) w = v;
+    sw[l] = w;
+    load[w] += p.d[l] * (p.d[l] + p.nr);
+  }
+}
+
+template <bool kClock, bool kMulti>
+cudaError_t dense_launch(const DenseArgs& a, int B, size_t smem,
+                         void* stream, int* blocks) {
+  auto kern = arrow_dense_kernel<kClock, kTileDm, kTileNr, kMulti, false>;
+  if constexpr (kMulti)
+    if (a.p.dm == kTileDm && a.p.nr == kTileNr)
+      kern = arrow_dense_kernel<kClock, kTileDm, kTileNr, true, true>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern,
+                                                      kFsThreads, smem);
+  if (err != cudaSuccess || B < 1) return err;
+  kern<<<B, kFsThreads, smem, (cudaStream_t)stream>>>(a);
+  return cudaGetLastError();
+}
+
+// Launches (B >= 1) or only sizes (B 0) the instantiation for a.
+cudaError_t dense_run(const DenseArgs& a, int B, void* stream, int* blocks,
+                      cudaFuncAttributes* fa) {
+  const size_t smem = sizeof(float) * (size_t)dense_floats(a.p, a.m);
+  if (smem > 232448) return cudaErrorInvalidValue;
+  const bool multi = a.m > 1;
+  if (fa)
+    return cudaFuncGetAttributes(
+        fa, multi ? arrow_dense_kernel<false, kTileDm, kTileNr, true, true>
+                  : arrow_dense_kernel<false, kTileDm, kTileNr, false, false>);
+  if (a.clk)
+    return multi ? dense_launch<true, true>(a, B, smem, stream, blocks)
+                 : dense_launch<true, false>(a, B, smem, stream, blocks);
+  return multi ? dense_launch<false, true>(a, B, smem, stream, blocks)
+               : dense_launch<false, false>(a, B, smem, stream, blocks);
+}
+
+// The dense form's arguments; false when the partition is off the
+// register tile (arrow_kernel takes it).
+bool dense_args(const ArrowPart* part, int m, unsigned bulk, DenseArgs* a) {
+  *a = DenseArgs{};
+  a->p = *part, a->m = m, a->bulk = bulk;
+  if (!fs1_fits(a->p, a->first)) return false;
+  a->vec = (bulk & 1u) && a->p.nv % 2 == 0;
+  dense_warps(a->p, a->sw);
+  return true;
+}
+
 }  // namespace
 
 // K3: A (B, nv, nv) when dense, else (B, nl+1, dm+nr, dm); b, x (B, nv, m).
@@ -615,10 +1042,28 @@ FB_API int arrow_factor_solve1_f32(const float* A, const float* b, float* F,
   return (int)fs1_run(a, B, stream, &blocks, nullptr);
 }
 
-// Phase clocks: while clk is set, every arrow_factor_solve1_f32 launch runs
-// the clock instantiation and adds the cycles of each phase of every
-// stride-th env to clk ((ceil(B / stride), kFsPhases) int64); nullptr
-// turns it off.
+// K3 on a dense A (B, nv, nv) with m >= 1 right-hand sides b, x (B, nv,
+// m): arrow_dense_kernel, or arrow_kernel for a partition off its tile
+// (the same F and x). bulk: as arrow_factor_solve1_f32's (bit 0: A's
+// live rows by 16-byte copies).
+FB_API int arrow_factor_solve_dense_f32(const float* A, const float* b,
+                                        float* F, float* x, int B, int m,
+                                        unsigned bulk, const ArrowPart* part,
+                                        void* stream) {
+  DenseArgs a;
+  if (B < 1 || m < 1) return -1;
+  if (!dense_args(part, m, bulk, &a))
+    return launch<true, true>(A, b, F, x, B, 1, m, part, stream);
+  a.A = A, a.b = b, a.F = F, a.x = x;
+  if (g_clk) a.clk = g_clk, a.clk_stride = g_clk_stride;
+  int blocks = 0;
+  return (int)dense_run(a, B, stream, &blocks, nullptr);
+}
+
+// Phase clocks: while clk is set, every arrow_factor_solve1_f32 and
+// arrow_factor_solve_dense_f32 launch runs its kernel's clock
+// instantiation and adds the cycles of each phase of every stride-th env
+// to clk ((ceil(B / stride), kFsPhases) int64); nullptr turns it off.
 FB_API int arrow_phase_clock(long long* clk, int stride) {
   if (stride < 1) return -1;
   g_clk = clk, g_clk_stride = stride;
@@ -639,6 +1084,22 @@ FB_API int arrow_fs1_info(const ArrowPart* part, int B, int* out) {
   err = fs1_run(a, 0, nullptr, &blocks, nullptr);
   if (err != cudaSuccess) return (int)err;
   out[0] = fa.numRegs, out[1] = (int)(sizeof(float) * fs1_floats(a.p));
+  out[2] = blocks, out[3] = B;
+  return 0;
+}
+
+// Resources of arrow_dense_kernel's main instantiation for this partition
+// and m: as arrow_fs1_info's.
+FB_API int arrow_dense_info(const ArrowPart* part, int m, int B, int* out) {
+  DenseArgs a;
+  if (m < 1 || !dense_args(part, m, 0u, &a)) return -1;
+  cudaFuncAttributes fa;
+  cudaError_t err = dense_run(a, 0, nullptr, nullptr, &fa);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = dense_run(a, 0, nullptr, &blocks, nullptr);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = fa.numRegs, out[1] = (int)(sizeof(float) * dense_floats(a.p, m));
   out[2] = blocks, out[3] = B;
   return 0;
 }

@@ -94,6 +94,29 @@ __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
+// One float, or 16 bytes (both addresses 16-byte aligned), from global
+// into shared memory by an asynchronous copy (cp.async: no register
+// staging, so a thread keeps many in flight); cp_async_wait_all waits for
+// the thread's own copies. Many scattered 4-byte copies issue slowly: the
+// SM throttles their requests.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // Floats a shared staging buffer leaves before a slab bound for (or from)
 // `g`, so that the two agree modulo 16 bytes: the slab then starts at
 // stage + stage_shift(g), stage 16-byte aligned with 3 floats of room.

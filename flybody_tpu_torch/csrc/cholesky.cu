@@ -866,17 +866,6 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// r / d, correctly rounded: a zero r over a d that is neither zero nor
-// NaN gives the zero of the two signs' product without the division,
-// whose fast path sends a zero numerator to its slow path (half the envs
-// of the two-fly bench state have a zero right-hand side; PERF.md).
-__device__ __forceinline__ float div_rn(float r, float d) {
-  if (r == 0.f && d != 0.f && d == d)
-    return __int_as_float((__float_as_int(r) ^ __float_as_int(d)) &
-                          0x80000000);
-  return r / d;
-}
-
 // --------------------------------------------------- rows 14, 15 at n <= 32
 
 // Row i < n of the env's row-major (n, n) matrix M (global), columns j <=
@@ -1051,20 +1040,6 @@ __global__ void __launch_bounds__(32 * kWarpEnvs)
 // asynchronous copies in flight while the lanes work on the current one.
 constexpr int kTile = 32;
 constexpr int kTp = 36;
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");

@@ -177,6 +177,18 @@ __device__ __forceinline__ float dot6(const float* a, const float* b) {
   return s;
 }
 
+// r / d, correctly rounded: a zero r over a d that is neither zero nor
+// NaN gives the zero of the two signs' product without the division,
+// whose fast path sends a zero numerator to its slow path (half the envs
+// of the two-fly bench state have a zero right-hand side, and most of the
+// Woodbury columns of the arrow Newton step are zero on a limb; PERF.md).
+__device__ __forceinline__ float div_rn(float r, float d) {
+  if (r == 0.f && d != 0.f && d == d)
+    return __int_as_float((__float_as_int(r) ^ __float_as_int(d)) &
+                          0x80000000);
+  return r / d;
+}
+
 // Sum over the 32 lanes of a warp; every lane returns the total.
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -285,8 +285,10 @@ def factor_solve_ref(part: Part, A, b):
 # ---------------------------------------------------------------------------
 # Kernels: K3 (factor + solve), row 18 (factor), row 19 (substitution).
 
-# Phases of K3's packed one-right-hand-side kernel (record_phases), in
-# order.
+# Phases of K3's kernels (record_phases), in order: the packed
+# one-right-hand-side kernel's and the dense form's (whose limb factor
+# symmetrizes the blocks as they load, and whose root solve at m > 1
+# includes the root right-hand sides).
 PHASES = ('stage-in', 'limb factor', 'root factor, F out',
           'forward substitution', 'root solve', 'back substitution',
           'write-out')
@@ -344,10 +346,11 @@ def factor_solve(part: Part, A, b):
     """Kernel K3: the packed factor F of A (dense (B, nv, nv) or packed
     (B, nl+1, dm+nr, dm)) and x = A^-1 b, b (B, nv) or (B, nv, m).
 
-    CUDA tensors (float32) launch the kernel (a packed A with one
-    right-hand side: arrow_fs1_kernel, a 128-thread block an env, where
-    the partition fits its lanes and register tile; else arrow_kernel);
-    CPU tensors take factor_solve_ref."""
+    CUDA tensors (float32) launch the kernel (a 128-thread block an env
+    where the partition fits the register tile's lanes: a packed A with
+    one right-hand side arrow_fs1_kernel, a dense A arrow_dense_kernel;
+    else, or a packed A with several, arrow_kernel); CPU tensors take
+    factor_solve_ref."""
     if A.device.type == 'cpu' and b.device.type == 'cpu':
         return factor_solve_ref(part, A, b)
     global launches
@@ -355,7 +358,15 @@ def factor_solve(part: Part, A, b):
     m = _check_rhs(part, b, Bn)
     F = _packed_like(part, A)
     x = torch.empty_like(b)
-    if not dense and m == 1:
+    if dense:
+        fn = _cuda.function('arrow', 'arrow_factor_solve_dense_f32', [
+            _P, _P, _P, _P, _I, _I, ctypes.c_uint, ctypes.POINTER(CPart),
+            _P])
+        rc = fn(A.data_ptr(), b.data_ptr(), F.data_ptr(), x.data_ptr(), Bn,
+                m, _cuda.bulk_mask((A, b, F, x)), ctypes.byref(c_part(part)),
+                _cuda.stream())
+        _cuda.raise_on(rc, 'arrow_factor_solve_dense_f32')
+    elif m == 1:
         fn = _cuda.function('arrow', 'arrow_factor_solve1_f32', [
             _P, _P, _P, _P, _I, ctypes.c_uint, ctypes.POINTER(CPart), _P])
         rc = fn(A.data_ptr(), b.data_ptr(), F.data_ptr(), x.data_ptr(), Bn,
@@ -373,23 +384,30 @@ def factor_solve(part: Part, A, b):
 
 
 def record_phases(fn, batch: int, stride: int, device):
-    """Runs fn() (K3 launches on a packed A with one right-hand side, on
-    `batch` envs) with arrow_fs1_kernel's phase clocks on: every stride-th
-    env's cycles in each phase of PHASES, an int64 tensor (ceil(batch /
-    stride), len(PHASES)) on the CPU."""
+    """Runs fn() (K3 launches on `batch` envs: a packed A with one
+    right-hand side, or a dense A) with arrow_fs1_kernel's and
+    arrow_dense_kernel's phase clocks on: every stride-th env's cycles in
+    each phase of PHASES, an int64 tensor (ceil(batch / stride),
+    len(PHASES)) on the CPU."""
     return _cuda.record_phases('arrow', 'arrow_phase_clock', len(PHASES),
                                fn, batch, stride, device)
 
 
-def kernel_info(part: Part, batch: int) -> dict:
+def kernel_info(part: Part, batch: int, m: int | None = None) -> dict:
     """Registers a thread, shared memory a block, blocks an SM and grid
-    blocks of arrow_fs1_kernel (K3, packed, one right-hand side) for this
-    partition at this batch."""
+    blocks of K3's kernel for this partition at this batch:
+    arrow_fs1_kernel (packed, one right-hand side), or with m the dense
+    form's arrow_dense_kernel at m right-hand sides."""
     out = (ctypes.c_int * 4)()
-    fn = _cuda.function('arrow', 'arrow_fs1_info', [
-        ctypes.POINTER(CPart), _I, ctypes.POINTER(ctypes.c_int * 4)])
-    _cuda.raise_on(fn(ctypes.byref(c_part(part)), batch, ctypes.byref(out)),
-                   'arrow_fs1_info')
+    ptr = [ctypes.POINTER(CPart), _I, ctypes.POINTER(ctypes.c_int * 4)]
+    if m is None:
+        fn = _cuda.function('arrow', 'arrow_fs1_info', ptr)
+        rc = fn(ctypes.byref(c_part(part)), batch, ctypes.byref(out))
+    else:
+        fn = _cuda.function('arrow', 'arrow_dense_info',
+                            ptr[:1] + [_I] + ptr[1:])
+        rc = fn(ctypes.byref(c_part(part)), m, batch, ctypes.byref(out))
+    _cuda.raise_on(rc, 'arrow_fs1_info' if m is None else 'arrow_dense_info')
     return _cuda.info_dict(out)
 
 

@@ -10,7 +10,9 @@ Bracket doubling from a = 1, then guarded Newton/bisection on phi'; fixed
 trip counts. Its CUDA counterpart is `ls_alpha_warp` in
 csrc/linesearch.cuh, which the Newton kernels (csrc/newton.cu) inline and
 the standalone kernel of the dense path (`line_search`, row 13, the TPU's
-`_ls_pallas`; csrc/linesearch.cu) runs one warp per env.
+`_ls_pallas`; csrc/linesearch.cu) runs one warp per env, with each env's
+operands staged once (contact slots in registers, the limit rows that can
+carry weight in shared memory).
 """
 
 from __future__ import annotations
@@ -22,6 +24,11 @@ import torch
 from flybody_tpu_torch.ops import _cuda
 
 launches = 0  # line_search kernel launches
+
+# Phases of the staged kernel's clock instantiation (record_phases), in
+# order: the operands staged, the bracket doubling, the guarded
+# Newton/bisection steps, the slope at 0 and the store.
+PHASES = ('stage-in', 'bracket', 'refinement', 'final slope')
 
 
 def slope_curv(a, lim, con, sm0, smm):
@@ -95,6 +102,20 @@ def line_search_ref(lim, con, sc, expand_iters: int, ls_iters: int):
                      expand_iters, ls_iters)
 
 
+def live_rows(lim, expand_iters: int):
+    """The limit rows the kernel keeps (csrc/linesearch.cu ls_row_dead),
+    (B, L) bool from lim (B, 4, L): all but the rows whose weight active *
+    D is zero with every operand finite and |jar0| + 2^expand_iters |jv|
+    and |D| times it at most 1e37, which add +-0 to phi' and phi'' at
+    every step of the search (alpha <= 2^expand_iters)."""
+    jl, vl, al, Dl = (t.float() for t in lim.unbind(1))
+    amax = torch.tensor(2.0 ** min(expand_iters, 128), dtype=torch.float32)
+    jar = jl.abs() + amax * vl.abs()
+    dead = (((al == 0) | (Dl == 0)) & (jar <= 1e37) & (Dl.abs() * jar <= 1e37)
+            & (al.abs() <= 1e37))
+    return ~dead
+
+
 def line_search(lim, con, sc, expand_iters: int, ls_iters: int):
     """Row 13 on CUDA tensors, `line_search_ref` on CPU tensors."""
     if lim.device.type == 'cpu':
@@ -113,3 +134,24 @@ def line_search(lim, con, sc, expand_iters: int, ls_iters: int):
     _cuda.raise_on(rc, 'line_search_f32')
     launches += 1
     return alpha
+
+
+def record_phases(fn, batch: int, stride: int, device):
+    """Runs fn() (row 13 launches on `batch` envs) with the staged
+    kernel's phase clocks on: every stride-th env's cycles in each phase of
+    PHASES, an int64 tensor (ceil(batch / stride), len(PHASES)) on the
+    CPU."""
+    return _cuda.record_phases('linesearch', 'line_search_phase_clock',
+                               len(PHASES), fn, batch, stride, device)
+
+
+def kernel_info(batch: int, L: int, K: int) -> dict:
+    """Registers a thread, shared memory a block, blocks an SM and grid
+    blocks of the staged kernel at these widths (it takes K <= 64, L <=
+    512; the first design takes the rest)."""
+    out = (ctypes.c_int * 4)()
+    I = ctypes.c_int
+    fn = _cuda.function('linesearch', 'line_search_info',
+                        [I] * 3 + [ctypes.POINTER(I * 4)])
+    _cuda.raise_on(fn(batch, L, K, ctypes.byref(out)), 'line_search_info')
+    return _cuda.info_dict(out)

@@ -1,16 +1,17 @@
-"""K1-K4 and rows 5, 6, 7, 11 and 14-17 against an earlier tree's kernels on the card.
+"""K1-K4 and rows 5, 6, 7, 11 and 13-17 against an earlier tree's kernels on the card.
 
     python -m flybody_tpu_torch.tools.kernel_ab --parent DIR [--batch 8192]
 
 DIR is the root of an unpacked earlier tree (for example `git archive` of
 the parent commit into a directory that .gitignore lists). Its
 csrc/pos_stage.cu, csrc/narrowphase.cu, csrc/mpr.cu, csrc/efc_stage.cu,
-csrc/force_stage.cu, csrc/noslip.cu, csrc/arrow.cu, csrc/sens_stage.cu and
-csrc/cholesky.cu (`KERNELS`) are built into separate libraries and
-driven through its own wrappers (ops/pos_stage.py, ops/narrowphase.py,
-ops/mpr_kernel.py, ops/efc_stage.py, ops/force_stage.py, ops/noslip_gs.py,
-ops/arrow.py, ops/sens_stage.py, ops/cholesky.py, loaded under other module
-names), beside
+csrc/force_stage.cu, csrc/noslip.cu, csrc/arrow.cu, csrc/sens_stage.cu,
+csrc/cholesky.cu and csrc/linesearch.cu (`KERNELS`) are built into
+separate libraries and driven through its own wrappers (ops/pos_stage.py,
+ops/narrowphase.py, ops/mpr_kernel.py, ops/efc_stage.py,
+ops/force_stage.py, ops/noslip_gs.py, ops/arrow.py, ops/sens_stage.py,
+ops/cholesky.py, ops/linesearch.py, loaded under other module names),
+beside
 this tree's kernels, on the same operands: the position stage (K1) on the
 walk state of tools/profile_newton.py, on walk_imitation's state after a
 control step at each preset, on the two-fly scene two substeps from its
@@ -45,7 +46,14 @@ with qfrc_smooth (n 216), and on tools/profile_engine.py's chain
 (`unpacked_operands`: the capacitance's solve, n 24, and the dense M's
 factor with qfrc_smooth, n 108), and the factor (row 14) on that chain's
 capacitance (n 24) and dense M (n 108) and on the two-fly M (n 216, as
-smooth.factor_m would factor it). Per case it
+smooth.factor_m would factor it); K3's dense form (`arrow_ls_cases`) on
+that chain's first fresh arrow Newton step (the Hessian, m 25) and its
+Euler solve (the damped M, m 1), and on dense edge envs of both
+(`arrow_dense_edge_envs`); the line search (row 13) on the first search
+of a two-fly default substep (L 408, K 64, ls 8), of the bench substep 8
+substeps in (K 24, ls 6) and of that chain (L 204, K 32, ls 6), and on
+edge envs (`ls_edge_envs`), printing the share of limit rows it keeps
+(ops/linesearch.live_rows) on each. Per case it
 prints whether every output is the earlier kernel's bit for bit
 (`same`: the same bits, NaN in the same places) and both kernels' times (CUDA events
 over --reps calls, tools/profile_engine's timer), taken in turns: earlier,
@@ -399,7 +407,7 @@ def mpr_edge_candidates(c1, c2, prm) -> tuple:
 
 
 KERNELS = ('pos_stage', 'narrowphase', 'mpr', 'efc_stage', 'force_stage',
-           'noslip', 'arrow', 'sens_stage', 'cholesky')
+           'noslip', 'arrow', 'sens_stage', 'cholesky', 'linesearch')
 # chip_smoke.py's limits for rows 16 and 17 (CHOL_ENV_TOL, SUBST_REL_TOL,
 # CHOL_ENV_SHARE).
 CHOL_ENV_TOL = 1e-3
@@ -442,58 +450,117 @@ def judged(tol, f64_fn):
 
 
 def dense_operands(tf_model, tf_data) -> dict:
-    """Rows 15-17's operands on the two-fly scene from tf_data:
+    """Rows 13 and 15-17's operands on the two-fly scene from tf_data:
     {'chol_solve': [(what, A, b)] of a default substep (its M, first Newton
     Hessian and damped Euler matrix), 'cho_solve_multi': [(L, R)] of the
     default and the bench noslip (M^-1 J_t^T, m 128 and 32), 'cho_solve':
     (L, g) of a bench substep 8 substeps in (where half the envs are in
-    contact)}."""
+    contact), 'line_search': [(what, (lim, con, sc, expand, ls))] of the
+    default substep's first search (L 408, K 64, ls 8) and of that bench
+    substep's (K 24, ls 6)}."""
     from flybody_tpu_torch.ops import cholesky as ch
+    from flybody_tpu_torch.ops import linesearch as lsm
     from flybody_tpu_torch.physics import engine
     default, bench = engine.PRESETS['default'], engine.PRESETS['bench']
     calls = default['solver_iterations'] + 2
     with recorded(ch, 'chol_solve', 1, keep={0, 1, calls - 1}) as c17, \
-            recorded(ch, 'cho_solve_multi', 1) as c16:
+            recorded(ch, 'cho_solve_multi', 1) as c16, \
+            recorded(lsm, 'line_search', 1, keep={0}) as c13:
         engine.step(tf_model, tf_data, default)
     deeper = tf_data
     for _ in range(6):
         deeper = engine.step(tf_model, deeper, bench).strip()
     with recorded(ch, 'cho_solve', 1, keep={0}) as c15, \
-            recorded(ch, 'cho_solve_multi', 1) as c16b:
+            recorded(ch, 'cho_solve_multi', 1) as c16b, \
+            recorded(lsm, 'line_search', 1, keep={0}) as c13b:
         engine.step(tf_model, deeper, bench)
     return {'chol_solve': [(what, *c17.kept[i]) for what, i in (
                 ('M', 0), ('Newton Hessian', 1),
                 ('M + dt damping', calls - 1))],
             'cho_solve_multi': [c16.args[0], c16b.args[0]],
-            'cho_solve': c15.kept[0]}
+            'cho_solve': c15.kept[0],
+            'line_search': [('two-fly default', c13.kept[0]),
+                            ('two-fly bench, 8 substeps in', c13b.kept[0])]}
 
 
 def unpacked_operands(batch: int, seed: int) -> dict:
-    """Rows 14 and 15's operands on tools/profile_engine.py's chain (the
-    walking model's dense M, `batch` envs): {'chol': [(what, A)] of the
-    capacitance (n 24) and M (n 108), 'cho_solve': [(what, (L, b))] of the
-    capacitance's solve (its factor, U t) and M's factor with
-    qfrc_smooth}."""
+    """Rows 13-15's and K3's dense form's operands on
+    tools/profile_engine.py's chain (the walking model's dense M, `batch`
+    envs): {'chol': [(what, A)] of the capacitance (n 24) and M (n 108),
+    'cho_solve': [(what, (L, b))] of the capacitance's solve (its factor,
+    U t) and M's factor with qfrc_smooth, 'factor_solve': [(what, (part,
+    A, b))] of the first fresh arrow Newton step (the Hessian, 1 + 3 SB
+    right-hand sides) and of euler (the damped M, one right-hand side),
+    'line_search': (lim, con, sc, expand, ls) of the first search (L 204,
+    K 32)}."""
+    from flybody_tpu_torch.ops import arrow as ar
     from flybody_tpu_torch.ops import cholesky as ch
+    from flybody_tpu_torch.ops import linesearch as lsm
     from flybody_tpu_torch.tools import profile_engine as pe
     args = pe.parser().parse_args(['--batch', str(batch), '--seed',
                                    str(seed)])
     model, d0 = pe.setup(args)
     with recorded(ch, 'chol', 1, keep={0}) as c14, \
-            recorded(ch, 'cho_solve', 1, keep={0}) as c15:
+            recorded(ch, 'cho_solve', 1, keep={0}) as c15, \
+            recorded(ar, 'factor_solve', 1, keep={0}) as k3, \
+            recorded(lsm, 'line_search', 1, keep={0}) as c13:
         d = pe.chain(model, d0, args)[0]
     M, b = d.qM.contiguous(), d.qfrc_smooth.contiguous()
     return {'chol': [('capacitance', c14.kept[0][0]), ('M', M)],
             'cho_solve': [('capacitance', c15.kept[0]),
-                          ('M, qfrc_smooth', (ch.chol(M), b))]}
+                          ('M, qfrc_smooth', (ch.chol(M), b))],
+            'factor_solve': [('Newton Hessian', k3.kept[0]),
+                             ('euler', k3.args[-1])],
+            'line_search': c13.kept[0]}
 
 
-def cholesky_cases(tf_model, tf_data, batch: int, seed: int, root: str):
-    """Rows 14-17's cases (see the module's docstring); rows 16 and 17
-    with a judge."""
+def arrow_dense_edge_envs(part, A, b) -> tuple:
+    """K3's dense operands with the first envs made edge cases: a NaN in
+    one triangle of a limb block; a negative pivot of a limb block; a zero
+    pivot of the root block; an asymmetric limb entry (the
+    symmetrization's order shows); an infinite border entry; a NaN
+    between two limbs, where no kernel reads."""
+    A = A.clone()
+    lo0, lo1 = part.los[0], part.los[1]
+    A[0, lo0 + 2, lo0 + 1] = float('nan')
+    A[1, lo0, lo0] = -1.0
+    A[2, 0, 0] = 0.0
+    A[3, lo0 + 3, lo0 + 1] += 1e-3 * A[3, lo0 + 3, lo0 + 3].abs()
+    A[4, 2, lo1] = float('inf')
+    A[5, lo0, lo1] = float('nan')
+    return A, b
+
+
+def ls_edge_envs(lim, con, sc, expand_iters) -> tuple:
+    """Row 13's operands with the first envs made edge cases: every limit
+    row inactive; a zero direction (jv, the slots' jv and both smooth
+    terms 0); rows of +-0, +-inf and NaN, live and of zero weight; a
+    zero-weight row with a NaN jv; a zero-weight row of finite operands
+    whose products overflow (the kernel keeps it); a zero-weight row
+    just inside the kept rule's bound (dropped)."""
+    lim, con, sc = lim.clone(), con.clone(), sc.clone()
+    lim[0, 2] = 0.0
+    lim[1, 1] = 0.0
+    con[1, 3:6] = 0.0
+    sc[1] = 0.0
+    inf, nan = float('inf'), float('nan')
+    rows = torch.tensor([[-0.0, inf, 0.0, 1.0], [nan, -inf, 0.0, -0.0],
+                         [0.0, -0.0, 1.0, inf], [inf, 1.0, -0.0, 0.0]],
+                        device=lim.device)
+    lim[2, :, :4] = rows.T
+    lim[3, :, 0] = torch.tensor([-1.0, nan, 0.0, 2.0], device=lim.device)
+    lim[4, :, 0] = torch.tensor([1e38, 1e38, 0.0, 1e30], device=lim.device)
+    amax = 2.0 ** expand_iters
+    lim[5, :, 0] = torch.tensor([-1e36, -1e36 / amax, 0.0, 4.0],
+                                device=lim.device)
+    return lim, con, sc
+
+
+def cholesky_cases(ops, un, root: str):
+    """Rows 14-17's cases (see the module's docstring) on dense_operands'
+    `ops` and unpacked_operands' `un`; rows 16 and 17 with a judge."""
     from flybody_tpu_torch.ops import cholesky as ch
     pch = parent_module(root, 'cholesky')
-    ops = dense_operands(tf_model, tf_data)
     out = []
     for what, A, b in ops['chol_solve']:
         out.append((f'chol_solve (row 17)[{what}]', 'cholesky',
@@ -508,7 +575,6 @@ def cholesky_cases(tf_model, tf_data, batch: int, seed: int, root: str):
                     judged(SUBST_REL_TOL, lambda L=L, R=R: (
                         ch.cho_solve_multi_ref(L.double(), R.double()),))))
     _, M, qfrc = ops['chol_solve'][0]
-    un = unpacked_operands(batch, seed)
     for what, (L, g) in [('bench, 8 substeps in', ops['cho_solve']),
                          ('M, qfrc_smooth', (ch.chol_solve(M, qfrc)[0], qfrc))
                          ] + un['cho_solve']:
@@ -518,6 +584,38 @@ def cholesky_cases(tf_model, tf_data, batch: int, seed: int, root: str):
     for what, A in un['chol'] + [('two-fly M', M)]:
         out.append((f'chol (row 14)[n {A.shape[1]}, {what}]', 'cholesky',
                     lambda A=A: (pch.chol(A),), lambda A=A: (ch.chol(A),)))
+    return out
+
+
+def arrow_ls_cases(ops, un, root: str):
+    """K3's dense form's and row 13's cases (see the module's docstring)
+    on dense_operands' `ops` and unpacked_operands' `un`; prints the share
+    of limit rows the line search keeps (live_rows) on each path's
+    operands."""
+    from flybody_tpu_torch.ops import arrow as ar
+    from flybody_tpu_torch.ops import linesearch as lsm
+    par, pls = parent_module(root, 'arrow'), parent_module(root, 'linesearch')
+    out = []
+    k3 = list(un['factor_solve'])
+    k3 += [(f'{what}, edge envs', (a[0],) + arrow_dense_edge_envs(*a))
+           for what, a in un['factor_solve']]
+    for what, (part, A, b) in k3:
+        m = 1 if b.dim() == 2 else b.shape[2]
+        out.append((f'arrow_factor_solve dense[m {m}, {what}]', 'arrow',
+                    lambda p=part, A=A, b=b: par.factor_solve(p, A, b),
+                    lambda p=part, A=A, b=b: ar.factor_solve(p, A, b)))
+    ls = ops['line_search'] + [('unpacked chain', un['line_search'])]
+    what, a = ls[0]
+    ls.append((f'{what}, edge envs', ls_edge_envs(*a[:3], a[3]) + a[3:]))
+    for what, a in ls:
+        lim, con, e_it, l_it = a[0], a[1], a[3], a[4]
+        print(f'line_search[{what}]: L {lim.shape[2]}, K {con.shape[2]}, '
+              f'ls {l_it}; limit rows kept (live) '
+              f'{lsm.live_rows(lim, e_it).double().mean().item():.4f}')
+        out.append((f'line_search (row 13)[{what}, L {lim.shape[2]}, '
+                    f'K {con.shape[2]}, ls {l_it}]', 'linesearch',
+                    lambda a=a: (pls.line_search(*a),),
+                    lambda a=a: (lsm.line_search(*a),)))
     return out
 
 
@@ -662,7 +760,10 @@ def cases(batch: int, seed: int, root: str):
         out.append((f'sens_stage[{tag}]', 'sens_stage',
                     lambda m=old_m, s=s: (pss.sens_stage(m, *s),),
                     lambda m=new_m, s=s: (ss.sens_stage(m, *s),)))
-    out += cholesky_cases(tf_model, tf_data, batch, seed, root)
+    ops = dense_operands(tf_model, tf_data)
+    un = unpacked_operands(batch, seed)
+    out += cholesky_cases(ops, un, root)
+    out += arrow_ls_cases(ops, un, root)
     return out
 
 

@@ -37,10 +37,15 @@ noslip's M^-1 J_t^T, m 128 and 32, row 15 on a bench substep 8 substeps in
 (n 216); the factor (row 14) and row 15 on tools/profile_engine.py's chain
 at --batch (kernel_ab.unpacked_operands: row 14 on the capacitance, n 24,
 and the dense M, n 108; row 15 on the capacitance's solve and on M's
-factor with qfrc_smooth) (ops/cholesky.PHASES).
+factor with qfrc_smooth) (ops/cholesky.PHASES); K3's dense form on that
+chain's first fresh arrow Newton step (m 25) and its euler (m 1)
+(ops/arrow.PHASES); the line search (row 13) on the two-fly default
+substep's first search (L 408, K 64, ls 8), the bench one's 8 substeps in
+(K 24, ls 6) and the chain's first (L 204, K 32, ls 6), with the share of
+limit rows it keeps (ops/linesearch.PHASES).
 --modes picks some of block, block_full, whole, pos_stage, force_stage,
 noslip_fused, arrow_factor_solve, sens_stage, efc_contacts, chol_solve,
-cho_solve_multi, chol, cho_solve.
+cho_solve_multi, chol, cho_solve, arrow_dense, line_search.
 Per mode it prints the registers, shared memory, blocks an SM and grid of
 the kernel, its time, and the cycles of each phase per env, averaged over
 every --stride-th env, with their shares; it writes the tables to
@@ -60,9 +65,12 @@ from flybody_tpu_torch.tools import profile_engine as pe
 
 MODES = ('block', 'block_full', 'whole', 'pos_stage', 'force_stage',
          'noslip_fused', 'arrow_factor_solve', 'sens_stage', 'efc_contacts',
-         'chol_solve', 'cho_solve_multi', 'chol', 'cho_solve')
-DENSE_MODES = ('chol_solve', 'cho_solve_multi', 'cho_solve')  # two flies'
-UNPACKED_MODES = ('chol', 'cho_solve')  # tools/profile_engine.py's chain
+         'chol_solve', 'cho_solve_multi', 'chol', 'cho_solve', 'arrow_dense',
+         'line_search')
+# two flies'
+DENSE_MODES = ('chol_solve', 'cho_solve_multi', 'cho_solve', 'line_search')
+# tools/profile_engine.py's chain
+UNPACKED_MODES = ('chol', 'cho_solve', 'arrow_dense', 'line_search')
 
 
 def walk_passes(batch: int, seed: int):
@@ -227,12 +235,28 @@ def dense_runs(batch: int, seed: int, modes) -> dict:
         out[f'cho_solve[n {n}, bench, 8 substeps in]'] = (
             lambda: ch.cho_solve(L, g), ch,
             dict(ch.kernel_info(batch, n, row=15), n=n, batch=batch), None)
+    if 'line_search' in modes:
+        for what, a in ops['line_search']:
+            out[f'line_search[{what}]'] = ls_run(a, batch)
     return out
 
 
+def ls_run(a, batch: int):
+    """kernel_runs' entry of row 13 on its operands a (lim, con, sc,
+    expand, ls) at `batch` envs."""
+    from flybody_tpu_torch.ops import linesearch as lsm
+    L, K = a[0].shape[2], a[1].shape[2]
+    live = lsm.live_rows(a[0], a[3]).double().mean().item()
+    return (lambda: lsm.line_search(*a), lsm,
+            dict(lsm.kernel_info(batch, L, K), L=L, K=K, ls=a[4],
+                 batch=batch, live_rows=live), None)
+
+
 def unpacked_runs(batch: int, seed: int, modes) -> dict:
-    """kernel_runs' entries of rows 14 and 15 on tools/profile_engine.py's
-    chain (kernel_ab.unpacked_operands: n 24 and 108)."""
+    """kernel_runs' entries of rows 13-15 and K3's dense form on
+    tools/profile_engine.py's chain (kernel_ab.unpacked_operands: n 24
+    and 108; m 25 and 1; L 204, K 32)."""
+    from flybody_tpu_torch.ops import arrow as ar
     from flybody_tpu_torch.ops import cholesky as ch
     from flybody_tpu_torch.tools import kernel_ab as ab
     if not set(modes) & set(UNPACKED_MODES):
@@ -251,6 +275,15 @@ def unpacked_runs(batch: int, seed: int, modes) -> dict:
             out[f'cho_solve[n {n}, {what}]'] = (
                 lambda L=L, b=b: ch.cho_solve(L, b), ch,
                 dict(ch.kernel_info(batch, n, row=15), n=n), None)
+    if 'arrow_dense' in modes:
+        for what, (part, A, b) in ops['factor_solve']:
+            m = 1 if b.dim() == 2 else b.shape[2]
+            out[f'arrow_dense[m {m}, {what}]'] = (
+                lambda p=part, A=A, b=b: ar.factor_solve(p, A, b), ar,
+                dict(ar.kernel_info(part, batch, m), m=m), None)
+    if 'line_search' in modes:
+        out['line_search[unpacked chain]'] = ls_run(ops['line_search'],
+                                                    batch)
     return out
 
 
@@ -302,9 +335,9 @@ def phase_tables(batch: int, seed: int, stride: int, iters: int,
 
 def print_tables(tables: dict, batch: int):
     for mode, r in tables.items():
-        shape = ', '.join(f'{k} {r[k]}' for k in ('C', 'K', 'SB3', 'ls',
+        shape = ', '.join(f'{k} {r[k]}' for k in ('C', 'L', 'K', 'SB3', 'ls',
                                                   'iterations', 'sweeps', 'n',
-                                                  'm')
+                                                  'm', 'live_rows')
                           if k in r)
         print(f'{mode}: {shape + "; " if shape else ""}{r["ms"]:.3f} ms at '
               f'batch {r.get("batch", batch)}; {r["registers"]} registers, '

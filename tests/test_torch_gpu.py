@@ -715,3 +715,134 @@ def test_cholesky_kernels_hold_on_ragged_batches_pivots_and_nan(env):
                             chip_smoke.SUBST_REL_TOL)
                 assert same(ch.cho_solve_multi(misaligned(Lp), misaligned(R)),
                             X)
+
+
+def dense_arrow(part, B, m, seed):
+    """B dense SPD matrices with the partition's arrow sparsity, slightly
+    out of symmetry in the limb and root blocks (the kernels symmetrize),
+    junk between the limbs (never read), and right-hand sides (B, nv) or
+    (B, nv, m), on the card."""
+    g = torch.Generator(device='cpu').manual_seed(seed)
+    nv, nr = part.nv, part.nr
+    mask = torch.zeros(nv, nv)
+    mask[:nr, :] = 1.0
+    mask[:, :nr] = 1.0
+    for lo, d in zip(part.los, part.ds):
+        mask[lo:lo + d, lo:lo + d] = 1.0
+    X = 0.2 * torch.randn(B, nv, nv, generator=g)
+    A = (X @ X.transpose(1, 2) + 3.0 * torch.eye(nv)) * mask + 3.0 * torch.eye(
+        nv)
+    A = A + 1e-3 * torch.randn(B, nv, nv, generator=g) * mask * (
+        1.0 - torch.eye(nv))
+    A = A + 50.0 * (1.0 - mask) * torch.randn(B, nv, nv, generator=g)
+    b = torch.randn(*((B, nv) if m == 1 else (B, nv, m)), generator=g)
+    return A.cuda().contiguous(), b.cuda().contiguous()
+
+
+# A partition off the register tile of K3's kernels (a 16-dof limb):
+# arrow_kernel takes it on both the packed and the dense route.
+WIDE = dict(los=(4, 20), ds=(16, 8), nr=4, nv=28, dmax=16, limb_of_body=())
+
+
+@pytest.mark.gpu
+def test_arrow_dense_form_holds_and_is_the_packed_form_bit_for_bit(env):
+    """K3's dense form (arrow_dense_kernel; arrow_kernel off the register
+    tile) at 1, 33 and 130 envs and m 1, 25 and 40 (a second pass of the
+    lanes), on the walking partition and on a partition off the tile:
+    within chip_smoke's CHOL_ENV_TOL of factor_solve_ref, and F and x bit
+    for bit the packed form's on pack_dense(A) (the same symmetrized
+    entries, the same order: arrow_fs1_kernel at m 1, arrow_kernel above);
+    with A and b moved off 16-byte alignment (element copies in place of
+    the bulk copies) the aligned launch's; on edge envs (a NaN in one
+    triangle of a limb block, a negative limb pivot and a zero root pivot,
+    both floored at 1e-30) the packed form's, NaN in the same places. The
+    packed route off the tile (arrow_factor_solve1_f32 into arrow_kernel)
+    holds against factor_solve_ref too."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from flybody_tpu_torch.ops import arrow as ar
+    from flybody_tpu_torch.tools.kernel_ab import same
+    walk = ar.build_partition(env.model.meta)
+    for part in (walk, ar.Part(**WIDE)):
+        for B in (1, 33, 130):
+            for m in (1, 25, 40):
+                A, b = dense_arrow(part, B, m, 7 * B + m + part.nv)
+                F, x = ar.factor_solve(part, A, b)
+                hold_beside((F, x), ar.factor_solve_ref(part, A, b),
+                            chip_smoke.CHOL_ENV_TOL)
+                Fp, xp = ar.factor_solve(part, ar.pack_dense(part, A)
+                                         .contiguous(), b)
+                assert same(F, Fp) and same(x, xp), (part.nv, B, m)
+                Fm, xm = ar.factor_solve(part, misaligned(A), misaligned(b))
+                assert same(Fm, F) and same(xm, x), (part.nv, B, m)
+                if B > 3:
+                    lo = part.los[0]
+                    A[0, lo + 2, lo + 1] = float('nan')
+                    A[1, lo, lo] = -1.0
+                    A[2, 0, 0] = 0.0
+                    F, x = ar.factor_solve(part, A, b)
+                    Fp, xp = ar.factor_solve(part, ar.pack_dense(part, A)
+                                             .contiguous(), b)
+                    assert same(F, Fp) and same(x, xp), (part.nv, B, m)
+                    assert torch.isnan(x[0]).any()
+        A, b = dense_arrow(part, 33, 1, part.nv)
+        Mp = ar.pack_dense(part, A).contiguous()
+        hold_beside(ar.factor_solve(part, Mp, b),
+                    ar.factor_solve_ref(part, Mp, b), chip_smoke.CHOL_ENV_TOL)
+
+
+def ls_planes(B, L, K, seed):
+    """Line-search planes as the dense path's (a tenth of the limit rows
+    active), on the card."""
+    g = torch.Generator(device='cpu').manual_seed(seed)
+    act = (torch.rand(B, L, generator=g) < 0.1).float()
+    lim = torch.stack([torch.randn(B, L, generator=g),
+                       torch.randn(B, L, generator=g), act,
+                       100.0 * torch.rand(B, L, generator=g)], 1)
+    con = torch.cat([torch.randn(B, 6, K, generator=g),
+                     0.2 + torch.rand(B, 1, K, generator=g),
+                     (torch.rand(B, 1, K, generator=g) < 0.8).float(),
+                     (torch.rand(B, 1, K, generator=g) < 0.7).float(),
+                     100.0 * torch.rand(B, 1, K, generator=g)], 1)
+    sc = torch.stack([-10.0 * torch.randn(B, generator=g).abs(),
+                      5.0 * torch.randn(B, generator=g).abs() + 1.0], 1)
+    return lim.cuda(), con.cuda(), sc.cuda()
+
+
+@pytest.mark.gpu
+def test_line_search_holds_and_skips_only_rows_of_zero_weight(env):
+    """Row 13 at 1, 5 and 4,097 envs, at the staged kernel's widths (L 204
+    and 408, K 24, 32 and 64) and off them (L 600; K 80: the first
+    design's kernel): at 30 refinement steps within chip_smoke's line
+    search limits of line_search_ref in LS_SHARE of the envs, the first
+    envs of a batch bit for bit the smaller batch's, and alpha the same
+    bits when the rows it skips (live_rows false) change their finite
+    jar0 and jv; on kernel_ab's edge envs (every row inactive, a zero
+    direction, rows of +-0, +-inf and NaN, a zero-weight row with a NaN jv
+    or with overflowing products) NaN where the plain version has it."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from flybody_tpu_torch.ops import linesearch as lsm
+    from flybody_tpu_torch.tools.kernel_ab import ls_edge_envs, same
+    for L, K in ((204, 32), (408, 64), (408, 24), (600, 16), (100, 80)):
+        for B in (1, 5, 4097):
+            lim, con, sc = ls_planes(B, L, K, L + K + B)
+            a = lsm.line_search(lim, con, sc, 6, 30)
+            r = lsm.line_search_ref(lim, con, sc, 6, 30)
+            assert chip_smoke.ls_share(a, r) >= chip_smoke.LS_SHARE, (L, K, B)
+            if B > 1:
+                assert same(lsm.line_search(lim[:1].contiguous(),
+                                            con[:1].contiguous(),
+                                            sc[:1].contiguous(), 6, 30),
+                            a[:1])
+            dead = ~lsm.live_rows(lim, 6)
+            moved = lim.clone()
+            moved[:, 0] = torch.where(dead, -2.0 * lim[:, 0] + 0.5, lim[:, 0])
+            moved[:, 1] = torch.where(dead, 3.0 * lim[:, 1] - 1.0, lim[:, 1])
+            assert same(lsm.line_search(moved, con, sc, 6, 8),
+                        lsm.line_search(lim, con, sc, 6, 8)), (L, K, B)
+        if B > 5:
+            e = ls_edge_envs(lim, con, sc, 6)
+            a = lsm.line_search(*e, 6, 8)
+            r = lsm.line_search_ref(*e, 6, 8)
+            assert torch.equal(torch.isnan(a), torch.isnan(r))
