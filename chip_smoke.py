@@ -93,7 +93,8 @@ Phases (any failure exits non-zero):
      chain's widths (L 204, K 32) per search against its plain version at
      30 refinement steps (read at the path's 6), timed beside its bound,
      with its resources; row 10
-     through newton_checks beside one iteration more, which must fail)
+     through newton_checks beside one iteration more, which must fail,
+     with its resources and its cycles an env per phase, reuse_phases)
      and solver.solve on the dense M for 64 envs, card
      against CPU, by primal cost and net normal force; then the tool's
      stage table.
@@ -2145,6 +2146,21 @@ def reuse_flops(part, K, L, SB3, n_iters, ls_iters) -> float:
     return SB3 ** 3 / 3 + n_iters * it
 
 
+def reuse_phases(args10, ls, n_it, batch, report, stride=16):
+    """Logs and records row 10's cycles an env per phase of
+    ops/newton_fused.PHASES (the kernel's clock instantiation, every
+    stride-th env) on a reuse launch's arguments."""
+    import torch
+    from flybody_tpu_torch.ops import newton_fused as nf
+    clk = nf.record_phases(lambda: nf.reuse(*args10, ls, n_it), batch,
+                           stride, torch.device('cuda')).double().mean(0)
+    phases = {p: c for p, c in zip(nf.PHASES, clk.tolist()) if c}
+    report['newton_reuse_phases'] = phases
+    log(f'newton_reuse phase clocks (thousands of cycles an env, every '
+        f'{stride}th env): {clk.sum().item() / 1e3:.1f} = ' + ', '.join(
+            f'{p} {c / 1e3:.1f}' for p, c in phases.items()))
+
+
 def unpacked_kernels(model, args, batch, seed, report, path=None):
     """Rows 13, 14, 18, 19 and 10 and K3's dense form against their plain
     versions at the path's shapes, on the operands of one pass of the
@@ -2445,6 +2461,7 @@ def unpacked_kernels(model, args, batch, seed, report, path=None):
     log(f'newton_reuse: {ms:.3f} ms kernel, {pms:.3f} ms plain (dense M, K '
         f'{K}, 3SB {SB3}, ls {ls}, {n_it} iteration)')
     newton_resources('reuse', part, batch, K, SB3, L, report)
+    reuse_phases(args10, ls, n_it, batch, report)
 
     # solver.solve on the dense M (30 line-search steps) for the first
     # UNPACKED_CPU_ENVS envs on the card and on the CPU at float32 and

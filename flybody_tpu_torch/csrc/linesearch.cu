@@ -74,23 +74,6 @@ __global__ void __launch_bounds__(32 * kWarps)
   if (lane == 0) a.alpha[e] = al;
 }
 
-// Whether a limit row adds +-0 to both of the lane's sums at every step a
-// of the search (0 <= a <= amax = 2^expand_iters: hi doubles at most that
-// often from 1 and every probe lies in [lo, hi]): its weight al Dl is
-// zero, every operand is finite, and no product of ls_lim_term can
-// overflow (|jar| <= |jl| + amax |vl| and |Dl jar| stay far inside the
-// float range), so -Dl jar act and Dl act jv are +-0 and so are the terms
-// times jv. A running sum that is not -0 plus +-0 is itself; the sums
-// start at +0 and reach -0 only by underflowing, and a zero sum's sign
-// changes no comparison and no step. A row with a non-finite operand
-// stays, so NaN and infinities propagate as before.
-__device__ __forceinline__ bool ls_row_dead(float jl, float vl, float al,
-                                            float Dl, float amax) {
-  if (!(al == 0.f || Dl == 0.f)) return false;
-  const float jar = fabsf(jl) + amax * fabsf(vl);
-  return jar <= 1e37f && fabsf(Dl) * jar <= 1e37f && fabsf(al) <= 1e37f;
-}
-
 // Cycles since the last mark to phase i (lane 0, clock instantiation).
 #define PHASE(i)                        \
   do {                                  \
@@ -100,20 +83,6 @@ __device__ __forceinline__ bool ls_row_dead(float jl, float vl, float al,
       c_last = c_;                      \
     }                                   \
   } while (0)
-
-// The slot's staged constants as values the compiler cannot carry over
-// from an earlier evaluation: without this it hoists the alpha-independent
-// products of ls_con_term out of the search loop, and an add whose
-// product was hoisted no longer fuses into the multiply-add the first
-// design's evaluation forms (its last bits then differ on frictional
-// slots).
-__device__ __forceinline__ LsCon opaque(LsCon k) {
-  asm volatile(""
-               : "+f"(k.n0), "+f"(k.t10), "+f"(k.t20), "+f"(k.v0),
-                 "+f"(k.v1), "+f"(k.v2), "+f"(k.mu), "+f"(k.fric),
-                 "+f"(k.Da), "+f"(k.amu), "+f"(k.den), "+f"(k.cc));
-  return k;
-}
 
 // A warp an env, kWarps a block. Shared memory: each warp's limit planes
 // (4, L) [jl | vl | al | Dl], copied once by 4-byte asynchronous copies;

@@ -27,8 +27,11 @@
 //     on an unpacked M (solver.py:862-868): the packed factor F, the
 //     Woodbury operands Z = A^-1 U^T and U, and the capacitance factor LC
 //     come in; the mass matrix M is dense (nv, nv) or packed.
-// One template holds the four; the prologues (and the whole solve's
-// epilogue) are the only difference, and they share one iteration body.
+// One template (newton_kernel) holds the first three; the prologues (and
+// the whole solve's epilogue) are the only difference, and they share one
+// iteration body. The reuse iterations have a kernel of their own
+// (newton_reuse_kernel, its design below), which shares the device
+// functions and keeps the template's sums and their order.
 //
 // What bounds them on the card: bytes in principle (per env the block
 // kernel reads Hp, M: 14.6 KB each, J: 3K x nv, 83 KB at K = 64, U: 10 KB
@@ -39,8 +42,8 @@
 //   * persistent blocks of 128 threads at <= 128 registers, as many as fit
 //     on each SM (shared memory allows three at K 64, four at K 24),
 //     each walking envs e = blockIdx.x, + gridDim.x, ...; each env's
-//     contiguous slabs (Hp or M, U, the state vectors and parameters; the
-//     reuse kernel's F, Z, U, LC) come in by 1-D bulk asynchronous copies
+//     contiguous slabs (Hp or M, U, the state vectors and parameters)
+//     come in by 1-D bulk asynchronous copies
 //     (TMA) on an mbarrier, issued by one thread as soon as the block is
 //     done with its last env, while the other blocks on the SM compute (a
 //     second stage, to overlap within the block, would cost the third
@@ -141,9 +144,8 @@ struct NewtonArgs {
 inline Layout newton_layout(int K, int SB3, int L, const ArrowPart& p,
                             int mode) {
   const bool assemble = mode == kWhole || mode == kBlockFull;
-  const bool reuse = mode == kReuse;
   const int nv = p.nv, msize = (p.nl + 1) * (p.dm + p.nr) * p.dm;
-  Layout o;
+  Layout o{};
   int n = 0;
   auto take = [&n](int c) {
     const int at = n;
@@ -153,8 +155,6 @@ inline Layout newton_layout(int K, int SB3, int L, const ArrowPart& p,
   take(4);  // the mbarrier
   o.A = take(msize);
   o.Ut = assemble ? 0 : take(SB3 * nv);
-  o.Zg = reuse ? take(nv * SB3) : 0;
-  o.LC = reuse ? take(SB3 * SB3) : 0;
   o.x = take(nv);
   o.msm = take(nv);
   o.jl = take(L);
@@ -162,9 +162,9 @@ inline Layout newton_layout(int K, int SB3, int L, const ArrowPart& p,
   o.lp = take(2 * L);
   o.cp = take((assemble ? 5 : 4) * K);
   o.ldz = nv | 1;  // odd: the (limb, rhs) substitution threads miss banks
-  o.Z = reuse ? 0 : take(SB3 * o.ldz);
+  o.Z = take(SB3 * o.ldz);
   o.Uw = assemble ? take(SB3 * nv) : 0;
-  o.C = reuse ? 0 : take(SB3 * SB3);
+  o.C = take(SB3 * SB3);
   o.Ci = take(SB3 * SB3);
   o.wu = take(SB3);
   o.wv = take(SB3);
@@ -472,33 +472,20 @@ __device__ __forceinline__ void solve_packed(const float* F, float* X,
   __syncthreads();
 }
 
-// y = M x for a dense (nv, nv) M in global memory: a warp a row, the lanes
-// over its columns.
-__device__ __forceinline__ void dense_matvec(const float* __restrict__ M,
-                                             const float* x, float* y,
-                                             int nv) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i = warp; i < nv; i += kWarps) {
-    float s = 0.f;
-    for (int j = lane; j < nv; j += 32) s += M[(size_t)i * nv + j] * x[j];
-    s = warp_sum(s);
-    if (lane == 0) y[i] = s;
-  }
-}
-
 // Per contact slot k, mask[k]: bit l for each limb whose columns its three
 // J rows touch (a nonzero or NaN entry), bit kRootBit for the root; a warp
-// takes kSlots slots at once, the lanes over the columns, kCols columns a
-// lane in flight. kDots (the whole solve): also J ws - aref into the
-// planes N, Y1, Y2 and J a_free - aref into V0..V2.
-template <bool kDots>
+// (of the kNW from warp kW0) takes kSlots slots at once, the lanes over
+// the columns, kCols columns a lane in flight. kDots (the whole solve):
+// also J ws - aref into the planes N, Y1, Y2 and J a_free - aref into
+// V0..V2.
+template <bool kDots, int kW0 = 0, int kNW = kWarps>
 __device__ __forceinline__ void contact_masks(
     const float* __restrict__ J, int K, int nv, const int* vbit,
     unsigned* mask, const float* ws, const float* af, const float* arc,
     float* pl) {
   constexpr int kSlots = 4, kCols = 4;  // slots, column strides in flight
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int k0 = warp; k0 < K; k0 += kSlots * kWarps) {
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) - kW0;
+  for (int k0 = warp; k0 < K; k0 += kSlots * kNW) {
     unsigned m[kSlots];
     float sw[kSlots][3], sa[kSlots][3];
 #pragma unroll
@@ -512,7 +499,7 @@ __device__ __forceinline__ void contact_masks(
       for (int u = 0; u < kSlots; ++u) {
 #pragma unroll
         for (int i = 0; i < kCols; ++i) {
-          const int k = k0 + u * kWarps, v = v0 + 32 * i;
+          const int k = k0 + u * kNW, v = v0 + 32 * i;
           const bool in = k < K && v < nv;
           const float* j0 = J + (in ? (size_t)3 * k * nv + v : 0);
           for (int c = 0; c < 3; ++c) x[u][i][c] = in ? j0[c * nv] : 0.f;
@@ -538,7 +525,7 @@ __device__ __forceinline__ void contact_masks(
     }
 #pragma unroll
     for (int u = 0; u < kSlots; ++u) {
-      const int k = k0 + u * kWarps;
+      const int k = k0 + u * kNW;
       if (k >= K) break;
       const unsigned mu = __reduce_or_sync(0xffffffffu, m[u]);
       if (lane == 0) mask[k] = mu;
@@ -556,11 +543,13 @@ __device__ __forceinline__ void contact_masks(
 }
 
 // list + b * K: the slots whose mask has bit b (limb b < nl; b = nl: the
-// root), in increasing order; cnt[b] their number. A warp a list.
+// root), in increasing order; cnt[b] their number. A warp a list (of the
+// kNW from warp kW0).
+template <int kW0 = 0, int kNW = kWarps>
 __device__ __forceinline__ void contact_lists(const unsigned* mask, int K,
                                               int nl, int* list, int* cnt) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int b = warp; b <= nl; b += kWarps) {
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) - kW0;
+  for (int b = warp; b <= nl; b += kNW) {
     const unsigned bit = 1u << (b < nl ? b : kRootBit);
     int n = 0;
     for (int k0 = 0; k0 < K; k0 += 32) {
@@ -576,15 +565,16 @@ __device__ __forceinline__ void contact_lists(const unsigned* mask, int K,
 
 // out[v] = sum over the slots k touching v's block (its limb's list, or
 // the root's) of J[3k + c][v] f[3k + c], in the order of k then c, a
-// thread a dof: the dense sum over every row in its order, less the
-// exact zeros.
+// thread a dof (kT threads from the first): the dense sum over every row
+// in its order, less the exact zeros.
+template <int kT = kThreads>
 __device__ __forceinline__ void jt_times(const float* __restrict__ J,
                                          const float* f, const int* list,
                                          const int* cnt, const int* vbit,
                                          int K, const ArrowPart& p,
                                          float* out) {
   const int nv = p.nv;
-  for (int v = threadIdx.x; v < nv; v += kThreads) {
+  for (int v = threadIdx.x; v < nv; v += kT) {
     const int b = v < p.nr ? p.nl : vbit[v], n = cnt[b];
     const int* ls = list + b * K;
     float s = 0.f;
@@ -737,17 +727,12 @@ __device__ __forceinline__ void stage_env(const NewtonArgs& a,
   const uint32_t f4 = sizeof(float);
   uint32_t bytes = f4 * (msize + 2 * nv + L + 3 * K + 2 * L + ncp * K);
   if constexpr (!kAssemble) bytes += f4 * SB3 * nv;
-  if constexpr (kMode == kReuse) bytes += f4 * (nv * SB3 + SB3 * SB3);
   fence_proxy_async();
   mbar_expect_bytes(bar, bytes);
   const size_t E = (size_t)e;
   bulk_load(sm + o.A, (kAssemble ? a.M : a.Hp) + E * msize, f4 * msize, bar);
   if constexpr (!kAssemble)
     bulk_load(sm + o.Ut, a.U + E * SB3 * nv, f4 * SB3 * nv, bar);
-  if constexpr (kMode == kReuse) {
-    bulk_load(sm + o.Zg, a.Zg + E * nv * SB3, f4 * nv * SB3, bar);
-    bulk_load(sm + o.LC, a.LC + E * SB3 * SB3, f4 * SB3 * SB3, bar);
-  }
   bulk_load(sm + o.x, a.x + E * nv, f4 * nv, bar);
   bulk_load(sm + o.msm, a.msm + E * nv, f4 * nv, bar);
   bulk_load(sm + o.jl, a.jar_l + E * L, f4 * L, bar);
@@ -778,7 +763,6 @@ __global__ void __launch_bounds__(kThreads, 4) newton_kernel(NewtonArgs a) {
   const ArrowPart& p = a.p;
   const int nv = p.nv, nr = p.nr, nl = p.nl, K = a.K, L = a.L, SB3 = a.SB3;
   const int R3 = 3 * K;
-  const bool dense_m = kMode == kReuse && a.dense_m;
   const Layout& o = a.o;
   const int msize = (nl + 1) * (p.dm + nr) * p.dm;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
@@ -835,9 +819,9 @@ __global__ void __launch_bounds__(kThreads, 4) newton_kernel(NewtonArgs a) {
     const float* cp = sm + o.cp;
     const float *mu = cp, *fric = cp + K, *act = cp + 2 * K, *D = cp + 3 * K;
     const float* Je = a.J + (size_t)e * R3 * nv;
-    const float* Me = a.M + (size_t)e * (dense_m ? nv * nv : msize);
+    const float* Me = a.M + (size_t)e * msize;
     float* Ut = kAssemble ? sm + o.Uw : sm + o.Ut;
-    float* C = kMode == kReuse ? sm + o.LC : sm + o.C;
+    float* C = sm + o.C;
 
     // ---- The contact-limb mask and lists; the Newton state's planes.
     if constexpr (kWholeSolve) {
@@ -963,36 +947,28 @@ __global__ void __launch_bounds__(kThreads, 4) newton_kernel(NewtonArgs a) {
       PHASE(3);
     }
 
-    // ---- Factor, Z = A^-1 U, capacitance I + U Z and its Cholesky (the
-    // reuse iterations take all three as given).
-    const float* Z;
-    int zr, zv;  // Z[r][v] at Z[r * zr + v * zv]
-    if constexpr (kMode != kReuse) {
-      factor_packed(A, p, lord);
-      PHASE(4);
-      float* Zw = sm + o.Z;
-      for (int q = t; q < SB3 * nv; q += kThreads) {
-        const int r = q / nv, v = q - r * nv;
-        Zw[r * o.ldz + v] = Ut[q];
-      }
-      __syncthreads();
-      solve_packed(A, Zw, SB3, o.ldz, p, lord);
-      PHASE(5);
-      for (int q = t; q < SB3 * SB3; q += kThreads) {
-        const int i = q / SB3, j = q - i * SB3;
-        if (j <= i) {
-          float sc = 0.f;
-#pragma unroll 4
-          for (int v = 0; v < nv; ++v) sc += Ut[i * nv + v] * Zw[j * o.ldz + v];
-          C[q] = i == j ? (1.f + sc) + 1e-10f : sc;
-        }
-      }
-      __syncthreads();
-      if (warp == 0) chol_warp(C, SB3, SB3, 0);
-      Z = Zw, zr = o.ldz, zv = 1;
-    } else {
-      Z = sm + o.Zg, zr = 1, zv = SB3;
+    // ---- Factor, Z = A^-1 U, capacitance I + U Z and its Cholesky.
+    factor_packed(A, p, lord);
+    PHASE(4);
+    float* Z = sm + o.Z;
+    for (int q = t; q < SB3 * nv; q += kThreads) {
+      const int r = q / nv, v = q - r * nv;
+      Z[r * o.ldz + v] = Ut[q];
     }
+    __syncthreads();
+    solve_packed(A, Z, SB3, o.ldz, p, lord);
+    PHASE(5);
+    for (int q = t; q < SB3 * SB3; q += kThreads) {
+      const int i = q / SB3, j = q - i * SB3;
+      if (j <= i) {
+        float sc = 0.f;
+#pragma unroll 4
+        for (int v = 0; v < nv; ++v) sc += Ut[i * nv + v] * Z[j * o.ldz + v];
+        C[q] = i == j ? (1.f + sc) + 1e-10f : sc;
+      }
+    }
+    __syncthreads();
+    if (warp == 0) chol_warp(C, SB3, SB3, 0);
     __syncthreads();
     for (int c = t; c < SB3; c += kThreads) {  // Ci = LC^-1, column c
       for (int i = c; i < SB3; ++i) {
@@ -1056,15 +1032,12 @@ __global__ void __launch_bounds__(kThreads, 4) newton_kernel(NewtonArgs a) {
       __syncthreads();
       for (int v = t; v < nv; v += kThreads) {
         float sw = 0.f;
-        for (int r = 0; r < SB3; ++r) sw += Z[r * zr + v * zv] * wu[r];
+        for (int r = 0; r < SB3; ++r) sw += Z[r * o.ldz + v] * wu[r];
         dx[v] = -(g[v] - sw);
       }
       __syncthreads();
       PHASE(9);
-      if (dense_m)
-        dense_matvec(Me, dx, mdx, nv);
-      else
-        arrow_matvec(Me, dx, mdx, p);
+      arrow_matvec(Me, dx, mdx, p);
       __syncthreads();
       PHASE(10);
       j_times(Je, dx, mask, vbit, K, nv, V0);
@@ -1152,6 +1125,837 @@ __global__ void __launch_bounds__(kThreads, 4) newton_kernel(NewtonArgs a) {
   }
 }
 
+// ---------------------------------------------------------------------
+// Kernel 10 on its own: newton_reuse_kernel.
+//
+// Its first form ran as a mode of newton_kernel and spent 213.7 thousand
+// cycles an env on the chain's first reuse launch (PERF.md section 5).
+// What held it, and what this design does about each:
+//   * M dx (71.4): a warp walked its 27 rows of the dense M one at a
+//     time, each row's loads and butterfly before the next row's loads.
+//     Here a warp keeps kRowGroup rows' loads in flight, then sums each
+//     row's lanes in the same order and runs the rows' butterflies
+//     together (dense_matvec_rows).
+//   * the line search (34.2): the block form's two barriers and a warp's
+//     sum of the staged terms at each of its 19 evaluations. Here warp 0
+//     runs it with the slots' cone constants in registers and the limit
+//     rows of zero weight skipped, as row 13's kernel does
+//     (reuse_line_search), and the other warps work meanwhile (below).
+//   * the stage-in (23.9) and Ci (16.6): the slabs were asked for only
+//     once the env before was written out, then every warp read J for the
+//     contact masks, then 24 threads walked Ci's columns through shared
+//     memory. Here, during the last search of the block's env before,
+//     the last warp asks for this env's factor slabs (F, U, Z, LC) and
+//     forms Ci once they are in, a lane a column on LC's rows by 16-byte
+//     loads (ci_columns), while warps 1 .. kWarps - 2 form its contact
+//     masks and lists; the block's first env forms Ci on the last warp
+//     while the others compute its first gradient and substitution.
+//   * the substitution (23.3, of it the back substitution most): a
+//     thread a limb, each term behind its shared load. Here the back
+//     substitution runs a half-warp a limb, each row's column of the
+//     factor in registers and each solved value passed by a shuffle
+//     (solve_lanes_back).
+//   * J dx (14.9): two slots a warp, each load behind its mask test. Here
+//     kJSlots slots a warp with every load of the columns their masks
+//     hold issued before the sums (j_times_slots).
+//   * the code: fully unrolled, the search's evaluations would come to
+//     some 27 thousand instructions, and four blocks in different phases
+//     would miss in the instruction cache; loops stay rolled where their
+//     trip counts are the data's (one evaluation site in the search).
+// Every sum keeps the first form's order (jt_times, j_times, dense_matvec,
+// solve_packed, the Woodbury sums, the capacitance inverse, the line
+// search's evaluations), so the outputs are its bit for bit.
+constexpr int kRowGroup = 9;  // dense M rows a warp keeps in flight
+constexpr int kMvCols = 4;    // column strides of 32 a row's loads span
+constexpr int kJSlots = 2;    // J dx: slots a warp keeps in flight
+constexpr int kJCols = 4;     // J dx: column strides of 32 in flight
+constexpr int kPre = kWarps - 1;  // warps that solve while the last forms Ci
+constexpr int kPreThreads = 32 * kPre;
+constexpr int kLsExpand = 6;  // the search's bracket doublings
+
+inline Layout reuse_layout(int K, int SB3, int L, const ArrowPart& p) {
+  const int nv = p.nv, msize = (p.nl + 1) * (p.dm + p.nr) * p.dm;
+  Layout o{};
+  int n = 0;
+  auto take = [&n](int c) {
+    const int at = n;
+    n += (c + 3) & ~3;  // 16-byte aligned for the bulk copies
+    return at;
+  };
+  take(4);  // two mbarriers: the factor slabs, the state slabs
+  o.A = take(msize);
+  o.Ut = take(SB3 * nv);
+  o.Zg = take(nv * SB3);
+  o.LC = take(SB3 * SB3);
+  o.x = take(nv);
+  o.msm = take(nv);
+  o.jl = take(L);
+  o.jc = take(3 * K);
+  o.lp = take(2 * L);
+  o.cp = take(4 * K);
+  // Ci^T's row stride: an odd multiple of 4, so that a quarter-warp's
+  // 16-byte loads of eight rows fall in distinct banks.
+  o.ldz = ((SB3 + 3) & ~3) | 4;
+  o.Ci = take(SB3 * o.ldz);
+  o.wu = take(SB3);
+  o.wv = take(SB3);
+  o.g = take(nv);
+  o.dx = take(nv);
+  o.mdx = take(nv);
+  o.vl = take(L);
+  o.fl = take(L);
+  o.pl = take(6 * K);  // N, Y1, Y2, V0, V1, V2
+  o.fc = take(3 * K);
+  o.red = take(8);  // the line search's sums and step; Ci's clock
+  o.ldof = take(L);
+  o.lsign = take(L);
+  o.dlim = take(2 * nv);
+  o.vbit = take(nv);
+  o.lord = take(p.nl);
+  o.mask = take(K);
+  o.list = take((p.nl + 1) * K);
+  o.cnt = take(p.nl + 1);
+  o.total = n;
+  return o;
+}
+
+// Issues the bulk copies of env e's factor slabs (F, U, Z, LC) on bar
+// (one thread).
+__device__ __forceinline__ void stage_factor(const NewtonArgs& a,
+                                             const Layout& o, float* sm,
+                                             uint64_t* bar, int e) {
+  const ArrowPart& p = a.p;
+  const int nv = p.nv, SB3 = a.SB3;
+  const int msize = (p.nl + 1) * (p.dm + p.nr) * p.dm;
+  const uint32_t f4 = sizeof(float);
+  const size_t E = (size_t)e;
+  fence_proxy_async();
+  mbar_expect_bytes(bar, f4 * (msize + 2 * SB3 * nv + SB3 * SB3));
+  bulk_load(sm + o.A, a.Hp + E * msize, f4 * msize, bar);
+  bulk_load(sm + o.Ut, a.U + E * SB3 * nv, f4 * SB3 * nv, bar);
+  bulk_load(sm + o.Zg, a.Zg + E * nv * SB3, f4 * nv * SB3, bar);
+  bulk_load(sm + o.LC, a.LC + E * SB3 * SB3, f4 * SB3 * SB3, bar);
+}
+
+// Issues the bulk copies of env e's state slabs (x, msm, jar_l, jar_c and
+// the rows' parameters) on bar (one thread).
+__device__ __forceinline__ void stage_state(const NewtonArgs& a,
+                                            const Layout& o, float* sm,
+                                            uint64_t* bar, int e) {
+  const int nv = a.p.nv, K = a.K, L = a.L;
+  const uint32_t f4 = sizeof(float);
+  const size_t E = (size_t)e;
+  fence_proxy_async();
+  mbar_expect_bytes(bar, f4 * (2 * nv + 3 * L + 7 * K));
+  bulk_load(sm + o.x, a.x + E * nv, f4 * nv, bar);
+  bulk_load(sm + o.msm, a.msm + E * nv, f4 * nv, bar);
+  bulk_load(sm + o.jl, a.jar_l + E * L, f4 * L, bar);
+  bulk_load(sm + o.jc, a.jar_c + E * 3 * K, f4 * 3 * K, bar);
+  bulk_load(sm + o.lp, a.lim_params + E * 2 * L, f4 * 2 * L, bar);
+  bulk_load(sm + o.cp, a.con_params + E * 4 * K, f4 * 4 * K, bar);
+}
+
+// Synchronises the kPre warps that solve while the last forms Ci.
+__device__ __forceinline__ void pre_sync() {
+  asm volatile("bar.sync 1, %0;" ::"r"(kPreThreads) : "memory");
+}
+
+// y = M x for a dense (nv, nv) M in global memory, each row's sum in the
+// first form's order (lane l sums the columns l, l + 32, ... in order,
+// then the butterfly), a warp kG rows at a time: the rows' loads are
+// issued together, kQ column strides at a time.
+template <int kG, int kQ>
+__device__ __forceinline__ void dense_matvec_rows(const float* __restrict__ M,
+                                                  const float* x, float* y,
+                                                  int nv) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i0 = warp * kG; i0 < nv; i0 += kWarps * kG) {
+    float s[kG];
+#pragma unroll
+    for (int g = 0; g < kG; ++g) s[g] = 0.f;
+    for (int j0 = 0; j0 < nv; j0 += 32 * kQ) {
+      float m[kG][kQ];
+#pragma unroll
+      for (int g = 0; g < kG; ++g) {
+#pragma unroll
+        for (int q = 0; q < kQ; ++q) {
+          const int i = i0 + g, j = j0 + lane + 32 * q;
+          m[g][q] = i < nv && j < nv ? M[(size_t)i * nv + j] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        const int j = j0 + lane + 32 * q;
+        if (j < nv) {
+          const float xj = x[j];
+#pragma unroll
+          for (int g = 0; g < kG; ++g) s[g] += m[g][q] * xj;
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int g = 0; g < kG; ++g)
+        s[g] += __shfl_xor_sync(0xffffffffu, s[g], o);
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int g = 0; g < kG; ++g)
+        if (i0 + g < nv) y[i0 + g] = s[g];
+    }
+  }
+}
+
+// V_c[k] (V + c * K) = J[3k + c] . x over the columns slot k touches, in
+// j_times's order (lane l's columns l, l + 32, ... whose block the slot's
+// mask holds, then the butterfly), a warp kS slots at a time with the
+// loads of those columns issued before the sums, kQ column strides at a
+// time.
+template <int kS, int kQ>
+__device__ __forceinline__ void j_times_slots(const float* __restrict__ J,
+                                              const float* x,
+                                              const unsigned* mask,
+                                              const int* vbit, int K, int nv,
+                                              float* V) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int k0 = warp * kS; k0 < K; k0 += kWarps * kS) {
+    unsigned m[kS];
+    float s[kS][3];
+#pragma unroll
+    for (int u = 0; u < kS; ++u) {
+      m[u] = k0 + u < K ? mask[k0 + u] : 0u;
+      s[u][0] = s[u][1] = s[u][2] = 0.f;
+    }
+    for (int j0 = 0; j0 < nv; j0 += 32 * kQ) {
+      float jv[kS][kQ][3];
+      unsigned bits[kQ];
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        const int v = j0 + lane + 32 * q;
+        bits[q] = v < nv ? 1u << vbit[v] : 0u;
+      }
+#pragma unroll
+      for (int u = 0; u < kS; ++u) {
+#pragma unroll
+        for (int q = 0; q < kQ; ++q) {
+          const bool in = (m[u] & bits[q]) != 0u;
+          const float* j =
+              J + (in ? (size_t)3 * (k0 + u) * nv + j0 + lane + 32 * q : 0);
+#pragma unroll
+          for (int c = 0; c < 3; ++c) jv[u][q][c] = in ? j[c * nv] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        const int v = j0 + lane + 32 * q;
+        if (v < nv) {
+          const float xv = x[v];
+#pragma unroll
+          for (int u = 0; u < kS; ++u) {
+            if (m[u] & bits[q])
+              s[u][0] += jv[u][q][0] * xv, s[u][1] += jv[u][q][1] * xv,
+                  s[u][2] += jv[u][q][2] * xv;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int u = 0; u < kS; ++u) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          s[u][c] += __shfl_xor_sync(0xffffffffu, s[u][c], o);
+      }
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int u = 0; u < kS; ++u) {
+        if (k0 + u < K)
+          V[k0 + u] = s[u][0], V[K + k0 + u] = s[u][1],
+                 V[2 * K + k0 + u] = s[u][2];
+      }
+    }
+  }
+}
+
+// t = A^-1 g for one right-hand side in place (X, dof layout), the
+// operations of solve_packed (nrhs 1) in its order, in four parts that the
+// caller separates by barriers: the forward substitution a thread a limb,
+// the root right-hand side a thread a root dof, the root solve on one
+// thread, then the back substitution (solve_lanes_back). Each division by
+// div_rn, which is the division bit for bit.
+__device__ __forceinline__ void solve_forward(const float* F, float* X,
+                                              const ArrowPart& p) {
+  const int l = threadIdx.x;
+  if (l >= p.nl) return;
+  const int dm = p.dm, rowlen = (dm + p.nr) * dm, d = p.d[l];
+  const float* D = F + l * rowlen;
+  float* y = X + p.lo[l];
+  float r[kMaxDm];
+#pragma unroll
+  for (int i = 0; i < kMaxDm; ++i) r[i] = i < d ? y[i] : 0.f;
+#pragma unroll
+  for (int k = 0; k < kMaxDm; ++k) {
+    if (k < d) {
+      float s = r[k];
+#pragma unroll
+      for (int i = 0; i < k; ++i) s -= D[k * dm + i] * r[i];
+      r[k] = div_rn(s, D[k * dm + k]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kMaxDm; ++i)
+    if (i < d) y[i] = r[i];
+}
+
+__device__ __forceinline__ void solve_root_rhs(const float* F, float* X,
+                                               const ArrowPart& p) {
+  const int r = threadIdx.x;
+  if (r >= p.nr) return;
+  const int dm = p.dm, rowlen = (dm + p.nr) * dm;
+  float s = X[r];
+  for (int l = 0; l < p.nl; ++l) {
+    const float* LB = F + l * rowlen + dm * dm;
+    const float* y = X + p.lo[l];
+    const int d = p.d[l];
+#pragma unroll
+    for (int k = 0; k < kMaxDm; ++k)
+      if (k < d) s -= LB[r * dm + k] * y[k];
+  }
+  X[r] = s;
+}
+
+__device__ __forceinline__ void solve_root(const float* F, float* X,
+                                           const ArrowPart& p) {
+  if (threadIdx.x != 0) return;
+  const int dm = p.dm, nr = p.nr;
+  const float* LR = F + p.nl * (dm + nr) * dm;
+  float r[kMaxNr];
+#pragma unroll
+  for (int i = 0; i < kMaxNr; ++i) r[i] = i < nr ? X[i] : 0.f;
+#pragma unroll
+  for (int k = 0; k < kMaxNr; ++k) {
+    if (k < nr) {
+      float s = r[k];
+#pragma unroll
+      for (int i = 0; i < k; ++i) s -= LR[k * dm + i] * r[i];
+      r[k] = div_rn(s, LR[k * dm + k]);
+    }
+  }
+#pragma unroll
+  for (int k = kMaxNr - 1; k >= 0; --k) {
+    if (k < nr) {
+      float s = r[k];
+#pragma unroll
+      for (int i = k + 1; i < kMaxNr; ++i)
+        if (i < nr) s -= LR[i * dm + k] * r[i];
+      r[k] = div_rn(s, LR[k * dm + k]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kMaxNr; ++i)
+    if (i < nr) X[i] = r[i];
+}
+
+// The back substitution with a half-warp a limb (the first kNW warps, two
+// limbs a warp side by side), lane i taking row i of its limb: its border
+// terms, then column i's entries below the diagonal in registers; at step
+// k (from the last row up) lane k subtracts D[j][k] r_j for j = k + 1, ...
+// in increasing j and divides, and a shuffle passes r_k to the other
+// lanes. The same terms in the same order as solve_packed's thread a limb.
+template <int kNW>
+__device__ __forceinline__ void solve_lanes_back(const float* F, float* X,
+                                                 const ArrowPart& p) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int i = lane & 15, base = lane & 16;
+  const int dm = p.dm, nr = p.nr, rowlen = (dm + nr) * dm;
+  float root[kMaxNr];
+#pragma unroll
+  for (int r = 0; r < kMaxNr; ++r) root[r] = r < nr ? X[r] : 0.f;
+  for (int b0 = 2 * warp; b0 < p.nl; b0 += 2 * kNW) {
+    const int l = b0 + (base >> 4);
+    const int d = l < p.nl ? p.d[l] : 0;
+    const int d0 = p.d[b0], d1 = b0 + 1 < p.nl ? p.d[b0 + 1] : 0;
+    const int dw = d0 > d1 ? d0 : d1;  // the warp's longer limb
+    const float* D = F + (l < p.nl ? l : b0) * rowlen;
+    float* y = X + (l < p.nl ? p.lo[l] : 0);
+    const bool in = i < d;
+    float s = 0.f;
+    if (in) {
+      s = y[i];
+#pragma unroll
+      for (int r = 0; r < kMaxNr; ++r)
+        if (r < nr) s -= D[(dm + r) * dm + i] * root[r];
+    }
+    float col[kMaxDm], rr[kMaxDm];
+#pragma unroll
+    for (int j = 0; j < kMaxDm; ++j) {
+      col[j] = in && j >= i && j < d ? D[j * dm + i] : 0.f;
+      rr[j] = 0.f;
+    }
+    float mine = 0.f;
+#pragma unroll
+    for (int k = kMaxDm - 1; k >= 0; --k) {
+      if (k < dw) {
+        float rk = 0.f;
+        if (i == k && in) {
+          float t = s;
+#pragma unroll
+          for (int j = k + 1; j < kMaxDm; ++j)
+            if (j < d) t -= col[j] * rr[j];
+          rk = div_rn(t, col[k]);
+        }
+        rk = __shfl_sync(0xffffffffu, rk, base + k);
+        rr[k] = rk;
+        if (i == k) mine = rk;
+      }
+    }
+    __syncwarp();
+    if (in) y[i] = mine;
+  }
+}
+
+// Ci = LC^-1, stored transposed (CiT[c][i] = Ci[i][c], row stride ldt, a
+// multiple of 4; zeros for i < c), column c on lane c of the calling
+// warp: entry (i, c) is (e_c[i] - sum over k = c .. i - 1 of LC[i][k]
+// Ci[k][c]) / LC[i][i], the terms in increasing k (the first form's
+// recurrence). Every lane runs the same instructions: the terms k < c
+// multiply a zero LC entry (selected) by the column's stored zero, which
+// leaves the sum (+0 or 1 until k reaches c) as it is. With SB3 a multiple
+// of 4, LC's row and the lane's column come in by 16-byte loads.
+__device__ __forceinline__ void ci_columns(const float* C, float* CiT, int SB3,
+                                           int ldt) {
+  const int c = threadIdx.x & 31;
+  float* mine = CiT + (c < SB3 ? c : SB3 - 1) * ldt;
+  const bool vec = (SB3 & 3) == 0;
+#pragma unroll 1
+  for (int i = 0; i < SB3; ++i) {
+    const float* Crow = C + i * SB3;
+    float sc = i == c ? 1.f : 0.f;
+    int k = 0;
+    if (vec) {
+#pragma unroll 1
+      for (; k + 4 <= i; k += 4) {
+        const float4 cr = *reinterpret_cast<const float4*>(Crow + k);
+        const float4 cm = *reinterpret_cast<const float4*>(mine + k);
+        sc -= (k >= c ? cr.x : 0.f) * cm.x;
+        sc -= (k + 1 >= c ? cr.y : 0.f) * cm.y;
+        sc -= (k + 2 >= c ? cr.z : 0.f) * cm.z;
+        sc -= (k + 3 >= c ? cr.w : 0.f) * cm.w;
+      }
+    }
+#pragma unroll 1
+    for (; k < i; ++k) sc -= (k >= c ? Crow[k] : 0.f) * mine[k];
+    const float v = div_rn(sc, Crow[i]);
+    if (c < SB3) mine[i] = i >= c ? v : 0.f;
+  }
+}
+
+// The slope and curvature of the line search at `at` on one warp, the sums
+// as ls_alpha_warp forms them: every lane its live rows (bit q of `live`:
+// row lane + 32 q; the rows past 32 q all), then its slots, the ones in
+// registers (cs) behind `opaque`, then the butterflies.
+template <int kSlots>
+__device__ __forceinline__ void ls_eval(const LsRows& r, const LsCon* cs,
+                                        unsigned live, int nmax, float sm0,
+                                        float smm, float at, float* slope,
+                                        float* curv) {
+  const int lane = threadIdx.x & 31, L = r.L, K = r.K;
+  float s = 0.f, c = 0.f;
+  unsigned mk = live;
+#pragma unroll 1
+  for (int n = 0; n < nmax; ++n)
+    if (mk) {
+      const int i = lane + 32 * (__ffs(mk) - 1);
+      mk &= mk - 1;
+      ls_add(ls_lim_term(ls_lim(r, i), at), s, c);
+    }
+#pragma unroll 1
+  for (int i = lane + 32 * 32; i < L; i += 32)
+    ls_add(ls_lim_term(ls_lim(r, i), at), s, c);
+#pragma unroll
+  for (int u = 0; u < kSlots; ++u)
+    if (lane + 32 * u < K) ls_add(ls_con_term(opaque(cs[u]), at), s, c);
+#pragma unroll 1
+  for (int k = lane + 32 * kSlots; k < K; k += 32)
+    ls_add(ls_con_term(opaque(ls_con(r, k)), at), s, c);
+  s = warp_sum(s);
+  c = warp_sum(c);
+  *slope = sm0 + at * smm + s;
+  *curv = fmaxf(smm + c, 1e-15f);
+}
+
+// The exact line search on warp 0 (every lane returns the step), as
+// linesearch.cu's kernel runs it on a warp: ls_alpha_warp's points
+// (kLsExpand bracket doublings from 1, then ls_iters rounds of the
+// midpoint and the guarded Newton probe, then the slope at 0), one
+// evaluation site for them all (ls_eval), the steps taking the
+// same branches on the same values, so the step is ls_alpha_warp's bit
+// for bit. The lane's contact slots k < 64 keep their cone constants in
+// registers (LsCon), the others are recomputed at each evaluation; its
+// limit rows i = lane + 32 q, q < 32, are kept in a mask unless
+// ls_row_dead.
+__device__ __forceinline__ float reuse_line_search(const LsRows& r, float sm0,
+                                                   float smm, int ls_iters) {
+  constexpr int kSlots = 2;
+  const int lane = threadIdx.x & 31, L = r.L, K = r.K;
+  LsCon cs[kSlots];
+#pragma unroll
+  for (int u = 0; u < kSlots; ++u)
+    if (lane + 32 * u < K) cs[u] = ls_con(r, lane + 32 * u);
+  const float amax = ldexpf(1.f, kLsExpand);
+  unsigned live = 0;
+  for (int q = 0; q < 32; ++q) {
+    const int i = lane + 32 * q;
+    if (i < L && !ls_row_dead(r.jl[i], r.vl[i], r.al[i], r.Dl[i], amax))
+      live |= 1u << q;
+  }
+  const int nmax = __reduce_max_sync(0xffffffffu, __popc(live));
+  const int n_eval = kLsExpand + 2 * ls_iters + 1;
+  float hi = 1.f, lo = 0.f, mid = 0.f, s = 0.f, c = 0.f, alpha = 0.f;
+#pragma unroll 1
+  for (int q = 0; q < n_eval; ++q) {
+    const int rr = q - kLsExpand;
+    float at;
+    if (rr < 0)
+      at = hi;
+    else if (q == n_eval - 1)
+      at = 0.f;
+    else if ((rr & 1) == 0)
+      at = mid = 0.5f * (lo + hi);
+    else {
+      const float cand = mid - s / c;
+      at = (cand > lo && cand < hi) ? cand : mid;
+    }
+    float sl, cv;
+    ls_eval<kSlots>(r, cs, live, nmax, sm0, smm, at, &sl, &cv);
+    if (rr < 0) {
+      if (sl < 0.f) hi *= 2.f;
+    } else if (q == n_eval - 1) {
+      alpha = sl < 0.f ? 0.5f * (lo + hi) : 0.f;
+    } else if ((rr & 1) == 0) {
+      s = sl, c = cv;
+    } else if (sl < 0.f) {
+      lo = at;
+    } else {
+      hi = at;
+    }
+  }
+  return alpha;
+}
+
+// Phase i of the kPre solving warps ends (clock instantiation): they
+// synchronise and thread 0 adds the cycles since the last mark.
+#define PRE_PHASE(i)                    \
+  do {                                  \
+    if constexpr (kClock) {             \
+      pre_sync();                       \
+      if (t == 0) {                     \
+        const long long c_ = clock64(); \
+        ph[i] += c_ - c_last;           \
+        c_last = c_;                    \
+      }                                 \
+    }                                   \
+  } while (0)
+
+// Kernel 10: persistent blocks of kThreads, each walking envs e =
+// blockIdx.x, + gridDim.x, ...; the phases' clocks (kClock) as
+// newton_kernel's marks name them (ops/newton_fused.PHASES). Ci's are the
+// last warp's, taken while the others run the first iteration's J^T f and
+// substitution, in the block's first env; a later env's masks, lists and
+// Ci fall in the line search of the env before.
+template <bool kClock>
+__global__ void __launch_bounds__(kThreads, 4)
+    newton_reuse_kernel(const __grid_constant__ NewtonArgs a) {
+  extern __shared__ __align__(16) float sm[];
+  const ArrowPart& p = a.p;
+  const int nv = p.nv, nl = p.nl, K = a.K, L = a.L, SB3 = a.SB3;
+  const int R3 = 3 * K;
+  const Layout& o = a.o;
+  const int msize = (nl + 1) * (p.dm + p.nr) * p.dm;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm);  // factor, state
+
+  float *A = sm + o.A, *Ut = sm + o.Ut, *Zs = sm + o.Zg, *C = sm + o.LC;
+  float *x = sm + o.x, *msm = sm + o.msm, *jl = sm + o.jl;
+  float *al = sm + o.lp, *Dl = sm + o.lp + L;
+  const float* cp = sm + o.cp;
+  const float *mu = cp, *fric = cp + K, *act = cp + 2 * K, *D = cp + 3 * K;
+  float *Ci = sm + o.Ci, *wu = sm + o.wu, *wv = sm + o.wv;
+  float *g = sm + o.g, *dx = sm + o.dx, *mdx = sm + o.mdx;
+  float *vl = sm + o.vl, *fl = sm + o.fl, *fc = sm + o.fc, *red = sm + o.red;
+  float* pl = sm + o.pl;
+  float *N = pl, *Y1 = pl + K, *Y2 = pl + 2 * K;
+  float *V0 = pl + 3 * K, *V1 = pl + 4 * K, *V2 = pl + 5 * K;
+  int* ldof = reinterpret_cast<int*>(sm + o.ldof);
+  float* lsign = sm + o.lsign;
+  int* dlim = reinterpret_cast<int*>(sm + o.dlim);
+  int* vbit = reinterpret_cast<int*>(sm + o.vbit);
+  int* lord = reinterpret_cast<int*>(sm + o.lord);
+  unsigned* mask = reinterpret_cast<unsigned*>(sm + o.mask);
+  int* list = reinterpret_cast<int*>(sm + o.list);
+  int* cnt = reinterpret_cast<int*>(sm + o.cnt);
+  long long* ci_clock = reinterpret_cast<long long*>(red + 4);
+  const int ldc = o.ldz;
+  const size_t mstride = a.dense_m ? (size_t)nv * nv : (size_t)msize;
+
+  LsRows rows;
+  rows.jl = jl, rows.vl = vl, rows.al = al, rows.Dl = Dl;
+  rows.n0 = N, rows.t10 = Y1, rows.t20 = Y2;
+  rows.v0 = V0, rows.v1 = V1, rows.v2 = V2;
+  rows.mu = mu, rows.fric = fric, rows.act = act, rows.D = D;
+  rows.L = L, rows.K = K;
+
+  // ---- Once a block: the tables, the barriers, the first env's slabs.
+  for (int i = t; i < L; i += kThreads) {
+    ldof[i] = a.lim.dof[i];
+    lsign[i] = a.lim.sign[i];
+  }
+  for (int i = t; i < 2 * nv; i += kThreads) dlim[i] = a.lim.dof_lim[i];
+  for (int v = t; v < nv; v += kThreads) {
+    int l = 0;
+    while (l + 1 < nl && p.lo[l + 1] <= v) ++l;
+    vbit[v] = v < p.nr ? kRootBit : l;
+  }
+  if (t == 0) {
+    mbar_init(bars, 1);
+    mbar_init(bars + 1, 1);
+    for (int i = 0; i < nl; ++i) {  // limbs by decreasing size, stable
+      int j = i;
+      for (; j > 0 && p.d[lord[j - 1]] < p.d[i]; --j) lord[j] = lord[j - 1];
+      lord[j] = i;
+    }
+  }
+  __syncthreads();
+  if (t == 0) {
+    stage_factor(a, o, sm, bars, blockIdx.x);
+    stage_state(a, o, sm, bars + 1, blockIdx.x);
+  }
+
+  // Whether the env's masks, lists and Ci were formed during the search of
+  // the block's env before.
+  bool prepped = false;
+  int round = 0;
+  for (int e = blockIdx.x; e < a.B; e += gridDim.x, ++round) {
+    const int next = e + (int)gridDim.x;
+    long long ph[kPhases], c_last = 0;
+    if constexpr (kClock) {
+      for (int i = 0; i < kPhases; ++i) ph[i] = 0;
+      c_last = clock64();
+    }
+    const float* Je = a.J + (size_t)e * R3 * nv;
+    const float* Me = a.M + (size_t)e * mstride;
+    const bool was_prepped = prepped;
+    mbar_wait(bars + 1, round & 1);
+
+    // ---- The contact-limb mask and lists; the Newton state's planes.
+    const float* jc = sm + o.jc;
+    for (int q = t; q < R3; q += kThreads) pl[(q % 3) * K + q / 3] = jc[q];
+    if (!prepped) {
+      contact_masks<false>(Je, K, nv, vbit, mask, nullptr, nullptr, nullptr,
+                           nullptr);
+      __syncthreads();
+      contact_lists(mask, K, nl, list, cnt);
+    }
+    mbar_wait(bars, round & 1);
+    __syncthreads();
+    if (a.n_iters == 0 && t == 0 && next < a.B)
+      stage_factor(a, o, sm, bars, next);
+    PHASE(0);
+
+    // ---- Newton iterations on the fixed factor.
+    for (int it = 0; it < a.n_iters; ++it) {
+      if (warp < kPre) {
+        // Forces, gradient and t = A^-1 g on the kPre warps.
+        for (int i = t; i < L; i += kPreThreads)
+          fl[i] = jl[i] < 0.f ? -Dl[i] * jl[i] * al[i] : 0.f;
+        for (int k = t; k < K; k += kPreThreads) {
+          float r[3];
+          cone_residual3(N[k], Y1[k], Y2[k], mu[k], fric[k], r);
+          const float Da = D[k] * act[k];
+          fc[3 * k] = -Da * r[0];
+          fc[3 * k + 1] = -Da * r[1];
+          fc[3 * k + 2] = -Da * r[2];
+        }
+        pre_sync();
+        jt_times<kPreThreads>(Je, fc, list, cnt, vbit, K, p, g);
+        pre_sync();
+        for (int v = t; v < nv; v += kPreThreads)
+          g[v] = (msm[v] - lim_scatter(dlim, fl, lsign, v)) - g[v];
+        PRE_PHASE(7);
+        pre_sync();
+        solve_forward(A, g, p);  // g <- t = A^-1 g
+        pre_sync();
+        solve_root_rhs(A, g, p);
+        pre_sync();
+        solve_root(A, g, p);
+        pre_sync();
+        solve_lanes_back<kPre>(A, g, p);
+      } else if (it == 0 && !prepped) {
+        // ---- Ci = LC^-1 (the capacitance factor's inverse) meanwhile.
+        long long c0 = 0;
+        if constexpr (kClock) c0 = clock64();
+        ci_columns(C, Ci, SB3, ldc);
+        if constexpr (kClock) {
+          __syncwarp();
+          if (lane == 0) *ci_clock = clock64() - c0;
+        }
+      }
+      __syncthreads();
+      PHASE(8);
+      // wu = U t: a warp a group of rows, the rows' butterflies together.
+      constexpr int kWg = (kMaxSB3 + kWarps - 1) / kWarps;
+      {
+        float sw[kWg];
+#pragma unroll
+        for (int u = 0; u < kWg; ++u) sw[u] = 0.f;
+        const int r0 = warp * kWg;
+        for (int v = lane; v < nv; v += 32) {
+          const float tv = g[v];
+#pragma unroll
+          for (int u = 0; u < kWg; ++u)
+            if (r0 + u < SB3) sw[u] += Ut[(r0 + u) * nv + v] * tv;
+        }
+#pragma unroll
+        for (int u = 0; u < kWg; ++u) {
+          if (r0 + u < SB3) {  // the same for the warp's lanes
+            sw[u] = warp_sum(sw[u]);
+            if (lane == 0) wu[r0 + u] = sw[u];
+          }
+        }
+      }
+      __syncthreads();
+      if (warp == 0) {  // wu <- Ci^T (Ci wu), the capacitance solve
+        // wv = Ci wu: lane r sums Ci[r][j] wu[j], j = 0 .. r.
+        float sw = 0.f;
+        if (lane < SB3) {
+#pragma unroll 4
+          for (int j = 0; j <= lane; ++j) sw += Ci[j * ldc + lane] * wu[j];
+        }
+        __syncwarp();
+        if (lane < SB3) wv[lane] = sw;
+        __syncwarp();
+        // wu = Ci^T wv: lane r sums Ci[j][r] wv[j], j = r .. SB3 - 1, its
+        // row of Ci^T by 16-byte loads past the first multiple of 4.
+        sw = 0.f;
+        if (lane < SB3) {
+          const float* row = Ci + lane * ldc;
+          int j = lane;
+          if ((SB3 & 3) == 0) {
+            for (; j & 3; ++j) sw += row[j] * wv[j];
+            for (; j < SB3; j += 4) {
+              const float4 q = *reinterpret_cast<const float4*>(row + j);
+              const float4 w = *reinterpret_cast<const float4*>(wv + j);
+              sw += q.x * w.x;
+              sw += q.y * w.y;
+              sw += q.z * w.z;
+              sw += q.w * w.w;
+            }
+          }
+          for (; j < SB3; ++j) sw += row[j] * wv[j];
+        }
+        __syncwarp();
+        if (lane < SB3) wu[lane] = sw;
+      }
+      __syncthreads();
+      // dx = -(t - Z wu): a thread a dof, its row of Z by 16-byte loads.
+      for (int v = t; v < nv; v += kThreads) {
+        const float* z = Zs + v * SB3;
+        float sw = 0.f;
+        if ((SB3 & 3) == 0) {
+          for (int r = 0; r < SB3; r += 4) {
+            const float4 q = *reinterpret_cast<const float4*>(z + r);
+            sw += q.x * wu[r];
+            sw += q.y * wu[r + 1];
+            sw += q.z * wu[r + 2];
+            sw += q.w * wu[r + 3];
+          }
+        } else {
+          for (int r = 0; r < SB3; ++r) sw += z[r] * wu[r];
+        }
+        dx[v] = -(g[v] - sw);
+      }
+      __syncthreads();
+      PHASE(9);
+      if (a.dense_m)
+        dense_matvec_rows<kRowGroup, kMvCols>(Me, dx, mdx, nv);
+      else
+        arrow_matvec(Me, dx, mdx, p);
+      __syncthreads();
+      PHASE(10);
+      j_times_slots<kJSlots, kJCols>(Je, dx, mask, vbit, K, nv, V0);
+      for (int i = t; i < L; i += kThreads) vl[i] = dx[ldof[i]] * lsign[i];
+      if (warp == kWarps - 1) {  // msm . dx, dx . M dx
+        float s0 = 0.f, s1 = 0.f;
+        for (int v = lane; v < nv; v += 32) {
+          s0 += msm[v] * dx[v];
+          s1 += dx[v] * mdx[v];
+        }
+        s0 = warp_sum(s0), s1 = warp_sum(s1);
+        if (lane == 0) red[0] = s0, red[1] = s1;
+      }
+      __syncthreads();
+      PHASE(11);
+      // After the last iteration's J dx this env reads its factor slabs,
+      // masks, lists and Ci no more: while warp 0 runs the search, the last
+      // warp asks for the block's next env's factor slabs and forms its
+      // Ci once they are in, and warps 1 .. kWarps - 2 its masks and
+      // lists.
+      const bool last = it == a.n_iters - 1 && next < a.B;
+      if (last && t == kPreThreads) stage_factor(a, o, sm, bars, next);
+      if (warp == 0) {
+        const float step = reuse_line_search(rows, red[0], red[1], a.ls_iters);
+        if (lane == 0) red[2] = step;
+      } else if (last) {
+        if (warp < kWarps - 1) {
+          contact_masks<false, 1, kWarps - 2>(a.J + (size_t)next * R3 * nv,
+                                              K, nv, vbit, mask, nullptr,
+                                              nullptr, nullptr, nullptr);
+          asm volatile("bar.sync 2, %0;" ::"r"(32 * (kWarps - 2)) : "memory");
+          contact_lists<1, kWarps - 2>(mask, K, nl, list, cnt);
+        } else {
+          mbar_wait(bars, (round + 1) & 1);
+          ci_columns(C, Ci, SB3, ldc);
+        }
+      }
+      __syncthreads();
+      const float alpha = red[2];
+      PHASE(12);
+      for (int v = t; v < nv; v += kThreads) {
+        x[v] += alpha * dx[v];
+        msm[v] += alpha * mdx[v];
+      }
+      for (int i = t; i < L; i += kThreads) jl[i] += alpha * vl[i];
+      for (int q = t; q < R3; q += kThreads) pl[q] += alpha * pl[R3 + q];
+      __syncthreads();
+      PHASE(13);
+    }
+
+    prepped = a.n_iters > 0 && next < a.B;
+
+    // ---- Outputs; then the next env's state slabs.
+    for (int v = t; v < nv; v += kThreads) {
+      a.o0[(size_t)e * nv + v] = x[v];
+      a.o1[(size_t)e * nv + v] = msm[v];
+    }
+    for (int i = t; i < L; i += kThreads) a.o2[(size_t)e * L + i] = jl[i];
+    for (int q = t; q < R3; q += kThreads)
+      a.o3[(size_t)e * R3 + q] = pl[(q % 3) * K + q / 3];
+    __syncthreads();
+    if (t == 0 && next < a.B) stage_state(a, o, sm, bars + 1, next);
+    PHASE(14);
+    if constexpr (kClock) {
+      if (t == 0 && e % a.clk_stride == 0) {
+        if (a.n_iters > 0 && !was_prepped) ph[6] += *ci_clock;
+        for (int i = 0; i < kPhases; ++i)
+          a.clk[(size_t)(e / a.clk_stride) * kPhases + i] += ph[i];
+      }
+    }
+  }
+}
+
 bool supported(const NewtonArgs& a) {
   const ArrowPart& p = a.p;
   return p.nl >= 1 && p.nl <= 16 && p.dm <= kMaxDm && p.nr <= kMaxNr &&
@@ -1160,17 +1964,16 @@ bool supported(const NewtonArgs& a) {
 }
 
 
-// Blocks an SM of an instantiation at its shared memory, and the
-// persistent grid for B envs.
-template <int kMode, bool kClock>
-cudaError_t geometry(const NewtonArgs& a, size_t smem, int* blocks,
-                     int* grid) {
+// Blocks an SM of a kernel at its shared memory, and the persistent grid
+// for B envs.
+template <typename Kern>
+cudaError_t geometry(Kern kern, const NewtonArgs& a, size_t smem,
+                     int* blocks, int* grid) {
   cudaError_t err = cudaFuncSetAttribute(
-      newton_kernel<kMode, kClock>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, newton_kernel<kMode, kClock>, kThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, kThreads,
+                                                      smem);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0;
   err = cudaGetDevice(&dev);
@@ -1182,39 +1985,48 @@ cudaError_t geometry(const NewtonArgs& a, size_t smem, int* blocks,
   return cudaSuccess;
 }
 
-template <int kMode, bool kClock>
-int launch_as(const NewtonArgs& a, void* stream) {
+template <typename Kern>
+int launch_as(Kern kern, const NewtonArgs& a, void* stream) {
   const size_t smem = sizeof(float) * (size_t)a.o.total;
   if (smem > 232448) return -1;  // Hopper's shared memory per block
   int blocks = 0, grid = 0;
-  const cudaError_t err = geometry<kMode, kClock>(a, smem, &blocks, &grid);
+  const cudaError_t err = geometry(kern, a, smem, &blocks, &grid);
   if (err != cudaSuccess) return (int)err;
-  newton_kernel<kMode, kClock>
-      <<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
+  kern<<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The layout of a mode's kernel (kernel 10's own, the template's else).
+inline Layout mode_layout(const NewtonArgs& a, int mode) {
+  return mode == kReuse ? reuse_layout(a.K, a.SB3, a.L, a.p)
+                        : newton_layout(a.K, a.SB3, a.L, a.p, mode);
 }
 
 template <int kMode>
 int launch(NewtonArgs a, void* stream) {
   if (!supported(a)) return -1;
-  a.o = newton_layout(a.K, a.SB3, a.L, a.p, kMode);
-  if (g_clk == nullptr) return launch_as<kMode, false>(a, stream);
-  a.clk = g_clk, a.clk_stride = g_clk_stride;
-  return launch_as<kMode, true>(a, stream);
+  a.o = mode_layout(a, kMode);
+  const bool clock = g_clk != nullptr;
+  if (clock) a.clk = g_clk, a.clk_stride = g_clk_stride;
+  if constexpr (kMode == kReuse)
+    return clock ? launch_as(newton_reuse_kernel<true>, a, stream)
+                 : launch_as(newton_reuse_kernel<false>, a, stream);
+  else
+    return clock ? launch_as(newton_kernel<kMode, true>, a, stream)
+                 : launch_as(newton_kernel<kMode, false>, a, stream);
 }
 
 // Registers a thread, shared memory a block (bytes), blocks an SM and the
 // persistent grid of one mode's main instantiation for B envs.
-template <int kMode>
-int info(const NewtonArgs& a, int* out) {
+template <typename Kern>
+int info_of(Kern kern, const NewtonArgs& a, int mode, int* out) {
   if (!supported(a)) return -1;
-  const size_t smem =
-      sizeof(float) * (size_t)newton_layout(a.K, a.SB3, a.L, a.p, kMode).total;
+  const size_t smem = sizeof(float) * (size_t)mode_layout(a, mode).total;
   cudaFuncAttributes fa;
-  cudaError_t err = cudaFuncGetAttributes(&fa, newton_kernel<kMode, false>);
+  cudaError_t err = cudaFuncGetAttributes(&fa, kern);
   if (err != cudaSuccess) return (int)err;
   int blocks = 0, grid = 0;
-  err = geometry<kMode, false>(a, smem, &blocks, &grid);
+  err = geometry(kern, a, smem, &blocks, &grid);
   if (err != cudaSuccess) return (int)err;
   out[0] = fa.numRegs, out[1] = (int)smem, out[2] = blocks, out[3] = grid;
   return 0;
@@ -1325,10 +2137,11 @@ FB_API int newton_info(int mode, int B, int K, int SB3, int L,
   a.p = *part;
   a.B = B, a.K = K, a.SB3 = SB3, a.L = L;
   switch (mode) {
-    case kBlock: return info<kBlock>(a, out);
-    case kWhole: return info<kWhole>(a, out);
-    case kReuse: return info<kReuse>(a, out);
-    case kBlockFull: return info<kBlockFull>(a, out);
+    case kBlock: return info_of(newton_kernel<kBlock, false>, a, mode, out);
+    case kWhole: return info_of(newton_kernel<kWhole, false>, a, mode, out);
+    case kReuse: return info_of(newton_reuse_kernel<false>, a, mode, out);
+    case kBlockFull:
+      return info_of(newton_kernel<kBlockFull, false>, a, mode, out);
   }
   return -1;
 }

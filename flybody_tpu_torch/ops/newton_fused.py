@@ -19,11 +19,12 @@ Woodbury correction H = A + U^T U:
     make_newton_block_full_pe): one block from the carried state with the
     whole solve's float32 Hessian and Woodbury assembly in the kernel.
     Plain version `newton_block_full_ref` (`_ref_block_full`).
-  * `reuse` (kernel 10, csrc/newton.cu; the TPU's `_fused_fn`,
-    make_reuse_pe): n iterations with a factor kept from a fresh arrow step
-    on an unpacked (dense) M: the packed factor F, the Woodbury operands Z
-    and U and the capacitance factor LC come in; M is dense or packed.
-    Plain version `reuse_ref` (`_ref_step_n`).
+  * `reuse` (kernel 10, csrc/newton.cu's `newton_reuse_kernel`, a kernel
+    of its own beside the template of kernels 8 and 9; the TPU's
+    `_fused_fn`, make_reuse_pe): n iterations with a factor kept from a
+    fresh arrow step on an unpacked (dense) M: the packed factor F, the
+    Woodbury operands Z and U and the capacitance factor LC come in; M is
+    dense or packed. Plain version `reuse_ref` (`_ref_step_n`).
 
 CUDA tensors launch the kernels (float32, contiguous; the operands the
 kernels copy per env in bulk 16-byte aligned with each env's slab a
@@ -50,7 +51,9 @@ block_full_launches = 0  # newton_block_full kernel launches
 reuse_launches = 0  # newton reuse kernel launches
 
 # The phases whose clocks `record_phases` reads (csrc/newton.cu's PHASE
-# marks); the last seven repeat in every Newton iteration.
+# marks); the last seven repeat in every Newton iteration. Kernel 10 has
+# no assembly, factor or Z phase; its Ci overlaps its first J^T f and
+# solve, or falls in the line search of the block's env before.
 PHASES = ('stage-in', 'cone Hessians', 'assembly', 'Woodbury rows',
           'factor', 'Z = A^-1 U', 'capacitance + Ci', 'J^T f', 'solve',
           'Woodbury correction', 'M dx', 'J dx', 'line search', 'update',

@@ -1,4 +1,4 @@
-"""K1-K4 and rows 5, 6, 7, 11 and 13-17 against an earlier tree's kernels on the card.
+"""K1-K4 and rows 5-11 and 13-17 against an earlier tree's kernels on the card.
 
     python -m flybody_tpu_torch.tools.kernel_ab --parent DIR [--batch 8192]
 
@@ -6,13 +6,13 @@ DIR is the root of an unpacked earlier tree (for example `git archive` of
 the parent commit into a directory that .gitignore lists). Its
 csrc/pos_stage.cu, csrc/narrowphase.cu, csrc/mpr.cu, csrc/efc_stage.cu,
 csrc/force_stage.cu, csrc/noslip.cu, csrc/arrow.cu, csrc/sens_stage.cu,
-csrc/cholesky.cu and csrc/linesearch.cu (`KERNELS`) are built into
-separate libraries and driven through its own wrappers (ops/pos_stage.py,
-ops/narrowphase.py, ops/mpr_kernel.py, ops/efc_stage.py,
-ops/force_stage.py, ops/noslip_gs.py, ops/arrow.py, ops/sens_stage.py,
-ops/cholesky.py, ops/linesearch.py, loaded under other module names),
-beside
-this tree's kernels, on the same operands: the position stage (K1) on the
+csrc/cholesky.cu, csrc/linesearch.cu and csrc/newton.cu (`KERNELS`) are
+built into separate libraries and driven through its own wrappers
+(ops/pos_stage.py, ops/narrowphase.py, ops/mpr_kernel.py,
+ops/efc_stage.py, ops/force_stage.py, ops/noslip_gs.py, ops/arrow.py,
+ops/sens_stage.py, ops/cholesky.py, ops/linesearch.py,
+ops/newton_fused.py, loaded under other module names), beside this tree's
+kernels, on the same operands: the position stage (K1) on the
 walk state of tools/profile_newton.py, on walk_imitation's state after a
 control step at each preset, on the two-fly scene two substeps from its
 flailing start (batch / 2 scenes) and on edge envs (`pos_edge_envs`); the
@@ -53,7 +53,18 @@ Euler solve (the damped M, m 1), and on dense edge envs of both
 of a two-fly default substep (L 408, K 64, ls 8), of the bench substep 8
 substeps in (K 24, ls 6) and of that chain (L 204, K 32, ls 6), and on
 edge envs (`ls_edge_envs`), printing the share of limit rows it keeps
-(ops/linesearch.live_rows) on each. Per case it
+(ops/linesearch.live_rows) on each; the Newton kernels (`newton_cases`):
+the block (row 8) on a default-preset forward pass's block operands (K 64,
+refactor 1), the whole solve (row 9) on a bench-preset one (K 24, 8
+iterations, 6 line-search steps) and the block-full mode (row 9) at
+default_full (K 64), each on tools/profile_newton.py's walk state
+(newton_operands), and the reuse iterations (row 10) on that chain's first
+reuse launch (dense M, nv 108, K 32, 3 SB 24, L 204, 6 line-search steps,
+one iteration), on the same operands at three iterations, on the packed M
+(ops/arrow.pack_sym_ref, the JAX kernel's packed_m form), on edge envs
+(`reuse_edge_envs`: a zero reuse gradient with no active contact; no slot
+touching the root; a NaN in one J row) with dense M and packed M at three
+iterations, and on a ragged batch (`ragged`: batch + 37 envs). Per case it
 prints whether every output is the earlier kernel's bit for bit
 (`same`: the same bits, NaN in the same places) and both kernels' times (CUDA events
 over --reps calls, tools/profile_engine's timer), taken in turns: earlier,
@@ -407,7 +418,8 @@ def mpr_edge_candidates(c1, c2, prm) -> tuple:
 
 
 KERNELS = ('pos_stage', 'narrowphase', 'mpr', 'efc_stage', 'force_stage',
-           'noslip', 'arrow', 'sens_stage', 'cholesky', 'linesearch')
+           'noslip', 'arrow', 'sens_stage', 'cholesky', 'linesearch',
+           'newton')
 # chip_smoke.py's limits for rows 16 and 17 (CHOL_ENV_TOL, SUBST_REL_TOL,
 # CHOL_ENV_SHARE).
 CHOL_ENV_TOL = 1e-3
@@ -492,10 +504,12 @@ def unpacked_operands(batch: int, seed: int) -> dict:
     A, b))] of the first fresh arrow Newton step (the Hessian, 1 + 3 SB
     right-hand sides) and of euler (the damped M, one right-hand side),
     'line_search': (lim, con, sc, expand, ls) of the first search (L 204,
-    K 32)}."""
+    K 32), 'reuse': the arguments of the first reuse launch (row 10: dense
+    M, K 32, 3 SB 24, L 204, ls 6, one iteration)}."""
     from flybody_tpu_torch.ops import arrow as ar
     from flybody_tpu_torch.ops import cholesky as ch
     from flybody_tpu_torch.ops import linesearch as lsm
+    from flybody_tpu_torch.ops import newton_fused as nf
     from flybody_tpu_torch.tools import profile_engine as pe
     args = pe.parser().parse_args(['--batch', str(batch), '--seed',
                                    str(seed)])
@@ -503,7 +517,8 @@ def unpacked_operands(batch: int, seed: int) -> dict:
     with recorded(ch, 'chol', 1, keep={0}) as c14, \
             recorded(ch, 'cho_solve', 1, keep={0}) as c15, \
             recorded(ar, 'factor_solve', 1, keep={0}) as k3, \
-            recorded(lsm, 'line_search', 1, keep={0}) as c13:
+            recorded(lsm, 'line_search', 1, keep={0}) as c13, \
+            recorded(nf, 'reuse', 1, keep={0}) as c10:
         d = pe.chain(model, d0, args)[0]
     M, b = d.qM.contiguous(), d.qfrc_smooth.contiguous()
     return {'chol': [('capacitance', c14.kept[0][0]), ('M', M)],
@@ -511,7 +526,8 @@ def unpacked_operands(batch: int, seed: int) -> dict:
                           ('M, qfrc_smooth', (ch.chol(M), b))],
             'factor_solve': [('Newton Hessian', k3.kept[0]),
                              ('euler', k3.args[-1])],
-            'line_search': c13.kept[0]}
+            'line_search': c13.kept[0],
+            'reuse': c10.kept[0]}
 
 
 def arrow_dense_edge_envs(part, A, b) -> tuple:
@@ -587,6 +603,22 @@ def cholesky_cases(ops, un, root: str):
     return out
 
 
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet), as chip_smoke.py
+FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
+
+
+def ls_bound_ms(L: int, K: int, batch: int, expand_iters: int,
+                ls_iters: int) -> tuple:
+    """(bound ms, 'bytes' or 'operations') of row 13 on `batch` searches:
+    each reads 4 L + 10 K + 2 floats and writes one, and evaluates phi'
+    expand_iters + 2 ls_iters + 1 times at 8 L + 60 K operations
+    (PERF.md's kernel table)."""
+    byts = 4 * (4 * L + 10 * K + 3) * batch
+    ops = (expand_iters + 2 * ls_iters + 1) * (8 * L + 60 * K) * batch
+    tb, to = byts / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
+    return (tb, 'bytes') if tb >= to else (to, 'operations')
+
+
 def arrow_ls_cases(ops, un, root: str):
     """K3's dense form's and row 13's cases (see the module's docstring)
     on dense_operands' `ops` and unpacked_operands' `un`; prints the share
@@ -609,13 +641,78 @@ def arrow_ls_cases(ops, un, root: str):
     ls.append((f'{what}, edge envs', ls_edge_envs(*a[:3], a[3]) + a[3:]))
     for what, a in ls:
         lim, con, e_it, l_it = a[0], a[1], a[3], a[4]
+        bound = ls_bound_ms(lim.shape[2], con.shape[2], lim.shape[0], e_it,
+                            l_it)
         print(f'line_search[{what}]: L {lim.shape[2]}, K {con.shape[2]}, '
               f'ls {l_it}; limit rows kept (live) '
-              f'{lsm.live_rows(lim, e_it).double().mean().item():.4f}')
+              f'{lsm.live_rows(lim, e_it).double().mean().item():.4f}; '
+              f'bound {bound[0]:.4f} ms ({bound[1]})')
         out.append((f'line_search (row 13)[{what}, L {lim.shape[2]}, '
                     f'K {con.shape[2]}, ls {l_it}]', 'linesearch',
                     lambda a=a: (pls.line_search(*a),),
                     lambda a=a: (lsm.line_search(*a),)))
+    return out
+
+
+def reuse_edge_envs(args) -> tuple:
+    """Row 10's arguments (part, lim_dof, lim_sign, F, M, conJ, Z, U, LC,
+    x, msm, jar_l, jar_c, lim_params, con_params, ls, n_iters) with the
+    first envs made edge cases: no active contact, no active limit row and
+    msm 0 (a zero reuse gradient, so a zero direction); no contact slot
+    touching the root's columns; a NaN in one J row (slot 0's first
+    tangent row, at a limb column)."""
+    part = args[0]
+    a = list(args)
+    conJ, msm, lp, cp = (a[i].clone() for i in (5, 10, 13, 14))
+    cp[0, 2] = 0.0
+    lp[0, 0] = 0.0
+    msm[0] = 0.0
+    conJ[1, :, :, :part.nr] = 0.0
+    conJ[2, 0, 1, part.los[3] + 1] = float('nan')
+    a[5], a[10], a[13], a[14] = conJ, msm, lp, cp
+    return tuple(a)
+
+
+def ragged(args, extra: int) -> tuple:
+    """The tensor arguments with their first `extra` envs appended (a batch
+    that is no multiple of the kernel's grid)."""
+    return tuple(torch.cat([t, t[:extra]]).contiguous()
+                 if torch.is_tensor(t) and t.dim() > 1 else t for t in args)
+
+
+def newton_cases(part, passes, un, root: str):
+    """Rows 8, 9 (whole and block-full) and 10's cases (see the module's
+    docstring): rows 8 and 9 on tools/profile_newton.py's forward passes
+    (newton_operands), row 10 on unpacked_operands' `un`."""
+    from flybody_tpu_torch.ops import arrow as ar
+    from flybody_tpu_torch.ops import newton_fused as nf
+    from flybody_tpu_torch.tools import profile_newton as pn
+    pnf = parent_module(root, 'newton_fused')
+    out = []
+    for mode, (kern, args, ls, it) in pn.newton_operands(
+            part, passes).items():
+        name = kern.__name__
+        row = 'row 8' if mode == 'block' else 'row 9'
+        K = args[5 if mode == 'block' else 4].shape[1]
+        out.append((f'{name} ({row})[{mode}, K {K}, ls {ls}, {it} '
+                    f'iteration{"s" if it > 1 else ""}]', 'newton',
+                    lambda n=name, a=args, ls=ls, it=it:
+                    getattr(pnf, n)(*a, ls, it),
+                    lambda n=name, a=args, ls=ls, it=it:
+                    getattr(nf, n)(*a, ls, it)))
+    r10 = un['reuse']
+    p10, M = r10[0], r10[4]
+    packed = r10[:4] + (ar.pack_sym_ref(p10, M).contiguous(),) + r10[5:]
+    reuse = [('dense M, 1 iteration', r10),
+             ('dense M, 3 iterations', r10[:-1] + (3,)),
+             ('packed M, 1 iteration', packed),
+             ('dense M, edge envs', reuse_edge_envs(r10)),
+             ('packed M, 3 iterations, edge envs',
+              reuse_edge_envs(packed[:-1] + (3,))),
+             (f'dense M, ragged batch ({M.shape[0]} + 37)', ragged(r10, 37))]
+    for what, a in reuse:
+        out.append((f'reuse (row 10)[{what}]', 'newton',
+                    lambda a=a: pnf.reuse(*a), lambda a=a: nf.reuse(*a)))
     return out
 
 
@@ -764,6 +861,7 @@ def cases(batch: int, seed: int, root: str):
     un = unpacked_operands(batch, seed)
     out += cholesky_cases(ops, un, root)
     out += arrow_ls_cases(ops, un, root)
+    out += newton_cases(part, passes, un, root)
     return out
 
 

@@ -16,7 +16,10 @@ has no --rtt row.
 main path's shapes, from a walk_imitation state perturbed as
 chip_smoke.py's kernel phase perturbs it: the Newton block kernel (row 8)
 and the block-full mode (row 9) on a default-preset forward pass, the
-whole solve (row 9) on a bench-preset one (ops/newton_fused.PHASES); the
+whole solve (row 9) on a bench-preset one, and the reuse iterations (row
+10) on tools/profile_engine.py's chain (kernel_ab.unpacked_operands: its
+first reuse launch, dense M, K 32, 3 SB 24, L 204, ls 6, at its one
+iteration and at three) (ops/newton_fused.PHASES); the
 position stage (K1) on that state's qpos (ops/pos_stage.PHASES); the
 force stage (K2) on that default forward pass's position-stage outputs
 (ops/force_stage.PHASES); the fused noslip (row 11) on each forward
@@ -43,7 +46,7 @@ chain's first fresh arrow Newton step (m 25) and its euler (m 1)
 substep's first search (L 408, K 64, ls 8), the bench one's 8 substeps in
 (K 24, ls 6) and the chain's first (L 204, K 32, ls 6), with the share of
 limit rows it keeps (ops/linesearch.PHASES).
---modes picks some of block, block_full, whole, pos_stage, force_stage,
+--modes picks some of block, block_full, whole, reuse, pos_stage, force_stage,
 noslip_fused, arrow_factor_solve, sens_stage, efc_contacts, chol_solve,
 cho_solve_multi, chol, cho_solve, arrow_dense, line_search.
 Per mode it prints the registers, shared memory, blocks an SM and grid of
@@ -63,14 +66,15 @@ import torch
 from flybody_tpu_torch.tools import profile_engine as pe
 
 
-MODES = ('block', 'block_full', 'whole', 'pos_stage', 'force_stage',
-         'noslip_fused', 'arrow_factor_solve', 'sens_stage', 'efc_contacts',
-         'chol_solve', 'cho_solve_multi', 'chol', 'cho_solve', 'arrow_dense',
-         'line_search')
+MODES = ('block', 'block_full', 'whole', 'reuse', 'pos_stage',
+         'force_stage', 'noslip_fused', 'arrow_factor_solve', 'sens_stage',
+         'efc_contacts', 'chol_solve', 'cho_solve_multi', 'chol',
+         'cho_solve', 'arrow_dense', 'line_search')
 # two flies'
 DENSE_MODES = ('chol_solve', 'cho_solve_multi', 'cho_solve', 'line_search')
 # tools/profile_engine.py's chain
-UNPACKED_MODES = ('chol', 'cho_solve', 'arrow_dense', 'line_search')
+UNPACKED_MODES = ('chol', 'cho_solve', 'arrow_dense', 'line_search',
+                  'reuse')
 
 
 def walk_passes(batch: int, seed: int):
@@ -253,11 +257,13 @@ def ls_run(a, batch: int):
 
 
 def unpacked_runs(batch: int, seed: int, modes) -> dict:
-    """kernel_runs' entries of rows 13-15 and K3's dense form on
+    """kernel_runs' entries of rows 13-15, K3's dense form and row 10 on
     tools/profile_engine.py's chain (kernel_ab.unpacked_operands: n 24
-    and 108; m 25 and 1; L 204, K 32)."""
+    and 108; m 25 and 1; L 204, K 32; the first reuse launch, dense M,
+    at its one iteration and at three)."""
     from flybody_tpu_torch.ops import arrow as ar
     from flybody_tpu_torch.ops import cholesky as ch
+    from flybody_tpu_torch.ops import newton_fused as nf
     from flybody_tpu_torch.tools import kernel_ab as ab
     if not set(modes) & set(UNPACKED_MODES):
         return {}
@@ -284,6 +290,15 @@ def unpacked_runs(batch: int, seed: int, modes) -> dict:
     if 'line_search' in modes:
         out['line_search[unpacked chain]'] = ls_run(ops['line_search'],
                                                     batch)
+    if 'reuse' in modes:
+        a = ops['reuse']
+        part, ls = a[0], a[-2]
+        K, SB3, L = a[5].shape[1], a[7].shape[1], len(a[1])
+        for it in (a[-1], 3):
+            out[f'reuse[dense M, {it} iteration{"s" if it > 1 else ""}]'] = (
+                lambda it=it: nf.reuse(*a[:-1], it), nf,
+                dict(nf.kernel_info('reuse', part, batch, K, SB3, L), K=K,
+                     SB3=SB3, L=L, ls=ls, iterations=it), None)
     return out
 
 

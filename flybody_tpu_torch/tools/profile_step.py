@@ -19,12 +19,16 @@ writes (--out, JSON):
     The device time counts the PyTorch operators dispatched inside the
     range and the hand kernels (csrc/*.cu) that the stage launches: the
     profiler links a kernel launched through ctypes to no operator, so
-    each goes to its stage by name (HAND_KERNELS; a kernel that several
-    stages launch is split by their launches a substep: the arrow kernel
-    half to factor_solve and half to euler, the dense factor+solve one
-    share each to factor_solve and euler and one a fresh Newton step to
-    newton; the observations' pos_stage launch after the substeps to
-    position);
+    each goes to its stages by the exact name of its __global__ function,
+    template arguments stripped (HAND_KERNELS, which must name every
+    __global__ function of csrc/*.cu: the tool refuses to start
+    otherwise, and a kernel in the trace named as one of those functions
+    but not in HAND_KERNELS is an error). A kernel that several stages
+    launch is split by their launches a substep (stage_weights): K3's
+    kernels and the arrow kernel half to factor_solve and half to euler;
+    the dense factor+solve (row 17) and K3's dense form one share each to
+    factor_solve and euler and one a fresh Newton step to newton; the
+    observations' pos_stage launch after the substeps goes to position;
   * device busy time (sum of kernel and copy times) and the idle share
     1 - busy / wall;
   * the kernels with the most device time.
@@ -33,8 +37,10 @@ writes (--out, JSON):
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
+import re
 import subprocess
 import time
 
@@ -51,31 +57,40 @@ def _device_us(e, total: bool) -> float:
     return 0.0
 
 
-# The hand kernels by the name of their __global__ function, and the
-# engine stages that launch them (physics/engine.py).
+# The hand kernels by the name of their __global__ function (csrc/*.cu),
+# and the engine stages that launch them (physics/engine.py).
 HAND_KERNELS = {
-    'pos_stage_kernel': ('position',),
-    'narrowphase_kernel': ('collision',),
-    'mpr_kernel': ('collision',),
-    'force_stage_kernel': ('force',),
-    'efc_kernel': ('constraint_rows',),
-    'arrow_kernel': ('factor_solve', 'euler'),
-    'newton_kernel': ('newton',),
-    'noslip_kernel': ('noslip',),
-    'sens_stage_kernel': ('sensors',),
-    'chol_solve_kernel': ('factor_solve', 'newton', 'euler'),
-    'cho_solve_multi_kernel': ('noslip',),
-    'cho_solve_tiles_kernel': ('newton',),  # row 15 (n > 32)
+    'pos_stage_kernel': ('position',),  # K1
+    'narrowphase_kernel': ('collision',),  # row 5
+    'mpr_order_kernel': ('collision',),  # row 6's pre-pass
+    'mpr_kernel': ('collision',),  # row 6 (and row 20 in the tools)
+    'force_stage_kernel': ('force',),  # K2
+    'efc_kernel': ('constraint_rows',),  # row 7
+    'arrow_fs1_kernel': ('factor_solve', 'euler'),  # K3, packed, m 1
+    'arrow_dense_kernel': ('factor_solve', 'newton', 'euler'),  # K3, dense
+    'arrow_kernel': ('factor_solve', 'euler'),  # K3 off its tile; 18, 19
+    'newton_kernel': ('newton',),  # rows 8, 9
+    'newton_reuse_kernel': ('newton',),  # row 10
+    'noslip_kernel': ('noslip',),  # row 11
+    'noslip_gs_kernel': ('noslip',),  # row 12
+    'linesearch_kernel': ('newton',),  # row 13
+    'linesearch_rows_kernel': ('newton',),  # row 13 off its tile
+    'chol_warp_kernel': ('newton',),  # row 14 (n <= 32): the capacitance
+    'chol_panel_kernel': ('newton',),  # row 14 (n > 32)
     'cho_solve_warp32_kernel': ('newton',),  # row 15 (n <= 32)
-    'linesearch_kernel': ('newton',),
-    'noslip_gs_kernel': ('noslip',),
+    'cho_solve_tiles_kernel': ('newton',),  # row 15 (n > 32)
+    'cho_solve_multi_kernel': ('noslip',),  # row 16
+    'chol_solve_kernel': ('factor_solve', 'newton', 'euler'),  # row 17
+    'sens_stage_kernel': ('sensors',),  # K4
 }
+# Launched once by factor_solve and euler and once a fresh Newton step.
+_FRESH_SPLIT = ('chol_solve_kernel', 'arrow_dense_kernel')
 
 
 def stage_weights(hand: str, preset: dict) -> dict:
     """Each stage's share of a hand kernel's launches in a substep."""
     stages = HAND_KERNELS[hand]
-    if hand == 'chol_solve_kernel':  # one a fresh Newton step
+    if hand in _FRESH_SPLIT:  # one a fresh Newton step
         p = max(1, preset['refactor_period'])
         fresh = -(-preset['solver_iterations'] // p)
         w = {'factor_solve': 1, 'newton': fresh, 'euler': 1}
@@ -85,8 +100,68 @@ def stage_weights(hand: str, preset: dict) -> dict:
     return {st: v / total for st, v in w.items()}
 
 
-def _hand_kernel(name: str):
-    return next((k for k in HAND_KERNELS if k in name), None)
+CSRC = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), 'csrc')
+_GLOBAL = re.compile(r'__global__\s+void\s+(?:__launch_bounds__\s*'
+                     r'\([^()]*(?:\([^()]*\)[^()]*)*\)\s*)?(\w+)\s*\(')
+_ANON = '(anonymous namespace)::'
+
+
+@functools.lru_cache(maxsize=4)
+def csrc_kernels(csrc: str = CSRC) -> frozenset:
+    """The names of the __global__ functions in csrc/*.cu."""
+    names = set()
+    for fn in sorted(os.listdir(csrc)):
+        if fn.endswith('.cu'):
+            with open(os.path.join(csrc, fn)) as f:
+                names.update(_GLOBAL.findall(f.read()))
+    return frozenset(names)
+
+
+def check_map(csrc: str = CSRC):
+    """Raises unless HAND_KERNELS names exactly the __global__ functions
+    of csrc/*.cu."""
+    have = csrc_kernels(csrc)
+    if have != set(HAND_KERNELS):
+        raise ValueError(
+            f'HAND_KERNELS does not match csrc/*.cu: no stage for '
+            f'{sorted(have - set(HAND_KERNELS))}, no kernel for '
+            f'{sorted(set(HAND_KERNELS) - have)}')
+
+
+def kernel_name(name: str) -> str:
+    """The bare function name of a device kernel's name as the profiler
+    gives it, demangled or mangled: return type, namespaces, template
+    arguments and parameters stripped."""
+    if name.startswith('_Z'):  # the last <length><name> of the nested name
+        i, base = 3 if name[2:3] == 'N' else 2, ''
+        while i < len(name) and name[i].isdigit():
+            j = i
+            while j < len(name) and name[j].isdigit():
+                j += 1
+            n = int(name[i:j])
+            base, i = name[j:j + n], j + n
+        return base
+    s = name.strip()
+    if s.startswith('void '):
+        s = s[5:].lstrip()
+    s = s.replace(_ANON, '').split('(', 1)[0].split('<', 1)[0]
+    return s.split('::')[-1].strip()
+
+
+def _hand_kernel(name: str, known=None):
+    """The HAND_KERNELS key of a trace's kernel name, None for a library
+    kernel. A kernel is a hand kernel when its bare name is a __global__
+    function of csrc/*.cu (`known`, csrc_kernels() by default); one that
+    HAND_KERNELS does not name raises KeyError, so that no hand kernel
+    drops out of the stage table."""
+    base = kernel_name(name)
+    if base in HAND_KERNELS:
+        return base
+    if base in (csrc_kernels() if known is None else known):
+        raise KeyError(f'{name!r}: a hand kernel with no stage in '
+                       f'HAND_KERNELS (tools/profile_step.py)')
+    return None
 
 
 def _is_kernel(e) -> bool:
@@ -112,6 +187,7 @@ def main(argv=None):
     ap.add_argument('--trace', default=None,
                     help='optional chrome trace path')
     args = ap.parse_args(argv)
+    check_map()
 
     import torch
     from torch.profiler import ProfilerActivity, profile

@@ -253,6 +253,51 @@ def test_newton_kernels_hold_on_ragged_batches(env):
 
 
 @pytest.mark.gpu
+def test_newton_reuse_holds_on_ragged_batches_and_edge_envs(env):
+    """Row 10 on tools/profile_engine.py's chain's first reuse launch
+    (tools/kernel_ab.unpacked_operands) at 8,229 envs, a batch that leaves
+    the persistent grid a ragged tail: with the dense M and with it packed
+    (the JAX kernel's packed_m form), at 30 line-search steps, at one
+    iteration against reuse_ref (chip_smoke.NEWTON_ENV_SHARE of the envs
+    within NEWTON_ENV_TOL) and no further from reuse_ref at float64 than
+    reuse_ref at float32 is (chip_smoke.newton_checks' rule), and at three
+    iterations, where float32's roundings compound past NEWTON_ENV_TOL in a
+    few percent of the envs, by that float64 rule; at 1 and 133 envs bit
+    for bit the 8,229-env launch's first envs; on kernel_ab's edge envs (no
+    active contact and a zero reuse gradient, no slot touching the root, a
+    NaN in one J row) NaN where the plain version has it and the
+    zero-gradient env's state where it was."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from flybody_tpu_torch.ops import arrow
+    from flybody_tpu_torch.ops import newton_fused as nf
+    from flybody_tpu_torch.tools import kernel_ab
+    a = kernel_ab.unpacked_operands(8229, chip_smoke.SEED)['reuse'][:-2]
+    packed = a[:4] + (arrow.pack_sym_ref(a[0], a[4]).contiguous(),) + a[5:]
+    for ops in (a, packed):
+        for it in (1, 3):
+            full, ref = nf.reuse(*ops, 30, it), nf.reuse_ref(*ops, 30, it)
+            r64 = nf.reuse_ref(*chip_smoke.f64(ops), 30, it)
+            err = chip_smoke.env_err(full, ref)
+            if it == 1:
+                assert chip_smoke.share(err) >= chip_smoke.NEWTON_ENV_SHARE
+            slack = max(chip_smoke.F64_SHARE_SLACK, 4 / len(err))
+            assert (chip_smoke.share(chip_smoke.env_err(full, r64))
+                    >= chip_smoke.share(chip_smoke.env_err(ref, r64))
+                    - slack), (ops[4].dim(), it, chip_smoke.share(err))
+            for n in (1, 133):
+                sub = tuple(t[:n].contiguous() if torch.is_tensor(t)
+                            and t.dim() > 1 else t for t in ops)
+                for o, f in zip(nf.reuse(*sub, 30, it), full):
+                    assert kernel_ab.same(o, f[:n]), (ops[4].dim(), it, n)
+            e = kernel_ab.reuse_edge_envs(ops + (30, it))
+            got, ref = nf.reuse(*e), nf.reuse_ref(*e)
+            for g, r, x0 in zip(got, ref, e[9:13]):
+                assert torch.equal(torch.isnan(g), torch.isnan(r))
+                assert torch.equal(g[0], x0[0])
+
+
+@pytest.mark.gpu
 def test_force_stage_holds_on_ragged_batches(env):
     """K2 (a block an env) at batches 1, 133 and 8,193 of
     tools/profile_newton.py's walk state, on the walking model and on its
