@@ -40,10 +40,12 @@ Phases (any failure exits non-zero):
      and the last slice's (dense_collision_kernels, block_full_check): row
      5 on the dense collide's 1,213 slots (capsule-capsule included), row
      20 on the seven MPR groups' candidates per near pair beside two wrong
-     controls that must fail (mpr_gate), row 7 on the dense make_efc's
-     2,048 candidates (K 64), and row 9's block-full mode on the default
-     forward pass through newton_checks beside three wrong controls that
-     must fail (a bf16-rounded Hessian, one iteration more, one fewer).
+     controls that must fail (mpr_kernel.passes_gate), row 7 on the dense
+     make_efc's 2,048 candidates (K 64), and row 9's block-full mode on the
+     default forward pass through newton_checks beside three wrong controls
+     that must fail (a bf16-rounded Hessian, one iteration more, one
+     fewer). Rows 5 and 20 print their device time and the wrapper's host
+     time beside the CUDA-event time (tools/device_time.py).
      Each Newton mode's, K1's, K2's, K3's (its packed
      one-right-hand-side kernel), K4's, the narrowphase's (compact and
      dense), the merged MPR's, the contact rows' (each preset's and the
@@ -234,24 +236,8 @@ COST_REL_TOL = {'newton_block': (1e-5, 1e-2),  # (median env, batch mean)
 NOSLIP_REL_TOL = 1e-3  # per-index rel. error of the noslip kernel
 NARROW_REL_TOL = 1e-5  # per-slot rel. error of the narrowphase kernel
 EFC_REL_TOL = 1e-5  # per-field rel. error of the contact-row kernel
-# The MPR kernel against its plain version, per candidate pair. A pair
-# agrees when its separated / touching classification does and, if it is
-# nearer than MPR_NEAR in the reference, its dist agrees to MPR_DIST_ATOL
-# and its normals' dot product is at least MPR_DOT (tests/test_ops.py's
-# bounds for the TPU kernel). At least MPR_CLASS_SHARE of all pairs agree
-# in classification and MPR_SHARE of the near pairs agree; and against the
-# plain version at float64 the kernel misses at most MPR_F64_RATIO times
-# as many near pairs as the plain float32 version does (plus 4). The
-# limits lie between the kernel's readings and those of two wrong controls
-# (the plain version with one refinement iteration fewer, and with the
-# polish off) that collision_kernels prints, measured on an NVIDIA H100
-# (PERF.md section 6).
-MPR_NEAR = 1e-3
-MPR_DIST_ATOL = 1e-4
-MPR_DOT = 0.999
-MPR_CLASS_SHARE = 0.999
-MPR_SHARE = 0.9992
-MPR_F64_RATIO = 1.5
+# The MPR kernels (rows 6 and 20) against their plain version, per
+# candidate pair: ops/mpr_kernel.py's gate (`agreement`, `passes_gate`).
 
 
 def log(*a):
@@ -748,31 +734,6 @@ def efc_flops(K, nv, C) -> float:
     return C * math.log2(C) + 3 * K * nv * 15 + K * 120
 
 
-def mpr_pair_stats(out, ref):
-    """Per candidate pair, whether `out` (dist, normal, pos) agrees with
-    `ref` (see MPR_NEAR): the share of all pairs with the same
-    classification, the number of near pairs in `ref` and the share and
-    number of them that agree, with quantiles of their dist error and
-    1 - dot."""
-    import torch
-    d, n = out[0].double(), out[1].double()
-    rd, rn = ref[0].double(), ref[1].double()
-    same_class = (d == 1.0) == (rd == 1.0)
-    near = (rd < MPR_NEAR) & (rd != 1.0)
-    derr = (d - rd).abs()[near]
-    ndev = (1.0 - (n * rn).sum(-1))[near]
-    ok = same_class[near] & (derr <= MPR_DIST_ATOL) & (ndev <= 1.0 - MPR_DOT)
-    q = torch.tensor([0.5, 0.99, 1.0], dtype=torch.float64,
-                     device=d.device)
-    return dict(class_share=same_class.double().mean().item(),
-                near_pairs=int(near.sum()),
-                near_share=ok.double().mean().item(),
-                near_misses=int((~ok).sum()),
-                near_dist_err_q50_q99_max=torch.quantile(derr, q).tolist(),
-                near_one_minus_dot_q50_q99_max=torch.quantile(ndev,
-                                                              q).tolist())
-
-
 def collision_kernels(model, data_in, entry, report):
     """Rows 5, 6 and 7 against their plain versions on the geometry of a
     forward pass (its position stage) at each preset's broadphase widths
@@ -783,6 +744,7 @@ def collision_kernels(model, data_in, entry, report):
     from flybody_tpu_torch.ops import narrowphase as nk
     from flybody_tpu_torch.physics import collision, engine, kinematics
     from flybody_tpu_torch.physics import solver
+    from flybody_tpu_torch.tools import device_time
 
     batch = data_in.qpos.shape[0]
     meta = model.meta
@@ -803,8 +765,10 @@ def collision_kernels(model, data_in, entry, report):
     byts = (batch * len(geoms) * 12 * 4 + len(geoms) * 3 * 4
             + 16 * sum(len(g1) for _, g1, _, _ in segs) + nbytes(out))
     entry('narrowphase', err, ms, pms, byts, fl)
-    log(f'narrowphase: {ms:.3f} ms kernel, {pms:.3f} ms plain '
-        f'({out[0].shape[1]} slots)')
+    dev = device_time.readings(lambda: nk.narrowphase(*nargs))
+    report['narrowphase'] = dict(ms=ms, plain_ms=pms, **dev)
+    log(f'narrowphase: {ms:.3f} ms kernel ({device_time.line(dev)}), '
+        f'{pms:.3f} ms plain ({out[0].shape[1]} slots)')
     kernel_resources('narrowphase', nk.kernel_info(segs, batch),
                      batch, report)
 
@@ -822,17 +786,10 @@ def collision_kernels(model, data_in, entry, report):
                 'control one refinement iteration fewer': mk.mpr_merged_ref(
                     *margs[:3], 8, refine_iters=mk._mpr.REFINE_ITERS - 1),
                 'control polish off': mk.mpr_merged_ref(*margs[:3], 0)}
-        rd = {name: mpr_pair_stats(o, ref) for name, o in runs.items()
-              if name != 'plain'}
-        rd['near_misses_against_float64'] = {
-            name: mpr_pair_stats(o, f64)['near_misses']
-            for name, o in runs.items()}
+        rd = mk.gate_readings(runs, f64)
         log(f'  mpr_merged readings [{preset}, P {P}]: ' + json.dumps(rd))
         report[f'mpr_readings_{preset}'] = rd
-        kr, m64 = rd['kernel'], rd['near_misses_against_float64']
-        if not (kr['class_share'] >= MPR_CLASS_SHARE
-                and kr['near_share'] >= MPR_SHARE
-                and m64['kernel'] <= MPR_F64_RATIO * m64['plain'] + 4):
+        if not mk.passes_gate(rd, 'kernel'):
             raise AssertionError(f'mpr_merged [{preset}] disagrees: {rd}')
         err = rd['kernel']['near_dist_err_q50_q99_max'][2]
         ms = cuda_ms(lambda: mk.mpr_merged(*margs), 20)
@@ -936,30 +893,22 @@ def efc_check(model, d, cand, K, tag, entry, report):
                      ef.kernel_info(batch, C, K, meta), batch, report)
 
 
-def mpr_gate(rd, name) -> bool:
-    """Whether a run's MPR readings (mpr_pair_stats against the plain
-    version; near misses against float64 beside the plain version's) pass
-    the gate of rows 6 and 20."""
-    r, m64 = rd[name], rd['near_misses_against_float64']
-    return (r['class_share'] >= MPR_CLASS_SHARE
-            and r['near_share'] >= MPR_SHARE
-            and m64[name] <= MPR_F64_RATIO * m64['plain'] + 4)
-
-
 def dense_collision_kernels(model, data_in, entry, report):
     """The dense collide's kernels on the geometry of the forward pass of
     collision_kernels: row 5 on every analytic group, capsule-capsule
     included (per slot, NARROW_REL_TOL); row 20 on the candidates the JAX
     tools give each of the seven MPR groups (a group's top MPR_TOP_P by
     bounding sphere, or all its pairs), per near pair beside two wrong
-    controls that must fail the gate (mpr_gate); row 7 on the dense
+    controls that must fail the gate (mpr_kernel.passes_gate), the device
+    time and the wrapper's host time of each group's launch beside the
+    CUDA-event time (tools/device_time.py); row 7 on the dense
     make_efc's candidates (the two-stage tile prefilter: C 2,048, K 64),
     the slot and body ids exactly."""
     import torch
-    from flybody_tpu_torch.model import spec
     from flybody_tpu_torch.ops import mpr_kernel as mk
     from flybody_tpu_torch.ops import narrowphase as nk
     from flybody_tpu_torch.physics import collision, kinematics, solver
+    from flybody_tpu_torch.tools import device_time, profile_collide
 
     batch, meta = data_in.qpos.shape[0], model.meta
     d, _, _ = kinematics.fwd_position_smooth(model, data_in)
@@ -979,34 +928,27 @@ def dense_collision_kernels(model, data_in, entry, report):
     byts = (batch * len(geoms) * 12 * 4 + len(geoms) * 3 * 4
             + 16 * sum(len(g1) for _, g1, _, _ in segs) + nbytes(out))
     bound = max(byts / HBM_BYTES_PER_S, fl / FP32_FLOPS) * 1e3
+    dev = device_time.readings(lambda: nk.narrowphase(*nargs))
     report['narrowphase_dense'] = dict(
         pairs=sum(len(g1) for _, g1, _, _ in segs), slots=out[0].shape[1],
-        ms=ms, plain_ms=pms, bound_ms=bound, max_abs_err=err, rel_err=rel)
-    log(f'narrowphase (dense, {out[0].shape[1]} slots): {ms:.3f} ms kernel, '
-        f'{pms:.3f} ms plain, bound {bound:.4f} ms')
+        ms=ms, plain_ms=pms, bound_ms=bound, max_abs_err=err, rel_err=rel,
+        **dev)
+    log(f'narrowphase (dense, {out[0].shape[1]} slots): {ms:.3f} ms kernel '
+        f'({device_time.line(dev)}), {pms:.3f} ms plain, bound '
+        f'{bound:.4f} ms')
     kernel_resources('narrowphase[dense]',
                      nk.kernel_info(segs, batch), batch, report)
 
     # Row 20 on each MPR group's candidates.
-    tb = collision.pair_tables(meta)
-    gcat = collision._geom_cat(d)
-    groups = []
-    for key in mk.PAIRS:
-        g1, g2, _ = tb['groups'][key]
-        pg = (collision.topp_geo(model, d, g1, g2, gcat)[1]
-              if len(g1) > collision.MPR_TOP_P
-              else collision.gather_group(model, gcat, g1, g2))
-        groups.append((key, 0 if spec.GEOM_CYLINDER in key else 8,
-                       tuple(t.contiguous() for t in pg)))
+    groups = profile_collide.mpr_groups(model, d)
 
     def run(fn):
         outs = [fn(key, pol, pg) for key, pol, pg in groups]
         return tuple(torch.cat([o[i] for o in outs], 1) for i in range(2))
 
-    ref = run(lambda k, pol, pg: mk.mpr_pair_ref(*k, pol, *pg))
     runs = {
         'kernel': run(lambda k, pol, pg: mk.mpr_pair(*k, pol, *pg)),
-        'plain': ref,
+        'plain': run(lambda k, pol, pg: mk.mpr_pair_ref(*k, pol, *pg)),
         'control one refinement iteration fewer': run(
             lambda k, pol, pg: mk.mpr_pair_ref(
                 *k, pol, *pg, refine_iters=mk._mpr.REFINE_ITERS - 1)),
@@ -1014,19 +956,15 @@ def dense_collision_kernels(model, data_in, entry, report):
             lambda k, pol, pg: mk.mpr_pair_ref(*k, 0, *pg))}
     f64 = run(lambda k, pol, pg: mk.mpr_pair_ref(
         *k, pol, *(t.double() for t in pg)))
-    rd = {name: mpr_pair_stats(o, ref) for name, o in runs.items()
-          if name != 'plain'}
-    rd['near_misses_against_float64'] = {
-        name: mpr_pair_stats(o, f64)['near_misses']
-        for name, o in runs.items()}
+    rd = mk.gate_readings(runs, f64)
     rd['candidates'] = {str(k): pg[0].shape[1] for k, _, pg in groups}
     log('  mpr_pair readings (the seven groups together): '
         + json.dumps(rd))
     report['mpr_pair_readings'] = rd
-    if not mpr_gate(rd, 'kernel'):
+    if not mk.passes_gate(rd, 'kernel'):
         raise AssertionError(f'mpr_pair disagrees: {rd}')
     for name in runs:
-        if name.startswith('control') and mpr_gate(rd, name):
+        if name.startswith('control') and mk.passes_gate(rd, name):
             raise AssertionError(f'mpr_pair: the {name} passes the gate: '
                                  f'{rd}')
     ms = sum(cuda_ms(lambda: mk.mpr_pair(*k, pol, *pg), 20)
@@ -1040,9 +978,20 @@ def dense_collision_kernels(model, data_in, entry, report):
     err = rd['kernel']['near_dist_err_q50_q99_max'][2]
     entry('mpr_pair', err, ms, pms, byts, fl)
     n_c = sum(pg[0].shape[1] for _, _, pg in groups)
+    per_group = {str(k): device_time.readings(
+        lambda k=k, pol=pol, pg=pg: mk.mpr_pair(*k, pol, *pg))
+        for k, pol, pg in groups}
+    dev = {w: (None if any(r[w] is None for r in per_group.values())
+               else sum(r[w] for r in per_group.values()))
+           for w in ('device_ms', 'host_ms')}
+    report['mpr_pair'] = dict(ms=ms, plain_ms=pms, per_group=per_group,
+                              **dev)
     log(f'mpr_pair (the seven groups, {n_c} candidates an env): '
-        f'{ms:.3f} ms kernels, {pms:.3f} ms plain, '
+        f'{ms:.3f} ms kernels (device {device_time.fmt(dev["device_ms"])}, '
+        f'wrapper host {dev["host_ms"]:.4f}), {pms:.3f} ms plain, '
         f'bound {max(byts / HBM_BYTES_PER_S, fl / FP32_FLOPS) * 1e3:.4f} ms')
+    for k, r in per_group.items():
+        log(f'  mpr_pair[{k}]: {device_time.line(r)}')
 
     # Row 7 on the dense make_efc's candidates.
     con = collision.collide(model, d, compact=False)

@@ -14,10 +14,21 @@
 // capsule-capsule group's 1,039 pairs among them) write 34 KB. Design: one
 // thread per (env, pair), pairs of one env on neighbouring threads. The
 // pair table [type, geom1, geom2, first slot] is a small int array read
-// through the read-only cache; each thread gathers its two geoms' pose
-// rows by index (no pre-gathered planes, no one-hot products), and since
-// pairs are grouped by type, a warp takes one branch but at the seams of
-// the type segments.
+// through the read-only cache; each thread gathers by index only the pose
+// and size entries its pair type's formulas read (a plane's normal, a
+// capsule's axis: a column of the frame; the whole frame for an
+// ellipsoid), 8-21 loads a thread where it issued 30, and since pairs
+// are grouped by type, a warp takes one branch but at the seams of the
+// type segments. The phase clocks of the first design
+// put 80% of a thread's cycles in its gather (PERF.md section 5). A table
+// that fits one block (the compact one) gives each env a block of its own
+// (blockIdx.y), so that a block reads one env's poses; a wider one deals
+// the (env, pair) items to consecutive threads with 32-bit index
+// arithmetic (the first design divided a 64-bit index). The row formulas
+// are the first design's, term for term, so every output keeps its bits:
+// staging the rows in shared memory for coalesced stores, and the formulas
+// rewritten over frame columns, both moved bits or ran slower (PERF.md
+// section 6).
 
 #include "geom.cuh"
 
@@ -36,6 +47,7 @@ enum PairType {
 
 constexpr float kEps = 1e-15f;
 constexpr int kThreads = 128;
+constexpr int kMaxGridY = 65535;  // envs a launch's grid spans
 
 struct Row {
   float dist;
@@ -147,23 +159,100 @@ __device__ __forceinline__ Row capsule_capsule_row(V3 p1, const M3& m1, V3 s1,
   return sphere_sphere_row(q1, s1.x, q2, s2.x);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    narrowphase_kernel(const float* __restrict__ xpos,
-                       const float* __restrict__ xmat,
-                       const float* __restrict__ size,
-                       const int4* __restrict__ pairs,
-                       float* __restrict__ dist_o, float* __restrict__ pos_o,
-                       float* __restrict__ nrm_o, int B, int ngeom, int P,
-                       int S) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)B * P) return;
-  const int e = (int)(t / P), p = (int)(t % P);
+constexpr int kPhases = 3;  // ops/narrowphase.PHASES
+
+// Kernel 5's phase clocks (narrowphase_phase_clock): where the clock
+// instantiation adds, every d_clk_stride-th env; g_clk on the host.
+__device__ long long* d_clk;
+__device__ int d_clk_stride;
+long long* g_clk = nullptr;
+
+// Phase i of a thread ends: it adds the cycles since the last mark to
+// phase i (clock instantiation only).
+#define PHASE(i)                        \
+  do {                                  \
+    if constexpr (kClock) {             \
+      const long long c_ = clock64();   \
+      ph[i] += c_ - c_last;             \
+      c_last = c_;                      \
+    }                                   \
+  } while (0)
+
+// Waits for v (clock instantiation only): a branch on it, so that the
+// loads behind v are counted in the phase that issued them.
+__device__ __forceinline__ void settle(float v) {
+  if (v == -1.2345678e30f) __trap();
+}
+
+// One (env, pair)'s rows, stored at slots first .. first + k - 1 of env e.
+// kClock: the phase clocks of ops/narrowphase.PHASES, the thread adding its
+// cycles to d_clk[(e / d_clk_stride) * kPhases + phase] for every
+// d_clk_stride-th env.
+template <bool kClock>
+__device__ __forceinline__ void pair_rows(
+    int e, int p, const float* __restrict__ xpos,
+    const float* __restrict__ xmat, const float* __restrict__ size,
+    const int4* __restrict__ pairs, float* __restrict__ dist_o,
+    float* __restrict__ pos_o, float* __restrict__ nrm_o, int ngeom, int S) {
+  long long ph[kPhases], c_last = 0;
+  if constexpr (kClock) {
+    for (int i = 0; i < kPhases; ++i) ph[i] = 0;
+    c_last = clock64();
+  }
   const int4 pr = __ldg(pairs + p);  // type, geom1, geom2, first slot
   const float* xp = xpos + (size_t)e * ngeom * 3;
   const float* xm = xmat + (size_t)e * ngeom * 9;
   const V3 p1 = ld3(xp + 3 * pr.y), p2 = ld3(xp + 3 * pr.z);
-  const M3 m1 = ld9(xm + 9 * pr.y), m2 = ld9(xm + 9 * pr.z);
-  const V3 s1 = ld3(size + 3 * pr.y), s2 = ld3(size + 3 * pr.z);
+  // Only the entries the pair's formulas read (the others stay zero).
+  M3 m1, m2;
+  for (int i = 0; i < 9; ++i) m1.m[i] = m2.m[i] = 0.f;
+  V3 s1 = v3(0.f, 0.f, 0.f), s2 = v3(0.f, 0.f, 0.f);
+  const float* a = xm + 9 * pr.y;
+  const float* b = xm + 9 * pr.z;
+  const float* z1 = size + 3 * pr.y;
+  const float* z2 = size + 3 * pr.z;
+  s2.x = z2[0];
+  switch (pr.x) {
+    case kPlaneSphere:
+      m1.m[2] = a[2], m1.m[5] = a[5], m1.m[8] = a[8];
+      break;
+    case kPlaneCapsule:
+      m1.m[2] = a[2], m1.m[5] = a[5], m1.m[8] = a[8];
+      m2.m[2] = b[2], m2.m[5] = b[5], m2.m[8] = b[8];
+      s2.y = z2[1];
+      break;
+    case kPlaneEllipsoid:
+      m1.m[2] = a[2], m1.m[5] = a[5], m1.m[8] = a[8];
+      m2 = ld9(b);
+      s2.y = z2[1], s2.z = z2[2];
+      break;
+    case kPlaneCylinder:
+      m1.m[2] = a[2], m1.m[5] = a[5], m1.m[8] = a[8];
+      m2.m[0] = b[0], m2.m[3] = b[3], m2.m[6] = b[6];
+      m2.m[2] = b[2], m2.m[5] = b[5], m2.m[8] = b[8];
+      s2.y = z2[1];
+      break;
+    case kSphereSphere:
+      s1.x = z1[0];
+      break;
+    case kSphereCapsule:
+      m2.m[2] = b[2], m2.m[5] = b[5], m2.m[8] = b[8];
+      s1.x = z1[0];
+      s2.y = z2[1];
+      break;
+    default:  // kCapsuleCapsule
+      m1.m[2] = a[2], m1.m[5] = a[5], m1.m[8] = a[8];
+      m2.m[2] = b[2], m2.m[5] = b[5], m2.m[8] = b[8];
+      s1.x = z1[0], s1.y = z1[1];
+      s2.y = z2[1];
+      break;
+  }
+  if constexpr (kClock) {
+    float v = p1.x + p2.x + s1.x + s2.x;
+    for (int i = 0; i < 9; ++i) v += m1.m[i] + m2.m[i];
+    settle(v);
+  }
+  PHASE(0);
 
   Row rows[3];
   int k = 1;
@@ -199,12 +288,59 @@ __global__ void __launch_bounds__(kThreads)
       rows[0] = capsule_capsule_row(p1, m1, s1, p2, m2, s2);
       break;
   }
+  if constexpr (kClock) settle(rows[0].dist + rows[0].pos.x);
+  PHASE(1);
   for (int r = 0; r < k; ++r) {
     const size_t s = (size_t)e * S + pr.w + r;
     dist_o[s] = rows[r].dist;
     st3(pos_o + 3 * s, rows[r].pos);
     st3(nrm_o + 3 * s, rows[r].normal);
   }
+  PHASE(2);
+  if constexpr (kClock) {
+    if (e % d_clk_stride == 0)
+      for (int i = 0; i < kPhases; ++i)
+        atomicAdd(reinterpret_cast<unsigned long long*>(
+                      d_clk + (size_t)(e / d_clk_stride) * kPhases + i),
+                  (unsigned long long)ph[i]);
+  }
+}
+
+// A thread a pair of one env. kEnvBlocks (the pair table fits one block):
+// block (1, e) takes env e's P pairs (and e + gridDim.y, ...), so that a
+// block reads one env's poses; else the (env, pair) items are dealt to
+// consecutive threads, item t = e P + p (no block idles past a last
+// partial chunk of pairs).
+template <bool kClock, bool kEnvBlocks>
+__global__ void __launch_bounds__(kThreads)
+    narrowphase_kernel(const float* __restrict__ xpos,
+                       const float* __restrict__ xmat,
+                       const float* __restrict__ size,
+                       const int4* __restrict__ pairs,
+                       float* __restrict__ dist_o, float* __restrict__ pos_o,
+                       float* __restrict__ nrm_o, int B, int ngeom, int P,
+                       int S) {
+  if constexpr (kEnvBlocks) {
+    const int p = threadIdx.x;
+    if (p >= P) return;
+    for (int e = blockIdx.y; e < B; e += gridDim.y)
+      pair_rows<kClock>(e, p, xpos, xmat, size, pairs, dist_o, pos_o, nrm_o,
+                        ngeom, S);
+  } else {
+    const unsigned t = blockIdx.x * kThreads + threadIdx.x;
+    if (t >= (unsigned)B * (unsigned)P) return;
+    const int e = (int)(t / (unsigned)P);
+    pair_rows<kClock>(e, (int)(t - e * (unsigned)P), xpos, xmat, size,
+                      pairs, dist_o, pos_o, nrm_o, ngeom, S);
+  }
+}
+
+// narrowphase_kernel's kEnvBlocks, and the launch's grid.
+bool fits_block(int P) { return P <= kThreads; }
+
+dim3 grid_for(int B, int P) {
+  if (fits_block(P)) return dim3(1, min(B, kMaxGridY));
+  return dim3((unsigned)(((long long)B * P + kThreads - 1) / kThreads));
 }
 
 }  // namespace
@@ -214,12 +350,34 @@ FB_API int narrowphase_f32(const float* xpos, const float* xmat,
                            float* pos, float* normal, int B, int ngeom, int P,
                            int S, void* stream) {
   if (B < 1 || P < 1) return -1;
-  const long long n = (long long)B * P;
-  const int blocks = (int)((n + kThreads - 1) / kThreads);
-  narrowphase_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      xpos, xmat, size, reinterpret_cast<const int4*>(pairs), dist, pos,
-      normal, B, ngeom, P, S);
+  if (!fits_block(P) && (long long)B * P >= (1LL << 31)) return -1;
+  const dim3 grid = grid_for(B, P);
+  const int4* pt = reinterpret_cast<const int4*>(pairs);
+  cudaStream_t st = (cudaStream_t)stream;
+#define FB_NARROW(C, E)                                                \
+  narrowphase_kernel<C, E><<<grid, kThreads, 0, st>>>(               \
+      xpos, xmat, size, pt, dist, pos, normal, B, ngeom, P, S)
+  if (fits_block(P)) {
+    if (g_clk) FB_NARROW(true, true); else FB_NARROW(false, true);
+  } else {
+    if (g_clk) FB_NARROW(true, false); else FB_NARROW(false, false);
+  }
+#undef FB_NARROW
   return launch_status();
+}
+
+// Phase clocks: while clk is set, every launch runs the clock instantiation
+// and adds the cycles of each phase of every stride-th env (the sum over
+// its pairs' threads) to clk ((ceil(B / stride), kPhases) int64); nullptr
+// turns it off.
+FB_API int narrowphase_phase_clock(long long* clk, int stride) {
+  if (stride < 1) return -1;
+  cudaError_t err = cudaMemcpyToSymbol(d_clk, &clk, sizeof(clk));
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbol(d_clk_stride, &stride, sizeof(stride));
+  if (err != cudaSuccess) return (int)err;
+  g_clk = clk;
+  return 0;
 }
 
 // Resources of the kernel for P pairs: out = registers a thread, shared
@@ -227,13 +385,16 @@ FB_API int narrowphase_f32(const float* xpos, const float* xmat,
 FB_API int narrowphase_info(int B, int P, int* out) {
   if (B < 1 || P < 1) return -1;
   cudaFuncAttributes fa;
-  cudaError_t err = cudaFuncGetAttributes(&fa, narrowphase_kernel);
+  auto kernel = fits_block(P) ? narrowphase_kernel<false, true>
+                                 : narrowphase_kernel<false, false>;
+  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
   if (err != cudaSuccess) return (int)err;
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, narrowphase_kernel, kThreads, 0);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      kThreads, 0);
   if (err != cudaSuccess) return (int)err;
-  out[0] = fa.numRegs, out[1] = 0, out[2] = blocks;
-  out[3] = (int)(((long long)B * P + kThreads - 1) / kThreads);
+  out[0] = fa.numRegs, out[1] = (int)fa.sharedSizeBytes, out[2] = blocks;
+  const dim3 grid = grid_for(B, P);
+  out[3] = (int)(grid.x * grid.y);
   return 0;
 }

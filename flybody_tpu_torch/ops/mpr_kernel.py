@@ -16,7 +16,11 @@ the done / separated flags, then `polish_iters` polish steps).
     candidates of ONE type pair, its supports fixed at compile time; polish
     accepted on every pair (no smooth mask, as the TPU kernel). Plain
     version `mpr_pair_ref`. The kernel has the seven convex pairs of the
-    walking model (PAIRS) and raises on any other.
+    walking model (PAIRS) and raises on any other; it normalises by
+    reciprocal square roots where the plain version and kernel 6 divide
+    (csrc/mpr.cu), so it rounds otherwise and is held per near pair
+    (`passes_gate`), not bit for bit. PHASES, `record_phases` and
+    `pair_info` read its phase clocks and resources.
 
 Operands, per env and candidate: c1, c2 (B, P, 12) [pos | row-major
 xmat] of the two geoms; prm (B, P, 11) [size1 (3) | margin1 | size2 (3) |
@@ -39,6 +43,9 @@ from flybody_tpu_torch.physics import mpr as _mpr
 
 launches = 0  # mpr_merged calls (each the pre-pass and the main kernel)
 pair_launches = 0  # mpr_pair kernel launches
+# Kernel 20's phases (csrc/mpr.cu PHASE marks), per candidate.
+PHASES = ('load and seed portal', 'discovery', 'refinement', 'witness',
+          'polish', 'store')
 WINDOW = 8192  # candidates the pre-pass orders together (csrc/mpr.cu kWindow)
 # The support branch of each geom type code (csrc/mpr.cu `branch`); any
 # other code takes the ellipsoid's.
@@ -51,6 +58,70 @@ PAIRS = ((_s.GEOM_SPHERE, _s.GEOM_ELLIPSOID),
          (_s.GEOM_ELLIPSOID, _s.GEOM_ELLIPSOID),
          (_s.GEOM_ELLIPSOID, _s.GEOM_CYLINDER),
          (_s.GEOM_CYLINDER, _s.GEOM_CYLINDER))
+
+
+# The MPR kernels against their plain version, per candidate pair
+# (chip_smoke.py and tools/kernel_ab.py; `agreement`, `passes_gate`). A
+# pair agrees when its separated / touching classification does and, if
+# it is nearer than NEAR in the reference, its dist agrees to DIST_ATOL and
+# its normals' dot product is at least DOT (tests/test_ops.py's bounds for
+# the TPU kernel). At least CLASS_SHARE of all pairs agree in
+# classification and SHARE of the near pairs agree; and against the plain
+# version at float64 the kernel misses at most F64_RATIO times as many
+# near pairs as the plain float32 version does (plus 4). The limits lie
+# between the kernels' readings and those of two wrong controls (the plain
+# version with one refinement iteration fewer, and with the polish off),
+# measured on an NVIDIA H100 (PERF.md section 6).
+NEAR = 1e-3
+DIST_ATOL = 1e-4
+DOT = 0.999
+CLASS_SHARE = 0.999
+SHARE = 0.9992
+F64_RATIO = 1.5
+
+
+def agreement(out, ref) -> dict:
+    """Per candidate pair, whether `out` (dist, normal, pos) agrees with
+    `ref` (see NEAR): the share of all pairs with the same classification,
+    the number of near pairs in `ref` and the share and number of them that
+    agree, with quantiles of their dist error and 1 - dot."""
+    d, n = out[0].double(), out[1].double()
+    rd, rn = ref[0].double(), ref[1].double()
+    same_class = (d == 1.0) == (rd == 1.0)
+    near = (rd < NEAR) & (rd != 1.0)
+    derr = (d - rd).abs()[near]
+    ndev = (1.0 - (n * rn).sum(-1))[near]
+    ok = same_class[near] & (derr <= DIST_ATOL) & (ndev <= 1.0 - DOT)
+    q = torch.tensor([0.5, 0.99, 1.0], dtype=torch.float64, device=d.device)
+
+    def quantiles(x):  # none without near pairs
+        return torch.quantile(x, q).tolist() if x.numel() else [0.0] * 3
+    return dict(class_share=same_class.double().mean().item(),
+                near_pairs=int(near.sum()),
+                near_share=ok.double().mean().item() if ok.numel() else 1.0,
+                near_misses=int((~ok).sum()),
+                near_dist_err_q50_q99_max=quantiles(derr),
+                near_one_minus_dot_q50_q99_max=quantiles(ndev))
+
+
+def gate_readings(runs: dict, f64) -> dict:
+    """{name: agreement with runs['plain']} of every other run, and
+    'near_misses_against_float64': {name: near misses against f64, the
+    plain version at float64} of every run."""
+    ref = runs['plain']
+    rd = {name: agreement(o, ref) for name, o in runs.items()
+          if name != 'plain'}
+    rd['near_misses_against_float64'] = {
+        name: agreement(o, f64)['near_misses'] for name, o in runs.items()}
+    return rd
+
+
+def passes_gate(rd, name) -> bool:
+    """Whether run `name` of gate_readings `rd` passes the gate of rows 6
+    and 20."""
+    r, m64 = rd[name], rd['near_misses_against_float64']
+    return (r['class_share'] >= CLASS_SHARE and r['near_share'] >= SHARE
+            and m64[name] <= F64_RATIO * m64['plain'] + 4)
 
 
 def mpr_merged_ref(c1, c2, prm, polish_iters: int,
@@ -121,6 +192,26 @@ def kernel_info(n: int) -> dict:
         ctypes.c_int, ctypes.POINTER(ctypes.c_int * 4)])
     _cuda.raise_on(fn(n, ctypes.byref(out)), 'mpr_merged_info')
     return _cuda.info_dict(out)
+
+
+def pair_info(type1: int, type2: int, n: int) -> dict:
+    """Registers a thread, shared memory a block, blocks an SM (the
+    occupancy calculator) and grid blocks of kernel 20's kernel for a type
+    pair and n candidates."""
+    out = (ctypes.c_int * 4)()
+    I = ctypes.c_int
+    fn = _cuda.function('mpr', 'mpr_pair_info',
+                        [I] * 3 + [ctypes.POINTER(ctypes.c_int * 4)])
+    _cuda.raise_on(fn(type1, type2, n, ctypes.byref(out)), 'mpr_pair_info')
+    return _cuda.info_dict(out)
+
+
+def record_phases(fn, n: int, stride: int, device):
+    """Runs fn() (kernel 20 launches on n candidates) with its phase
+    clocks on: every stride-th candidate's cycles in each phase of PHASES,
+    an int64 tensor (ceil(n / stride), len(PHASES)) on the CPU."""
+    return _cuda.record_phases('mpr', 'mpr_pair_phase_clock', len(PHASES),
+                               fn, n, stride, device)
 
 
 def mpr_merged(c1, c2, prm, polish_iters: int):

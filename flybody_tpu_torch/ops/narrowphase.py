@@ -20,7 +20,6 @@ tensors; the capsule-capsule block of collision.py uses them too.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
@@ -30,6 +29,9 @@ from flybody_tpu_torch.ops import _cuda
 
 launches = 0
 _EPS = 1e-15
+# The kernel's phases (csrc/narrowphase.cu PHASE marks): a thread's pair
+# and poses read, its rows formed, its rows stored.
+PHASES = ('index and gather', 'rows', 'store')
 
 # ----------------------------------------------------- component algebra
 
@@ -243,13 +245,27 @@ def pair_table(segs) -> np.ndarray:
     return np.array(rows, np.int32)
 
 
-@functools.lru_cache(maxsize=8)
-def _pair_table(segs, device: str) -> torch.Tensor:
-    return torch.as_tensor(pair_table(segs), device=device)
+_tables: dict = {}  # (id(segs), device) -> (segs, P, S, pair table)
+
+
+def _table(segs, device: torch.device) -> tuple:
+    """(P, S, the pair table on `device`) of a segment table, found by the
+    identity of `segs` (the segment tables are cached tuples, and hashing
+    one walks all its ids on every call)."""
+    hit = _tables.get((id(segs), device))
+    if hit is not None and hit[0] is segs:
+        return hit[1:]
+    table = torch.as_tensor(pair_table(segs), device=device)
+    if len(_tables) >= 8:
+        _tables.clear()
+    _tables[(id(segs), device)] = (segs, table.shape[0], n_slots(segs),
+                                   table)
+    return _tables[(id(segs), device)][1:]
 
 
 def narrowphase(segs, geom_xpos, geom_xmat, size_table):
-    """Kernel 5 on CUDA tensors, `narrowphase_ref` on CPU tensors."""
+    """Kernel 5 on CUDA tensors, `narrowphase_ref` on CPU tensors. The
+    three outputs are views of one buffer."""
     if geom_xpos.device.type == 'cpu':
         return narrowphase_ref(segs, geom_xpos, geom_xmat, size_table)
     global launches
@@ -257,21 +273,22 @@ def narrowphase(segs, geom_xpos, geom_xmat, size_table):
     _cuda.check(geom_xpos, (B, ng, 3), 'geom_xpos')
     _cuda.check(geom_xmat, (B, ng, 3, 3), 'geom_xmat')
     _cuda.check(size_table, (ng, 3), 'size_table')
-    table = _pair_table(segs, str(geom_xpos.device))
-    P, S = table.shape[0], n_slots(segs)
-    dist = torch.empty((B, S), dtype=torch.float32, device=geom_xpos.device)
-    pos = torch.empty((B, S, 3), dtype=torch.float32,
-                      device=geom_xpos.device)
-    normal = torch.empty_like(pos)
-    V, I = ctypes.c_void_p, ctypes.c_int
-    fn = _cuda.function('narrowphase', 'narrowphase_f32',
-                        [V] * 7 + [I] * 4 + [V])
+    P, S, table = _table(segs, geom_xpos.device)
+    n = B * S
+    buf = torch.empty(7 * n, dtype=torch.float32, device=geom_xpos.device)
+    dist = buf[:n].view(B, S)
+    pos = buf[n:4 * n].view(B, S, 3)
+    normal = buf[4 * n:].view(B, S, 3)
+    fn = _cuda.function('narrowphase', 'narrowphase_f32', _ARGTYPES)
     rc = fn(geom_xpos.data_ptr(), geom_xmat.data_ptr(),
             size_table.data_ptr(), table.data_ptr(), dist.data_ptr(),
             pos.data_ptr(), normal.data_ptr(), B, ng, P, S, _cuda.stream())
     _cuda.raise_on(rc, 'narrowphase_f32')
     launches += 1
     return dist, pos, normal
+
+
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def kernel_info(segs, batch: int) -> dict:
@@ -285,3 +302,12 @@ def kernel_info(segs, batch: int) -> dict:
     P = sum(len(g1) for _, g1, _, _ in segs)
     _cuda.raise_on(fn(batch, P, ctypes.byref(out)), 'narrowphase_info')
     return _cuda.info_dict(out)
+
+
+def record_phases(fn, batch: int, stride: int, device):
+    """Runs fn() (kernel launches on `batch` envs) with the kernel's phase
+    clocks on: every stride-th env's cycles in each phase of PHASES,
+    summed over its pairs' threads, an int64 tensor (ceil(batch / stride),
+    len(PHASES)) on the CPU."""
+    return _cuda.record_phases('narrowphase', 'narrowphase_phase_clock',
+                               len(PHASES), fn, batch, stride, device)

@@ -1,4 +1,4 @@
-"""K1-K4 and rows 5-11 and 13-17 against an earlier tree's kernels on the card.
+"""K1-K4 and rows 5-11, 13-17 and 20 against an earlier tree's kernels on the card.
 
     python -m flybody_tpu_torch.tools.kernel_ab --parent DIR [--batch 8192]
 
@@ -21,7 +21,12 @@ preset's control step handed it (the compact segments), on the dense
 segments of the walk state, on the two-fly scene's second substep and on
 edge envs (`narrow_edge_envs`); the merged MPR (row 6) on the broadphase
 candidates of the walk state at P 128 and P 32 and of the two-fly state at
-P 128, and on edge candidates (`mpr_edge_candidates`); the contact rows
+P 128, and on edge candidates (`mpr_edge_candidates`); the per-type-pair
+MPR (row 20, csrc/mpr.cu) on each of the seven groups' candidates
+(tools/profile_collide.mpr_groups) of the walk state and of
+tools/profile_collide.py's state (qpos0 + 0.01 N(0, 1)), on the seven
+together, and on each group of the walk state with edge candidates
+(`mpr_pair_edge_candidates`); the contact rows
 (row 7) on the candidates of that last substep at each preset (C 430, K 64;
 C 222, K 24), on the dense make_efc's (C 2,048, K 64) and on edge scores
 (`efc_edge_scores`: ties, -0 / +0, +-inf, NaN and 1e10 at K 1, 24, 64 and
@@ -68,7 +73,9 @@ iterations, and on a ragged batch (`ragged`: batch + 37 envs). Per case it
 prints whether every output is the earlier kernel's bit for bit
 (`same`: the same bits, NaN in the same places) and both kernels' times (CUDA events
 over --reps calls, tools/profile_engine's timer), taken in turns: earlier,
-this, this, earlier. For an output that differs it prints how many entries
+this, this, earlier; then each tree's device time and wrapper host time
+a call (tools/device_time.py: the kernels' own durations from the
+profiler, and the host clock while the card sleeps). For an output that differs it prints how many entries
 do and the largest difference. Rows 16 and 17 were redesigned to sum in
 another order, so their cases are judged by `env_share` instead: the share
 of envs whose outputs all lie within CHOL_ENV_TOL (row 17) or
@@ -76,7 +83,13 @@ SUBST_REL_TOL (row 16) of each index's scale, against the earlier kernel
 and against the plain version at float64 (printed beside the earlier
 kernel's own share against float64); a case fails when its share against
 the earlier kernel is below CHOL_ENV_SHARE, or its share against float64
-below both CHOL_ENV_SHARE and the earlier kernel's. Every other case fails
+below both CHOL_ENV_SHARE and the earlier kernel's. Row 20 may round
+otherwise than its earlier kernel (no stepping gate reads it), so its
+cases are judged by `mpr_pair_judged`: on the seven groups together
+the gate of rows 6 and 20 against the plain version and no more near
+misses against float64 than the earlier kernel (on the walk state two
+wrong controls must fail the gate); on one group the classification and
+the gate's float64 rule held to the earlier kernel. Every other case fails
 when an output differs. It writes chiprun_out/kernel_ab.json and exits 1
 if a case fails.
 """
@@ -415,6 +428,104 @@ def mpr_edge_candidates(c1, c2, prm) -> tuple:
     for t in (c1, c2, prm):
         t[dst] = t[src].clone()
     return tuple(t.reshape(B, P, -1).contiguous() for t in (c1, c2, prm))
+
+
+def mpr_pair_edge_candidates(c1, c2, prm) -> tuple:
+    """Row 20's operands (c1, c2 (B, P, 12), prm (B, P, 8)) with edge
+    candidates in env 0: coincident centres (the v0 fallback), a separated
+    pair, both frames the identity with geom 2 straight above geom 1 (every
+    type's supports along the line of centres lie on it: a degenerate first
+    portal), a NaN pose."""
+    c1, c2 = c1.clone(), c2.clone()
+    c2[0, 0, :3] = c1[0, 0, :3]
+    c2[0, 1, :3] = c1[0, 1, :3] + 10.0
+    eye = torch.eye(3, dtype=c1.dtype, device=c1.device).flatten()
+    c1[0, 2, 3:], c2[0, 2, 3:] = eye, eye
+    c2[0, 2, :3] = c1[0, 2, :3] + torch.tensor([0.0, 0.0, 0.008],
+                                               device=c1.device)
+    c1[0, 3, 0] = float('nan')
+    return c1, c2, prm
+
+
+def mpr_pair_judged(groups, seven: bool, controls: bool):
+    """A judge for a row 20 case on `groups` [(type pair, polish, (c1, c2,
+    prm))], the outputs concatenated over them. On the seven groups
+    together (`seven`) the kernel passes the gate of rows 6 and 20 against
+    the plain version (mpr_kernel.passes_gate) and misses no more near
+    pairs against the plain version at float64 than the earlier kernel;
+    with `controls` (the walk state, where chip_smoke.py holds the gate),
+    the two wrong controls (one refinement iteration fewer, the polish off)
+    fail the gate. On one group, whose few near pairs the gate (set over
+    all seven) does not resolve, its classification agrees on at least
+    mpr_kernel.CLASS_SHARE of the pairs and it misses at most
+    mpr_kernel.F64_RATIO times the earlier kernel's near misses against
+    float64, plus 4 (the gate's float64 rule, held to the earlier
+    kernel)."""
+    from flybody_tpu_torch.ops import mpr_kernel as mk
+
+    def run(fn):
+        outs = [fn(k, p, g) for k, p, g in groups]
+        return tuple(torch.cat([o[i] for o in outs], 1) for i in range(3))
+
+    def judge(got, ref):
+        runs = {'kernel': got, 'earlier': ref,
+                'plain': run(lambda k, p, g: mk.mpr_pair_ref(*k, p, *g))}
+        if controls:
+            runs['control one refinement iteration fewer'] = run(
+                lambda k, p, g: mk.mpr_pair_ref(
+                    *k, p, *g, refine_iters=mk._mpr.REFINE_ITERS - 1))
+            runs['control polish off'] = run(
+                lambda k, p, g: mk.mpr_pair_ref(*k, 0, *g))
+        f64 = run(lambda k, p, g: mk.mpr_pair_ref(
+            *k, p, *(t.double() for t in g)))
+        rd = mk.gate_readings(runs, f64)
+        m64 = rd['near_misses_against_float64']
+        if seven:
+            ok = (mk.passes_gate(rd, 'kernel')
+                  and m64['kernel'] <= m64['earlier'])
+            ok &= not any(mk.passes_gate(rd, n) for n in runs
+                          if n.startswith('control'))
+        else:
+            ok = (rd['kernel']['class_share'] >= mk.CLASS_SHARE
+                  and m64['kernel'] <= mk.F64_RATIO * m64['earlier'] + 4)
+        short = {n: dict(class_share=r['class_share'],
+                         near_pairs=r['near_pairs'],
+                         near_share=r['near_share'])
+                 for n, r in rd.items() if n != 'near_misses_against_float64'}
+        short['near_misses_against_float64'] = m64
+        return ok, short
+    return judge
+
+
+def mpr_pair_cases(states, root: str):
+    """Row 20's cases: on each state (name, model, d after its position
+    stage) each of the seven groups' launch (profile_collide.mpr_groups)
+    and the seven together (with the controls); on the first state each
+    group with edge candidates (mpr_pair_edge_candidates)."""
+    from flybody_tpu_torch.ops import mpr_kernel as mk
+    from flybody_tpu_torch.tools import profile_collide as pc
+    pmk = parent_module(root, 'mpr_kernel')
+    out = []
+    for i, (what, model, d) in enumerate(states):
+        groups = pc.mpr_groups(model, d)
+        cases = [(f'{what}, {k}, P {g[0].shape[1]}', [(k, p, g)])
+                 for k, p, g in groups]
+        cases.append((f'{what}, seven groups', groups))
+        if i == 0:
+            cases += [(f'{what}, {k}, edge candidates',
+                       [(k, p, mpr_pair_edge_candidates(*g))])
+                      for k, p, g in groups]
+        for tag, gs in cases:
+            def call(mod, gs=gs):
+                outs = [mod.mpr_pair(*k, p, *g) for k, p, g in gs]
+                return tuple(torch.cat([o[j] for o in outs], 1)
+                             for j in range(3))
+            out.append((f'mpr_pair (row 20)[{tag}]', 'mpr',
+                        lambda call=call: call(pmk),
+                        lambda call=call: call(mk),
+                        mpr_pair_judged(gs, len(gs) > 1,
+                                        len(gs) > 1 and i == 0)))
+    return out
 
 
 KERNELS = ('pos_stage', 'narrowphase', 'mpr', 'efc_stage', 'force_stage',
@@ -805,6 +916,12 @@ def cases(batch: int, seed: int, root: str):
                     lambda m=old_m, q=q: pps.pos_stage(m, q),
                     lambda m=new_m, q=q: ps.pos_stage(m, q)))
     d = passes['default'][0]
+    from flybody_tpu_torch.tools import profile_collide as pc
+    cmodel, cd = pc.setup(pc.parser().parse_args(
+        ['--batch', str(batch), '--seed', str(seed)]))
+    out += mpr_pair_cases(
+        [('walk state', model, kinematics.fwd_position_smooth(model, d)[0]),
+         ('profile_collide state', cmodel, cd)], root)
     margs = [('P 128', operands(model, d, 128)),
              ('P 32', operands(model, d, 32)),
              ('two_fly, P 128', operands(tf_model, tf_data, 128))]
@@ -865,6 +982,56 @@ def cases(batch: int, seed: int, root: str):
     return out
 
 
+def run_case(name, lib, old, new, judge, earlier_lib, reps: int):
+    """One case (see `cases`): (whether it passes, its report entry),
+    printed; `earlier_lib` is the earlier tree's library `lib`."""
+    from flybody_tpu_torch.tools import device_time
+    from flybody_tpu_torch.tools.profile_engine import _time
+    with library(lib, earlier_lib):
+        ref = old()
+    got = new()
+    torch.cuda.synchronize()
+    eq = [same(a, b) for a, b in zip(got, ref)]
+    times = {'earlier': [], 'this': []}
+    for who in ('earlier', 'this', 'this', 'earlier'):
+        if who == 'earlier':
+            with library(lib, earlier_lib):
+                times[who].append(_time(old, reps, True) * 1e3)
+        else:
+            times[who].append(_time(new, reps, True) * 1e3)
+    with library(lib, earlier_lib):
+        dev_old = device_time.readings(old, reps)
+    dev_new = device_time.readings(new, reps)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if not eq[i]:
+            diff = (a.double() - b.double()).abs().nan_to_num(1e300)
+            at = torch.nonzero(diff == diff.max())[0].tolist()
+            print(f'  output {i}: {int((diff > 0).sum())} of '
+                  f'{diff.numel()} entries differ, largest '
+                  f'{float(diff.max()):.3e} at {tuple(at)}')
+    nan = sum(int(torch.isnan(t).sum()) for t in got)
+    entry = dict(bit_equal=eq, nan_entries=nan,
+                 device=dict(earlier=dev_old, this=dev_new), **times)
+    passes, judgement = all(eq), ''
+    if judge:
+        passes, rd = judge[0](got, ref)
+        entry.update(judged=rd, passes=passes)
+        judgement = ('; judged: ' + ', '.join(
+            f'{k} {v:.4f}' if isinstance(v, float) else
+            f'{k} {json.dumps(v)}' for k, v in rd.items())
+            + f' -> {"pass" if passes else "FAIL"}')
+    print(f'{name}: outputs bit for bit the earlier kernel\'s: {eq} '
+          f'(NaN entries {nan}); ms earlier '
+          f'{times["earlier"][0]:.3f} / {times["earlier"][1]:.3f}, '
+          f'this {times["this"][0]:.3f} / {times["this"][1]:.3f}; '
+          f'device ms earlier {device_time.fmt(dev_old["device_ms"])}, '
+          f'this {device_time.fmt(dev_new["device_ms"])}; wrapper host ms '
+          f'earlier '
+          f'{dev_old["host_ms"]:.4f}, this {dev_new["host_ms"]:.4f}'
+          + judgement, flush=True)
+    return passes, entry
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     p.add_argument('--parent', required=True,
@@ -875,7 +1042,6 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('kernel_ab runs the kernels: it needs a CUDA device')
-    from flybody_tpu_torch.tools.profile_engine import _time
     from concurrent.futures import ThreadPoolExecutor
     with ThreadPoolExecutor(1) as pool:  # this tree's kernels beside
         build = pool.submit(_cuda.build_all)  # the earlier ones
@@ -888,40 +1054,9 @@ def main(argv=None) -> int:
     report, ok = dict(card=card, batch=args.batch, cases={}), True
     for name, lib, old, new, *judge in cases(args.batch, args.seed,
                                             args.parent):
-        with library(lib, libs[lib]):
-            ref = old()
-        got = new()
-        torch.cuda.synchronize()
-        eq = [same(a, b) for a, b in zip(got, ref)]
-        times = {'earlier': [], 'this': []}
-        for who in ('earlier', 'this', 'this', 'earlier'):
-            if who == 'earlier':
-                with library(lib, libs[lib]):
-                    times[who].append(_time(old, args.reps, True) * 1e3)
-            else:
-                times[who].append(_time(new, args.reps, True) * 1e3)
-        for i, (a, b) in enumerate(zip(got, ref)):
-            if not eq[i]:
-                diff = (a.double() - b.double()).abs().nan_to_num(1e300)
-                at = torch.nonzero(diff == diff.max())[0].tolist()
-                print(f'  output {i}: {int((diff > 0).sum())} of '
-                      f'{diff.numel()} entries differ, largest '
-                      f'{float(diff.max()):.3e} at {tuple(at)}')
-        nan = sum(int(torch.isnan(t).sum()) for t in got)
-        report['cases'][name] = dict(bit_equal=eq, nan_entries=nan, **times)
-        passes, judgement = all(eq), ''
-        if judge:
-            passes, rd = judge[0](got, ref)
-            report['cases'][name].update(judged=rd, passes=passes)
-            judgement = ('; shares of envs within the limit: ' + ', '.join(
-                f'{k} {v:.4f}' for k, v in rd.items())
-                + f' -> {"pass" if passes else "FAIL"}')
+        passes, report['cases'][name] = run_case(name, lib, old, new, judge,
+                                                 libs[lib], args.reps)
         ok &= passes
-        print(f'{name}: outputs bit for bit the earlier kernel\'s: {eq} '
-              f'(NaN entries {nan}); ms earlier '
-              f'{times["earlier"][0]:.3f} / {times["earlier"][1]:.3f}, '
-              f'this {times["this"][0]:.3f} / {times["this"][1]:.3f}'
-              + judgement)
     os.makedirs('chiprun_out', exist_ok=True)
     with open(os.path.join('chiprun_out', 'kernel_ab.json'), 'w') as f:
         json.dump(report, f, indent=1)

@@ -60,6 +60,27 @@ def group_passes(model) -> dict:
     return out
 
 
+def mpr_groups(model, d) -> list:
+    """[(key, polish, (c1, c2, prm))] of the seven MPR groups
+    (mpr_kernel.PAIRS) on d's geometry: the operands of each group line's
+    kernel 20 launch (its MPR_TOP_P pairs by bounding sphere, or all its
+    pairs), contiguous, and the polish the handler gives it."""
+    from flybody_tpu_torch.model import spec
+    from flybody_tpu_torch.ops import mpr_kernel as mk
+    from flybody_tpu_torch.physics import collision as col
+    tb = col.pair_tables(model.meta)
+    gcat = col._geom_cat(d)
+    out = []
+    for key in mk.PAIRS:
+        g1, g2, _ = tb['groups'][key]
+        pg = (col.topp_geo(model, d, g1, g2, gcat)[1]
+              if len(g1) > col.MPR_TOP_P
+              else col.gather_group(model, gcat, g1, g2))
+        out.append((key, 0 if spec.GEOM_CYLINDER in key else 8,
+                    tuple(t.contiguous() for t in pg)))
+    return out
+
+
 def collide_pass(model, d) -> dict:
     """{line name: outputs} of one pass of every line: the groups, then
     the FULL collide."""

@@ -45,14 +45,24 @@ chain's first fresh arrow Newton step (m 25) and its euler (m 1)
 (ops/arrow.PHASES); the line search (row 13) on the two-fly default
 substep's first search (L 408, K 64, ls 8), the bench one's 8 substeps in
 (K 24, ls 6) and the chain's first (L 204, K 32, ls 6), with the share of
-limit rows it keeps (ops/linesearch.PHASES).
+limit rows it keeps (ops/linesearch.PHASES); the analytic narrowphase
+(row 5) on the default forward pass's geometry, the compact collide's
+segments (174 slots) and the dense collide's (1,213), each env's cycles
+summed over its pairs' threads (ops/narrowphase.PHASES); the per-type-pair
+MPR (row 20) on each of the seven groups' candidates of
+tools/profile_collide.py's state (profile_collide.mpr_groups), clocked per
+candidate, every --stride-th one, an env's cycles being P candidates'
+(ops/mpr_kernel.PHASES).
 --modes picks some of block, block_full, whole, reuse, pos_stage, force_stage,
 noslip_fused, arrow_factor_solve, sens_stage, efc_contacts, chol_solve,
-cho_solve_multi, chol, cho_solve, arrow_dense, line_search.
+cho_solve_multi, chol, cho_solve, arrow_dense, line_search, narrowphase,
+mpr_pair.
 Per mode it prints the registers, shared memory, blocks an SM and grid of
-the kernel, its time, and the cycles of each phase per env, averaged over
-every --stride-th env, with their shares; it writes the tables to
-chiprun_out/profile_newton_phases.json.
+the kernel, its time (CUDA events around back-to-back calls, and beside
+it the kernels' device time, the same calls queued behind a sleep of the
+card, and the wrapper's host time: tools/device_time.py), and the cycles
+of each phase per env, averaged over every --stride-th env, with their
+shares; it writes the tables to chiprun_out/profile_newton_phases.json.
 """
 
 from __future__ import annotations
@@ -69,7 +79,8 @@ from flybody_tpu_torch.tools import profile_engine as pe
 MODES = ('block', 'block_full', 'whole', 'reuse', 'pos_stage',
          'force_stage', 'noslip_fused', 'arrow_factor_solve', 'sens_stage',
          'efc_contacts', 'chol_solve', 'cho_solve_multi', 'chol',
-         'cho_solve', 'arrow_dense', 'line_search')
+         'cho_solve', 'arrow_dense', 'line_search', 'narrowphase',
+         'mpr_pair')
 # two flies'
 DENSE_MODES = ('chol_solve', 'cho_solve_multi', 'cho_solve', 'line_search')
 # tools/profile_engine.py's chain
@@ -164,7 +175,10 @@ def kernel_runs(batch: int, seed: int, modes=MODES) -> dict:
     from flybody_tpu_torch.ops import sens_stage as ss
     out = dense_runs(batch // 2, seed, modes)
     out.update(unpacked_runs(batch, seed, modes))
-    if not set(modes) - set(DENSE_MODES) - set(UNPACKED_MODES):
+    if 'mpr_pair' in modes:
+        out.update(mpr_pair_runs(batch, seed))
+    if not set(modes) - set(DENSE_MODES) - set(UNPACKED_MODES) - {
+            'mpr_pair'}:
         return out
     model, part, passes = walk_passes(batch, seed)
     for mode, (kern, args, ls, it) in newton_operands(part, passes).items():
@@ -207,6 +221,45 @@ def kernel_runs(batch: int, seed: int, modes=MODES) -> dict:
                              dict(ss.kernel_info(model, K, batch), K=K),
                              None)
     out.update(efc_runs(model, passes['default'][0], batch, modes))
+    if 'narrowphase' in modes:
+        out.update(narrow_runs(model, passes['default'][0], batch))
+    return out
+
+
+def narrow_runs(model, d, batch: int) -> dict:
+    """kernel_runs' entries of row 5 on the geometry of d: the compact
+    collide's segments and the dense collide's."""
+    from flybody_tpu_torch.ops import narrowphase as nk
+    from flybody_tpu_torch.physics import collision
+    out = {}
+    for what, segs in (('compact', collision.dense_segments(model.meta)),
+                       ('dense', collision.analytic_segments(model.meta,
+                                                             False))):
+        a = (segs, d.geom_xpos, d.geom_xmat, model.geom_size)
+        P, S = sum(len(g1) for _, g1, _, _ in segs), nk.n_slots(segs)
+        out[f'narrowphase[{what}, {S} slots]'] = (
+            lambda a=a: nk.narrowphase(*a), nk,
+            dict(nk.kernel_info(segs, batch), P=P, S=S), None)
+    return out
+
+
+def mpr_pair_runs(batch: int, seed: int) -> dict:
+    """kernel_runs' entries of row 20 on tools/profile_collide.py's state
+    (qpos0 + 0.01 N(0, 1)): each of the seven groups' launch
+    (profile_collide.mpr_groups). Its clocks are per candidate
+    (info['clock_items']: the B P candidates; info['per_env']: P)."""
+    from flybody_tpu_torch.ops import mpr_kernel as mk
+    from flybody_tpu_torch.tools import profile_collide as pc
+    model, d = pc.setup(pc.parser().parse_args(
+        ['--batch', str(batch), '--seed', str(seed)]))
+    out = {}
+    for key, pol, (c1, c2, prm) in pc.mpr_groups(model, d):
+        P = c1.shape[1]
+        out[f'mpr_pair[{key}]'] = (
+            lambda key=key, pol=pol, a=(c1, c2, prm):
+            mk.mpr_pair(*key, pol, *a), mk,
+            dict(mk.pair_info(*key, batch * P), P=P, polish=pol,
+                 clock_items=batch * P, per_env=P), None)
     return out
 
 
@@ -329,16 +382,21 @@ def efc_runs(model, d, batch: int, modes) -> dict:
 def phase_tables(batch: int, seed: int, stride: int, iters: int,
                  modes=MODES) -> dict:
     """Per mode: the kernel's resources and time and its phase cycles."""
+    from flybody_tpu_torch.tools import device_time
     out = {}
     for name, (fn, mod, info, hist) in kernel_runs(batch, seed,
                                                    modes).items():
         ms = pe._time(fn, iters, True) * 1e3
-        clk = mod.record_phases(fn, info.get('batch', batch), stride,
-                                torch.device('cuda')).double()
-        cyc = clk.mean(0)
+        rd = device_time.readings(fn, iters)
+        clk = mod.record_phases(
+            fn, info.get('clock_items', info.get('batch', batch)), stride,
+            torch.device('cuda')).double()
+        # per-candidate clocks (row 20): an env's are P candidates'
+        cyc = clk.mean(0) * info.get('per_env', 1)
         total = float(cyc.sum())
-        out[name] = dict(ms=ms, sampled_envs=clk.shape[0],
-                         cycles_per_env=total,
+        out[name] = dict(ms=ms, device_ms=rd['device_ms'],
+                         queued_ms=rd['queued_ms'], host_ms=rd['host_ms'],
+                         sampled_envs=clk.shape[0], cycles_per_env=total,
                          phases={p: dict(cycles=float(c),
                                          share=float(c) / total)
                                  for p, c in zip(mod.PHASES, cyc)},
@@ -349,16 +407,25 @@ def phase_tables(batch: int, seed: int, stride: int, iters: int,
 
 
 def print_tables(tables: dict, batch: int):
+    from flybody_tpu_torch.tools import device_time
     for mode, r in tables.items():
         shape = ', '.join(f'{k} {r[k]}' for k in ('C', 'L', 'K', 'SB3', 'ls',
                                                   'iterations', 'sweeps', 'n',
-                                                  'm', 'live_rows')
+                                                  'm', 'live_rows', 'P', 'S',
+                                                  'polish')
                           if k in r)
+        sampled = (f'{r["sampled_envs"]} candidates sampled'
+                   if 'per_env' in r else
+                   f'{r["sampled_envs"]} envs sampled')
         print(f'{mode}: {shape + "; " if shape else ""}{r["ms"]:.3f} ms at '
-              f'batch {r.get("batch", batch)}; {r["registers"]} registers, '
+              f'batch {r.get("batch", batch)} (device '
+              f'{device_time.fmt(r["device_ms"])}, queued '
+              f'{device_time.fmt(r["queued_ms"])}, wrapper host '
+              f'{r["host_ms"]:.4f}); '
+              f'{r["registers"]} registers, '
               f'{r["smem_bytes"]} B shared a block, {r["blocks_per_sm"]} '
               f'blocks an SM, grid {r["grid"]}; {r["cycles_per_env"]:.0f} '
-              f'cycles an env ({r["sampled_envs"]} envs sampled)')
+              f'cycles an env ({sampled})')
         for p, v in r['phases'].items():
             print(f'  {p:22s} {v["cycles"]:12.0f} {100 * v["share"]:6.1f}%')
         if 'listed_slots_histogram' in r:

@@ -63,7 +63,8 @@ HAND_KERNELS = {
     'pos_stage_kernel': ('position',),  # K1
     'narrowphase_kernel': ('collision',),  # row 5
     'mpr_order_kernel': ('collision',),  # row 6's pre-pass
-    'mpr_kernel': ('collision',),  # row 6 (and row 20 in the tools)
+    'mpr_kernel': ('collision',),  # row 6
+    'mpr_pair_kernel': ('collision',),  # row 20 (the tools' group lines)
     'force_stage_kernel': ('force',),  # K2
     'efc_kernel': ('constraint_rows',),  # row 7
     'arrow_fs1_kernel': ('factor_solve', 'euler'),  # K3, packed, m 1

@@ -491,7 +491,7 @@ def test_pos_stage_and_mpr_hold_on_ragged_batches(env):
     tools/profile_newton.py's walk state and the merged MPR (row 6) at P 1,
     33 and 128 of its broadphase candidates: at 8,193
     envs against their plain versions (chip_smoke's per-index relative
-    error 1e-4; row 6 through chip_smoke.mpr_gate), at 1
+    error 1e-4; row 6 through mpr_kernel.passes_gate), at 1
     and 7 envs exactly the 8,193-env launch's first envs; the pre-pass's
     order is the plain `type_order`."""
     sys.path.insert(0, REPO)
@@ -518,11 +518,8 @@ def test_pos_stage_and_mpr_hold_on_ragged_batches(env):
         ref = mk.mpr_merged_ref(c1, c2, prm, 8)
         f64 = mk.mpr_merged_ref(c1.double(), c2.double(), prm.double(), 8)
         out = mk.mpr_merged(c1, c2, prm, 8)
-        rd = {'kernel': chip_smoke.mpr_pair_stats(out, ref),
-              'near_misses_against_float64': {
-                  name: chip_smoke.mpr_pair_stats(o, f64)['near_misses']
-                  for name, o in (('kernel', out), ('plain', ref))}}
-        assert chip_smoke.mpr_gate(rd, 'kernel'), (P, rd)
+        rd = mk.gate_readings({'kernel': out, 'plain': ref}, f64)
+        assert mk.passes_gate(rd, 'kernel'), (P, rd)
         for n in (1, 7):
             part = mk.mpr_merged(c1[:n].contiguous(), c2[:n].contiguous(),
                                  prm[:n].contiguous(), 8)
@@ -670,6 +667,41 @@ def test_narrowphase_and_contact_rows_hold_on_ragged_and_misaligned_operands(
         moved = ef.contact_rows(model, dm, *(misaligned(c) for c in cand), K)
         for o, f in zip([moved[0]] + moved[1], flat):
             assert torch.equal(o, f), K
+
+
+@pytest.mark.gpu
+def test_mpr_pair_holds_on_ragged_and_misaligned_operands(env):
+    """Row 20 on the seven groups' candidates of tools/profile_newton.py's
+    walk state at 8,193 envs: the seven together pass the gate of rows 6
+    and 20 against the plain version (mpr_kernel.passes_gate); at 1 and
+    133 envs each group is exactly the 8,193-env launch's first envs, and
+    with every operand moved off 16-byte alignment (the kernel's
+    element-load path) exactly the aligned launch."""
+    from flybody_tpu_torch.ops import mpr_kernel as mk
+    from flybody_tpu_torch.physics import kinematics
+    from flybody_tpu_torch.tools import profile_collide, profile_newton
+    model, _, passes = profile_newton.walk_passes(8193, 0)
+    d = kinematics.fwd_position_smooth(model, passes['default'][0])[0]
+    groups = profile_collide.mpr_groups(model, d)
+    outs, refs, f64s = [], [], []
+    for key, pol, pg in groups:
+        full = mk.mpr_pair(*key, pol, *pg)
+        outs.append(full)
+        refs.append(mk.mpr_pair_ref(*key, pol, *pg))
+        f64s.append(mk.mpr_pair_ref(*key, pol, *(t.double() for t in pg)))
+        for n in (1, 133):
+            part = mk.mpr_pair(*key, pol, *(t[:n].contiguous() for t in pg))
+            for o, f in zip(part, full):
+                assert torch.equal(o, f[:n]), (key, n)
+        moved = mk.mpr_pair(*key, pol, *(misaligned(t) for t in pg))
+        for o, f in zip(moved, full):
+            assert torch.equal(o, f), key
+
+    def cat(runs):
+        return tuple(torch.cat([r[i] for r in runs], 1) for i in range(3))
+    rd = mk.gate_readings({'kernel': cat(outs), 'plain': cat(refs)},
+                          cat(f64s))
+    assert mk.passes_gate(rd, 'kernel'), rd
 
 
 def spd_batch(B, n, seed):
